@@ -6,7 +6,8 @@ Every phase passes or the script exits nonzero:
 
 1. the card: a CUDA device, its name and power limit (``nvidia-smi``);
    TF32 off for matmuls and convolutions;
-2. build K1 (``psdr_tpu_torch/csrc/intersect.cu``) with ``nvcc``;
+2. build the kernels (``psdr_tpu_torch/csrc/*.cu``: K1 ``intersect.cu``,
+   K2 ``brute.cu``, K3 ``culled.cu``), one ``nvcc`` per source in parallel;
 3. K1 against its plain PyTorch version on the card: a random triangle
    soup (2048 tris, 600 rays, mixed ``active`` and ``tmax``), then the bench
    scene (20,492 tris) on 2^16 camera rays, 2^16 cosine-bounce rays from
@@ -15,10 +16,24 @@ Every phase passes or the script exits nonzero:
    shapes), and the timed runs' results compared the same way;
 4. ``renderC`` on the card against ``renderC`` on the CPU (64x64, spp 4,
    1,292 tris), same key;
-5. the main path at full width: ``DirectIntegrator(1, 1)`` forward through
+5. the forward at full width: ``DirectIntegrator(1, 1)`` through
    ``render_fn(with_boundary=False, detached=True)`` on
    ``cbox_scene(512, 512, spp=64, occluder_subdiv=5)``: one warm-up frame,
-   three timed frames, then one profiled frame.
+   three timed frames, then one profiled frame; K1 and K2 must launch;
+6. K2 against its plain version, bit for bit: the 700- and 24-triangle
+   soups, then the bench scene's emitter-first sweep of 2^21
+   bounce rays (its 2 emitter faces), timed;
+7. K3's entry point (``ray_intersect_k3``), the counterpart of
+   ``scripts/bench_intersect.py``: 1,280- and 20,480-triangle icospheres
+   under 2^20 tiled pinhole rays and the bench scene's first 2^21-lane
+   camera chunk (tile order, spp 64), each bit for bit against
+   ``k1_plain`` and K1, the camera chunk timed beside both;
+8. a gradient on the card against the same on the CPU (64x64, spp 4);
+9. the main path of this slice, the backward at ``bench.py``'s config:
+   ``value_and_grad`` of mean(img^2) through ``Scene.build`` and
+   ``render_fn(with_boundary=False)`` on ``cbox_scene(512, 512, spp=16,
+   occluder_subdiv=5)``: one warm-up step, three timed steps, then one
+   profiled step; every leaf finite, K1 (both modes) and K2 launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. No JAX is imported.
@@ -43,6 +58,9 @@ IMG_RTOL, IMG_ATOL = 1e-4, 1e-5   # per-pixel, as tests/test_torch_render.py
 IMG_CLOSE_FRAC = 0.99
 IMG_MEAN_REL = 1e-4
 BENCH = dict(width=512, height=512, spp=64, occluder_subdiv=5)
+BWD = dict(BENCH, spp=16)   # bench.py's backward config
+GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
+N_ICO = 1 << 20         # tiled pinhole rays per icosphere (K3's entry point)
 N_CHECK = 1 << 16       # rays per bench-scene comparison
 N_TIME = 1 << 21        # rays per timed sweep: one pass_lanes chunk
 DEVICE = "cuda:0"
@@ -221,6 +239,275 @@ def k1_phase(intersect, bvh_mod, dev):
     return err, ms
 
 
+def exact(label, hk, hp):
+    """Kernel record ``hk`` equal to plain record ``hp`` bit for bit:
+    valid, tri_id, t (inf on misses) and uv. Returns (max |dt| over hit
+    lanes, lanes whose valid differs), both 0, or raises."""
+    vk, vp = hk.valid.cpu().numpy(), hp.valid.cpu().numpy()
+    n_bad = int((vk != vp).sum())
+    diffs = {f: int((getattr(hk, f).cpu().numpy()
+                     != getattr(hp, f).cpu().numpy()).reshape(len(vk), -1)
+                    .any(axis=1).sum())
+             for f in ("tri_id", "t", "uv")}
+    if n_bad or any(diffs.values()):
+        raise AssertionError(f"{label}: not bit-equal: valid differs on "
+                             f"{n_bad} lanes, {diffs}")
+    if not vk.any():
+        raise AssertionError(f"{label}: no lane hit, nothing to compare")
+    log(f"  {label}: {vk.sum()} / {vk.size} hit; valid, tri_id, t, uv equal "
+        "bit for bit")
+    return 0.0, 0
+
+
+def k2_phase(intersect, dev):
+    """Phase 6: K2 against brute_plain on two soups and on the bench
+    scene's 2^21-lane emitter-first sweep, the last timed. Returns
+    ([(max |dt|, valid mismatches), ...], (kernel ms, plain ms))."""
+    from psdr_tpu_torch.accel.bruteforce import brute_plain
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene, triangle_soup
+    err = []
+    for n_tris in (700, 24):
+        args = [torch.as_tensor(x, device=dev)
+                for x in triangle_soup(n_tris=n_tris)]
+        err.append(exact(f"soup {n_tris} tris", intersect.k2_cuda(*args),
+                         brute_plain(*args)))
+    sc = cbox_scene(**BENCH, device=dev)
+    sc.prepare_accel()
+    flat = detach_flat(sc.build(sc.params()))
+    _, (bounce, hit, _), _ = bench_rays(sc, flat, N_TIME, 2, dev)
+    idxs = flat.em_tri_idx
+    args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
+                                             flat.tri.e2)),
+            bounce.o.contiguous(), bounce.d.contiguous(), hit,
+            torch.full_like(hit, float("inf"), dtype=torch.float32))
+    p1, hp = time_ms(lambda: brute_plain(*args), 5)
+    k1, hk = time_ms(lambda: intersect.k2_cuda(*args), 20)
+    k2, _ = time_ms(lambda: intersect.k2_cuda(*args), 20)
+    p2, _ = time_ms(lambda: brute_plain(*args), 5, warmup=False)
+    log(f"  {N_TIME} bounce rays x {idxs.shape[0]} emitter faces "
+        f"({int(hit.sum())} active): kernel {k1:.4f} / {k2:.4f} ms, plain "
+        f"{p1:.3f} / {p2:.3f} ms")
+    err.append(exact(f"{N_TIME} emitter-first sweep", hk, hp))
+    return err, (min(k1, k2), min(p1, p2))
+
+
+def icosphere_case(bvh_mod, dev, subdiv):
+    """An icosphere of 20 * 4^subdiv faces and N_ICO pinhole rays from
+    z = 3 in 32x32 tiles, as scripts/bench_intersect.py lays them out:
+    (bvh, ray_o, ray_d, active, tmax) on ``dev``."""
+    from psdr_tpu_torch.scene.scene import BVH_LEAF_SIZE
+    from psdr_tpu_torch.shape import primitives
+    from psdr_tpu_torch.shape.mesh import compute_triangle_info
+    m = primitives.make_icosphere(subdiv=subdiv, radius=1.0)
+    info, _ = compute_triangle_info(torch.as_tensor(m.vertices, device=dev),
+                                    torch.as_tensor(m.faces, device=dev),
+                                    m.num_vertices)
+    tris = (info.p0, info.e1, info.e2)
+    topo = bvh_mod.build_bvh_topology(*(x.cpu().numpy() for x in tris),
+                                      leaf_size=BVH_LEAF_SIZE)
+    side = int(np.sqrt(N_ICO))
+    g = np.linspace(-0.55, 0.55, side, dtype=np.float32)
+    px, py = np.meshgrid(g, g)
+    d = np.stack([px.ravel(), py.ravel(),
+                  np.full(side * side, -1.0, np.float32)], axis=-1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    yy, xx = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    order = np.lexsort((xx.ravel() % 32, yy.ravel() % 32, xx.ravel() // 32,
+                        yy.ravel() // 32))
+    n = side * side
+    return (bvh_mod.refit_bvh(topo, *tris),
+            torch.tensor([[0.0, 0.0, 3.0]], device=dev).expand(n, 3)
+            .contiguous(), torch.as_tensor(d[order], device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev),
+            torch.full((n,), float("inf"), device=dev)), m.num_faces
+
+
+def tiled_camera_rays(flat, n, spp, seed, dev):
+    """The first n lanes of the main path's camera wavefront: the first
+    n / spp pixels in 32x32-tile order, spp uniformly jittered samples
+    each (numpy seed), as render_interior lays them out."""
+    from psdr_tpu_torch.integrator.base import tiled_pixel_order
+    from psdr_tpu_torch.sensor.perspective import sample_primary_ray
+    w, h = BENCH["width"], BENCH["height"]
+    pix = np.repeat(tiled_pixel_order(w, h)[:n // spp], spp)
+    jitter = np.random.default_rng(seed).uniform(size=(n, 2))
+    xy = (np.stack([pix % w, pix // w], axis=-1) + jitter) / [w, h]
+    return sample_primary_ray(flat.sensors[0],
+                              torch.as_tensor(xy.astype(np.float32),
+                                              device=dev))
+
+
+def k3_phase(intersect, bvh_mod, dev):
+    """Phase 7: K3's entry point over the icospheres and a bench-scene
+    camera chunk, with the launch counts set to 0 just before and read
+    just after; then each result against k1_plain and K1, bit for bit,
+    and the camera chunk timed. Returns (K3 launches on its path,
+    [(max |dt|, valid mismatches), ...], (K3 ms, plain ms, K1 ms))."""
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    cases = [icosphere_case(bvh_mod, dev, s) for s in (3, 5)]
+    sc = cbox_scene(**BENCH, device=dev)
+    sc.prepare_accel()
+    flat = detach_flat(sc.build(sc.params()))
+    cam = tiled_camera_rays(flat, N_TIME, BENCH["spp"], 2, dev)
+    cam_args = (flat.accel, cam.o.contiguous(), cam.d.contiguous(),
+                torch.ones((N_TIME,), dtype=torch.bool, device=dev),
+                torch.full((N_TIME,), float("inf"), device=dev))
+    labels = [f"icosphere {f} tris, {N_ICO} rays" for _, f in cases] + [
+        f"bench camera chunk, {N_TIME} rays"]
+    all_args = [a for a, _ in cases] + [cam_args]
+    torch.cuda.synchronize()
+    intersect.reset_launch_counts()
+    hits = [intersect.ray_intersect_k3(*a) for a in all_args]
+    torch.cuda.synchronize()
+    launches = intersect.LAUNCHES["k3"]
+    if launches != len(all_args):
+        raise AssertionError(f"phase 7: K3 launched {launches} times on "
+                             f"its path, expected {len(all_args)}")
+    err = []
+    for label, args, hk in zip(labels[:-1], all_args[:-1], hits[:-1]):
+        hp = intersect.k1_plain(*args)
+        err.append(exact(f"{label}: K3 vs k1_plain", hk, hp))
+        exact(f"{label}: K1 vs k1_plain", intersect.k1_cuda(*args), hp)
+    # the camera chunk, timed: plain, K3, K3, plain, with K1 and K3's
+    # tensor-code cull (part of K3's time) beside
+    p1, hp = time_ms(lambda: intersect.k1_plain(*cam_args), 1)
+    t1, _ = time_ms(lambda: intersect.k3_cuda(*cam_args), 20)
+    t2, _ = time_ms(lambda: intersect.k3_cuda(*cam_args), 20)
+    c1, (starts, _, _) = time_ms(lambda: intersect.k3_cull(*cam_args), 20)
+    m1, h1 = time_ms(lambda: intersect.k1_cuda(*cam_args), 20)
+    p2, _ = time_ms(lambda: intersect.k1_plain(*cam_args), 1, warmup=False)
+    n_rb = starts.shape[0] - 1
+    log(f"  {labels[-1]}: K3 {t1:.3f} / {t2:.3f} ms, of which the cull "
+        f"{c1:.3f} ms ({int(starts[-1])} occupied leaf blocks over {n_rb} "
+        f"ray blocks); K1 {m1:.3f} ms; plain {p1:.1f} / {p2:.1f} ms")
+    err.append(exact(f"{labels[-1]}: K3 vs k1_plain", hits[-1], hp))
+    exact(f"{labels[-1]}: K1 vs k1_plain", h1, hp)
+    return launches, err, (min(t1, t2), min(p1, p2), m1, c1)
+
+
+def grad_step(render, base, dev, key):
+    """value_and_grad of mean(img^2) (the bench.py loss, target 0) with
+    respect to every params leaf: (loss, [grad per leaf])."""
+    from psdr_tpu_torch.convert import params_from_numpy
+    p = params_from_numpy(base, device=dev, requires_grad=True)
+    loss = torch.mean(render(p, key) ** 2)
+    loss.backward()
+    leaves = [x for k in ("meshes", "bsdfs", "emitters", "sensors")
+              for d in p[k] for x in d.values()]
+    return loss.detach(), [x.grad for x in leaves]
+
+
+def grad_phase(dev):
+    """Phase 8: the gradient at 64x64, spp 4 on the card (twice, to read
+    the spread of the backward's scatter-adds) against the CPU. Returns
+    the largest relative L2 difference of a leaf, card against CPU."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    out = []
+    for d in (dev, dev, torch.device("cpu")):
+        sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=d)
+        render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)
+        loss, g = grad_step(render, sc.params(), d, threefry.PRNGKey(7))
+        out.append((float(loss), [x.cpu().numpy().ravel() for x in g]))
+    (l_a, g_a), (_, g_b), (l_c, g_c) = out
+
+    def rel(x, y):
+        ny = np.linalg.norm(y)
+        return 0.0 if ny == 0 and np.linalg.norm(x) == 0 else float(
+            np.linalg.norm(x - y) / ny)
+
+    spread = max(rel(a, b) for a, b in zip(g_a, g_b))
+    tol = GRAD_REL_L2 + spread
+    worst, worst_cos = 0.0, 1.0
+    for i, (a, c) in enumerate(zip(g_a, g_c)):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"phase 8: leaf {i} not finite on the card")
+        r = rel(a, c)
+        worst = max(worst, r)
+        if np.linalg.norm(c) > 0:
+            worst_cos = min(worst_cos, float(a @ c) / (
+                np.linalg.norm(a) * np.linalg.norm(c)))
+    loss_rel = abs(l_a - l_c) / l_c
+    log(f"  loss card {l_a:.8f} / CPU {l_c:.8f} (relative {loss_rel:.3g}); "
+        f"card run-to-run spread (atomic adds) {spread:.3g}; card vs CPU per "
+        f"leaf: worst relative L2 {worst:.3g} (bound {GRAD_REL_L2} + spread "
+        f"= {tol:.3g}), worst cosine {worst_cos:.7f} (bound {GRAD_COS})")
+    if loss_rel > 1e-5 or worst > tol or worst_cos < GRAD_COS:
+        raise AssertionError("phase 8: card and CPU gradients disagree")
+    return worst
+
+
+def profile_step(fn, label):
+    """One profiled run of ``fn``: wall and device-busy ms, idle share, the
+    intersection kernels' device ms and the top kernels, logged."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    mine = {name: sum(e.self_device_time_total for e in kern
+                      if name in e.key) / 1e3
+            for name in ("k1_kernel", "k2_kernel", "k3_kernel")}
+    log(f"  profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"(idle {1 - busy / wall:.3f} of wall), K1 {mine['k1_kernel']:.2f} "
+        f"ms, K2 {mine['k2_kernel']:.3f} ms, {sum(e.count for e in kern)} "
+        "kernel launches; top kernels:")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:6d}x  {e.key[:100]}")
+
+
+def backward_phase(intersect, dev):
+    """Phase 9: the backward at bench.py's config. Returns the launch
+    counts of the three timed steps."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**BWD, device=dev)
+    render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)
+    base = sc.params()
+    log(f"  remat: {sc.opts.remat_passes!r} -> "
+        f"{sc.opts.resolve_remat(sc.opts.num_pixels * sc.opts.spp)} at "
+        f"{sc.opts.num_pixels * sc.opts.spp} lanes")
+    grad_step(render, base, dev, threefry.PRNGKey(0))          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect.reset_launch_counts()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        loss, grads = grad_step(render, base, dev, threefry.PRNGKey(i + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(intersect.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
+        raise AssertionError(f"phase 9: loss {float(loss)}, leaves without "
+                             f"a finite gradient: {bad}")
+    if launches["closest"] == 0 or launches["any"] == 0 or launches["k2"] == 0:
+        raise AssertionError(f"phase 9: K1 (both modes) and K2 must launch "
+                             f"({launches})")
+    dt = float(np.median(times))
+    samples = BWD["width"] * BWD["height"] * BWD["spp"]
+    log(f"  steps {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f} "
+        f"s -> {samples / dt / 1e6:.3f} M grad-samples/s; loss "
+        f"{float(loss):.6f}; {len(grads)} leaves, all finite; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}")
+    profile_step(lambda: grad_step(render, base, dev, threefry.PRNGKey(9)),
+                 "step")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -245,11 +532,11 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # -- 2. build K1 ----------------------------------------------------------
+    # -- 2. build the kernels -------------------------------------------------
     t0 = time.time()
     lib_path = intersect.build_library()
     intersect.load_library()
-    log(f"phase 2: K1 built in {time.time() - t0:.1f} s -> "
+    log(f"phase 2: K1, K2, K3 built in {time.time() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -276,7 +563,7 @@ def main() -> int:
     if close.mean() < IMG_CLOSE_FRAC or mean_rel >= IMG_MEAN_REL:
         raise AssertionError("phase 4: card and CPU renders disagree")
 
-    # -- 5. the main path at full width --------------------------------------
+    # -- 5. the forward at full width ------------------------------------------
     log("phase 5: DirectIntegrator(1, 1) forward, 512x512, spp 64, "
         f"reuse {os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
     sc = cbox_scene(**BENCH, device=dev)
@@ -304,43 +591,48 @@ def main() -> int:
     if launches["closest"] == 0 or launches["any"] == 0:
         raise AssertionError(f"phase 5: K1 not launched in both modes "
                              f"({launches})")
+    if launches["k2"] == 0:
+        raise AssertionError(f"phase 5: K2 not launched ({launches})")
     rays = BENCH["width"] * BENCH["height"] * BENCH["spp"] * 3
     dt = float(np.median(times))
     log(f"  frames {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f}"
         f" s -> {rays / dt / 1e6:.2f} M rays/s; image mean {img.mean():.6f};"
-        f" peak memory {peak / 2**30:.2f} GiB; K1 launches over 3 frames "
+        f" peak memory {peak / 2**30:.2f} GiB; launches over 3 frames "
         f"{launches}")
 
     # where the time goes: one profiled frame, device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render(params, threefry.PRNGKey(9))
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    k1_dev = sum(e.self_device_time_total for e in kern
-                 if "k1_kernel" in e.key) / 1e3
-    log(f"  profiled frame: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle {1 - busy / wall:.3f} of wall), K1 {k1_dev:.2f} ms, "
-        f"{sum(e.count for e in kern)} kernel launches; top kernels:")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d}x  {e.key[:100]}")
+    profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
     # the random stream: one chunk's (n, 3) uniform draw in tensor code
     key = threefry.PRNGKey(1)
     rng_ms, _ = time_ms(lambda: threefry.uniform(key, (N_TIME, 3), dev), 5)
     log(f"  threefry uniform of ({N_TIME}, 3): {rng_ms:.2f} ms")
 
+    # -- 6. K2 against its plain version --------------------------------------
+    log("phase 6: K2 kernel vs plain PyTorch version on the card")
+    k2_err, k2_ms = k2_phase(intersect, dev)
+
+    # -- 7. K3's entry point ---------------------------------------------------
+    log("phase 7: K3 entry point; K3 and K1 vs k1_plain on the card")
+    k3_launches, k3_err, k3_ms = k3_phase(intersect, bvh_mod, dev)
+
+    # -- 8. a gradient on the card against the CPU -------------------------------
+    log("phase 8: value_and_grad on the card vs on the CPU (64x64, spp 4)")
+    grad_phase(dev)
+
+    # -- 9. the backward at bench.py's config ------------------------------------
+    log("phase 9: DirectIntegrator(1, 1) backward, 512x512, spp 16, reuse "
+        f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
+    bwd = backward_phase(intersect, dev)
+
+    # launches: the backward's three timed steps (the main path); K3, off
+    # the render path, its entry point's run in phase 7
     kernels = [{
         "name": f"ray_intersect_k1 ({mode} hit)",
         "route": "cuda",
         "source": "psdr_tpu_torch/csrc/intersect.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-        "launches": launches[mode],
+        "launches": bwd[mode],
+        "launches_forward": launches[mode],
         # |t| error of the hits: closest against k1_plain's hit, any against
         # the plain Moller-Trumbore on the kernel's triangle
         "max_abs_err": max(e for e, _ in err[mode]),
@@ -348,6 +640,23 @@ def main() -> int:
         "ms": ms[mode][0],
         "plain_ms": ms[mode][1],
     } for mode in ("closest", "any")]
+    kernels.append({
+        "name": "ray_intersect_brute (K2)", "route": "cuda",
+        "source": "psdr_tpu_torch/csrc/brute.cu",
+        "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
+        "launches": bwd["k2"], "launches_forward": launches["k2"],
+        "max_abs_err": max(e for e, _ in k2_err),
+        "valid_mismatches": sum(n for _, n in k2_err),
+        "ms": k2_ms[0], "plain_ms": k2_ms[1]})
+    kernels.append({
+        "name": "ray_intersect_k3 (K3)", "route": "cuda",
+        "source": "psdr_tpu_torch/csrc/culled.cu",
+        "replaces": "psdr_tpu/accel/pallas_kernel.py:232",
+        "launches": k3_launches,
+        "max_abs_err": max(e for e, _ in k3_err),
+        "valid_mismatches": sum(n for _, n in k3_err),
+        "ms": k3_ms[0], "plain_ms": k3_ms[1], "k1_ms": k3_ms[2],
+        "cull_ms": k3_ms[3]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

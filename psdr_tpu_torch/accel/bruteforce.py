@@ -1,7 +1,8 @@
-"""Brute-force closest hit: every ray against every triangle, with a
-running (t, id, uv) reduction over triangle chunks. Counterpart of
-``psdr_tpu/accel/bruteforce.py``. Detached: no gradient flows through a
-hit query."""
+"""Brute-force closest hit in tensor code: every ray against every
+triangle, with a running (t, id, uv) reduction over triangle chunks.
+Counterpart of ``psdr_tpu/accel/bruteforce.py``, and the plain version of
+K2 (``accel/intersect.py`` ``ray_intersect_brute`` dispatches between the
+two). Detached: no gradient flows through a hit query."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -73,20 +74,14 @@ def _brute_small_f(p0, e1, e2, ray_o, ray_d, active, tmax) -> HitRecord:
                      uv=torch.stack([u_best, v_best], dim=-1), t=t_best)
 
 
-def ray_intersect_brute(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
-                        ray_o: torch.Tensor, ray_d: torch.Tensor,
-                        active: torch.Tensor | None = None,
-                        tmax: torch.Tensor | None = None,
-                        tri_block: int = 512) -> HitRecord:
+def brute_plain(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
+                ray_o: torch.Tensor, ray_d: torch.Tensor, active: torch.Tensor,
+                tmax: torch.Tensor, tri_block: int = 512) -> HitRecord:
     """Closest hit over all triangles. p0/e1/e2: (F, 3); ray_o/ray_d:
-    (N, 3). Ties in t go to the lowest triangle id."""
-    p0, e1, e2, ray_o, ray_d = (x.detach() for x in (p0, e1, e2, ray_o, ray_d))
+    (N, 3); active: (N,) bool; tmax: (N,). Ties in t go to the lowest
+    triangle id."""
     n = ray_o.shape[0]
     dev = ray_o.device
-    active = (torch.ones((n,), dtype=torch.bool, device=dev) if active is None
-              else active.detach())
-    tmax = (torch.full((n,), _INF, device=dev) if tmax is None
-            else torch.broadcast_to(tmax.detach(), (n,)))
     if p0.shape[0] <= 24:
         return _brute_small_f(p0, e1, e2, ray_o, ray_d, active, tmax)
 

@@ -1,21 +1,27 @@
-"""K1, the scene-intersection kernel: closest hit or any hit of each ray
-against the refit BVH (``accel/bvh.py``), returning a ``HitRecord``.
+"""The scene-intersection kernels and their plain PyTorch versions. Each
+returns a ``HitRecord`` for rays with t in (RayEpsilon, tmax):
 
-It replaces ``psdr_tpu/accel/pallas_kernel.py`` ``ray_intersect_pallas_culled2``
-(the Pallas kernel the JAX package runs on a TPU). Two implementations hold
-one contract:
-
-* ``k1_cuda``: the hand-written CUDA kernel ``csrc/intersect.cu``, built with
-  ``nvcc`` for ``sm_90a`` at first use and loaded through ``ctypes``. It
-  takes CUDA tensors only and raises if the build or the launch fails.
-* ``k1_plain``: the plain PyTorch version. It mirrors the JAX package's
+* K1, ``ray_intersect_k1``: closest or any hit against the refit BVH
+  (``accel/bvh.py``). Replaces ``psdr_tpu/accel/pallas_kernel.py``
+  ``ray_intersect_pallas_culled2``. Kernel ``csrc/intersect.cu``; plain
+  version ``k1_plain``, which mirrors the JAX package's
   ``ray_intersect_culled`` (``psdr_tpu/accel/bvh.py``): a slab cull of each
-  ray block against the leaf-block AABBs, then a dense Moller-Trumbore over
-  the occupied (ray block, leaf block) pairs.
+  ray block against the leaf-block AABBs, then a dense Moller-Trumbore
+  over the occupied (ray block, leaf block) pairs.
+* K2, ``ray_intersect_brute``: dense closest hit, every ray against every
+  triangle. Replaces ``ray_intersect_pallas``. Kernel ``csrc/brute.cu``;
+  plain version ``bruteforce.brute_plain``.
+* K3, ``ray_intersect_k3``: the same block cull as ``k1_plain`` in tensor
+  code, the occupied leaf blocks of each ray block compacted in ascending
+  order, and a kernel that runs the dense Moller-Trumbore over them.
+  Replaces ``ray_intersect_pallas_culled``. Kernel ``csrc/culled.cu``;
+  plain version ``k1_plain``, whose contract it shares.
 
-``ray_intersect_k1`` dispatches on the device of the rays: CPU tensors take
-the plain version, CUDA tensors launch the kernel. Both return the closest
-hit, ties in t going to the lowest padded slot; in any-hit mode the kernel
+Each entry point dispatches on the device of the rays: CPU tensors take
+the plain version, CUDA tensors launch the kernel, which is built with
+``nvcc`` for ``sm_90a`` at first use and loaded through ``ctypes``; a
+failed build or launch raises. Closest hits go to the lowest t, ties to
+the lowest triangle id (K2) or padded slot (K1, K3); in any-hit mode K1
 returns the first hit its walk accepts, so only ``valid`` is comparable
 there.
 """
@@ -31,14 +37,15 @@ from pathlib import Path
 import torch
 
 from ..core.constants import RayEpsilon
-from .bruteforce import HitRecord, _accept, moller_trumbore_tile
+from .bruteforce import HitRecord, _accept, brute_plain, moller_trumbore_tile
 from .bvh import BVH
 
 _INF = float("inf")
 
-# Launches of the CUDA kernel by mode, counted where k1_cuda launches it
-# and nowhere else (chip_smoke.py reads them to show the path ran K1).
-LAUNCHES = {"closest": 0, "any": 0}
+# Launches of each CUDA kernel (K1 by mode), counted where its wrapper
+# launches it and nowhere else (chip_smoke.py reads them to show the path
+# ran the kernels).
+LAUNCHES = {"closest": 0, "any": 0, "k2": 0, "k3": 0}
 
 
 def reset_launch_counts() -> None:
@@ -46,12 +53,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def ray_intersect_k1(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                     active: torch.Tensor | None = None,
-                     tmax: torch.Tensor | None = None,
-                     any_hit: bool = False) -> HitRecord:
-    """Closest hit (or, with ``any_hit``, some hit) with t in
-    (RayEpsilon, tmax) for every active ray."""
+def _rays(ray_o, ray_d, active, tmax):
+    """Detached, contiguous float32 rays, bool ``active`` and (N,) tmax."""
     n = ray_o.shape[0]
     dev = ray_o.device
     ray_o = ray_o.detach().float().contiguous()
@@ -60,19 +63,60 @@ def ray_intersect_k1(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
               else active.detach().to(torch.bool).contiguous())
     tmax = (torch.full((n,), _INF, device=dev) if tmax is None
             else torch.broadcast_to(tmax.detach().float(), (n,)).contiguous())
-    if dev.type == "cuda":
-        return k1_cuda(bvh, ray_o, ray_d, active, tmax, any_hit)
-    if dev.type == "cpu":
-        return k1_plain(bvh, ray_o, ray_d, active, tmax)
-    raise ValueError(f"K1 runs on CUDA or CPU tensors, not {dev}")
+    return ray_o, ray_d, active, tmax
 
 
-# -- the CUDA kernel ------------------------------------------------------------
+def _device_of(ray_o, name):
+    dev = ray_o.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {dev}")
+    return dev.type
+
+
+def ray_intersect_k1(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                     active: torch.Tensor | None = None,
+                     tmax: torch.Tensor | None = None,
+                     any_hit: bool = False) -> HitRecord:
+    """Closest hit (or, with ``any_hit``, some hit) with t in
+    (RayEpsilon, tmax) for every active ray."""
+    args = (bvh, *_rays(ray_o, ray_d, active, tmax))
+    if _device_of(ray_o, "K1") == "cuda":
+        return k1_cuda(*args, any_hit)
+    return k1_plain(*args)
+
+
+def ray_intersect_brute(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
+                        ray_o: torch.Tensor, ray_d: torch.Tensor,
+                        active: torch.Tensor | None = None,
+                        tmax: torch.Tensor | None = None) -> HitRecord:
+    """K2: closest hit over all triangles (p0/e1/e2: (F, 3)) with t in
+    (RayEpsilon, tmax); ties in t go to the lowest triangle id."""
+    tris = tuple(x.detach().float().contiguous() for x in (p0, e1, e2))
+    args = (*tris, *_rays(ray_o, ray_d, active, tmax))
+    if _device_of(ray_o, "K2") == "cuda":
+        return k2_cuda(*args)
+    return brute_plain(*args)
+
+
+def ray_intersect_k3(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                     active: torch.Tensor | None = None,
+                     tmax: torch.Tensor | None = None,
+                     ray_block: int = 512, tri_block: int = 128) -> HitRecord:
+    """K3: block-culled closest hit with t in (RayEpsilon, tmax), with
+    ``ray_block`` rays per culled block and ``tri_block`` triangle slots
+    per leaf block. The result equals ``k1_plain``'s."""
+    args = (bvh, *_rays(ray_o, ray_d, active, tmax))
+    if _device_of(ray_o, "K3") == "cuda":
+        return k3_cuda(*args, ray_block=ray_block, tri_block=tri_block)
+    return k1_plain(*args)
+
+
+# -- the CUDA kernels -----------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "intersect.cu",)
+_SOURCES = (_CSRC / "intersect.cu", _CSRC / "brute.cu", _CSRC / "culled.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "psdr_tpu_torch"
 _LIB = None
 
@@ -85,28 +129,43 @@ def _find_nvcc() -> str | None:
 
 
 def build_library(nvcc: str | None = None) -> Path:
-    """Compile ``csrc/intersect.cu`` into
-    ``build/psdr_tpu_torch/<source hash>/libpsdr_k1.so`` unless that file
-    exists; ``nvcc -Xptxas -v`` output goes to ``build.log`` beside it."""
+    """Compile ``csrc/*.cu`` (K1, K2, K3), one ``nvcc`` per source, all
+    started together, and link them into one library,
+    ``build/psdr_tpu_torch/<hash of the sources>/libpsdr_kernels.so``,
+    unless that file exists. Each source's ``nvcc -Xptxas -v`` output goes
+    to ``build.log`` beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _SOURCES:
         h.update(src.read_bytes())
-    out = BUILD_ROOT / h.hexdigest()[:16] / "libpsdr_k1.so"
+    out = BUILD_ROOT / h.hexdigest()[:16] / "libpsdr_kernels.so"
     if out.exists():
         return out
     nvcc = nvcc or _find_nvcc()
     if nvcc is None or not os.path.exists(nvcc):
         raise RuntimeError(
-            "K1 needs nvcc (the CUDA toolkit) to build csrc/intersect.cu; "
-            f"none found (looked for {nvcc or 'nvcc on PATH'})")
+            "the intersection kernels need nvcc (the CUDA toolkit) to build "
+            f"csrc/*.cu; none found (looked for {nvcc or 'nvcc on PATH'})")
     out.parent.mkdir(parents=True, exist_ok=True)
+    # nvcc reads a file's type from its extension: objects end in .o
+    objs = [out.with_name(f"{src.stem}.{os.getpid()}.o") for src in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                               "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(_SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    (out.parent / "build.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -116,70 +175,179 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library(nvcc)))
-        fn = lib.psdr_k1_intersect
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * 6 + [i32, i32] + [ptr] * 4 + [i32, i32]
-                       + [ptr] * 3 + [ptr])
-        fn.restype = i32
+        lib.psdr_k1_intersect.argtypes = (
+            [ptr] * 6 + [i32, i32] + [ptr] * 4 + [i32, i32] + [ptr] * 3
+            + [ptr])
+        lib.psdr_k2_brute.argtypes = (
+            [ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+        lib.psdr_k3_culled.argtypes = (
+            [ptr] * 3 + [i32, i32] + [ptr] * 2 + [i32, i32]
+            + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+        for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
+                   lib.psdr_k3_culled):
+            fn.restype = i32
         _LIB = lib
     return _LIB
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"K1: {name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"K1: {name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"K1: {name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"K1: {name} must be contiguous")
+def _check(kernel, specs, device):
+    """Raise unless every (name, tensor, dtype, shape) of ``specs`` lies on
+    ``device`` with that dtype and shape, contiguous."""
+    for name, x, dtype, shape in specs:
+        if x.device != device:
+            raise ValueError(f"{kernel}: {name} is on {x.device}, "
+                             f"expected {device}")
+        if x.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, "
+                             f"expected {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape "
+                             f"{tuple(x.shape)}, expected {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _ray_specs(ray_o, ray_d, active, tmax):
+    n = ray_o.shape[0]
+    if n >= (1 << 31):
+        raise ValueError("the kernels index rays with int32")
+    return [("ray_o", ray_o, torch.float32, (n, 3)),
+            ("ray_d", ray_d, torch.float32, (n, 3)),
+            ("tmax", tmax, torch.float32, (n,)),
+            ("active", active, torch.bool, (n,))]
+
+
+def _bvh_specs(bvh):
+    P, L = bvh.num_leaves, bvh.leaf_size
+    if P * L >= (1 << 31):
+        raise ValueError("the kernels index slots with int32")
+    return [("nodes", bvh.nodes, torch.float32, (2 * P, 6)),
+            ("node_mask", bvh.node_mask, torch.bool, (2 * P,)),
+            ("skip", bvh.skip, torch.int32, (2 * P,)),
+            ("leaf_tris", bvh.leaf_tris, torch.float32, (P, 9 * L)),
+            ("tri_valid", bvh.tri_valid, torch.bool, (P, L)),
+            ("perm", bvh.perm, torch.int32, (P * L,))]
+
+
+def _cuda_device(kernel, ray_o):
+    dev = ray_o.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} takes CUDA tensors, got {dev}")
+    return dev
+
+
+def _launch(kernel, fn, *args, dev):
+    """Call the C launcher ``fn`` on ``dev``'s current stream; raise unless
+    it returns cudaSuccess."""
+    with torch.cuda.device(dev):   # the launch goes to the current device
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaGetLastError() = "
+                           f"{err}")
+
+
+def _outputs(n, dev):
+    return (torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev),
+            torch.empty((n, 2), dtype=torch.float32, device=dev))
 
 
 def k1_cuda(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
             active: torch.Tensor, tmax: torch.Tensor,
             any_hit: bool = False) -> HitRecord:
-    """Launch ``csrc/intersect.cu`` on the current stream."""
-    dev = ray_o.device
-    if dev.type != "cuda":
-        raise ValueError(f"k1_cuda takes CUDA tensors, got {dev}")
+    """Launch K1 (``csrc/intersect.cu``) on the current stream."""
+    dev = _cuda_device("k1_cuda", ray_o)
+    _check("K1", _bvh_specs(bvh) + _ray_specs(ray_o, ray_d, active, tmax),
+           dev)
     n = ray_o.shape[0]
-    P, L = bvh.num_leaves, bvh.leaf_size
-    for name, x, dtype, shape in (
-            ("nodes", bvh.nodes, torch.float32, (2 * P, 6)),
-            ("node_mask", bvh.node_mask, torch.bool, (2 * P,)),
-            ("skip", bvh.skip, torch.int32, (2 * P,)),
-            ("leaf_tris", bvh.leaf_tris, torch.float32, (P, 9 * L)),
-            ("tri_valid", bvh.tri_valid, torch.bool, (P, L)),
-            ("perm", bvh.perm, torch.int32, (P * L,)),
-            ("ray_o", ray_o, torch.float32, (n, 3)),
-            ("ray_d", ray_d, torch.float32, (n, 3)),
-            ("tmax", tmax, torch.float32, (n,)),
-            ("active", active, torch.bool, (n,))):
-        _check(name, x, dtype, shape, dev)
-    if n >= (1 << 31) or P * L >= (1 << 31):
-        raise ValueError("K1 indexes rays and slots with int32")
     lib = load_library()
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):   # the launch goes to the current device
-        err = lib.psdr_k1_intersect(
+    t, tri, uv = _outputs(n, dev)
+    _launch("K1", lib.psdr_k1_intersect,
             bvh.nodes.data_ptr(), bvh.node_mask.data_ptr(),
             bvh.skip.data_ptr(), bvh.leaf_tris.data_ptr(),
-            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), P, L,
-            ray_o.data_ptr(), ray_d.data_ptr(), tmax.data_ptr(),
-            active.data_ptr(), n, int(bool(any_hit)), t.data_ptr(),
-            tri.data_ptr(), uv.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaGetLastError() = {err}")
+            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), bvh.num_leaves,
+            bvh.leaf_size, ray_o.data_ptr(), ray_d.data_ptr(),
+            tmax.data_ptr(), active.data_ptr(), n, int(bool(any_hit)),
+            t.data_ptr(), tri.data_ptr(), uv.data_ptr(), dev=dev)
     LAUNCHES["any" if any_hit else "closest"] += 1
     return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
 
 
-# -- the plain PyTorch version --------------------------------------------------
+def k2_cuda(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
+            ray_o: torch.Tensor, ray_d: torch.Tensor, active: torch.Tensor,
+            tmax: torch.Tensor) -> HitRecord:
+    """Launch K2 (``csrc/brute.cu``) on the current stream."""
+    dev = _cuda_device("k2_cuda", ray_o)
+    f = p0.shape[0]
+    if f >= (1 << 31):
+        raise ValueError("K2 indexes triangles with int32")
+    _check("K2", [(name, x, torch.float32, (f, 3))
+                  for name, x in (("p0", p0), ("e1", e1), ("e2", e2))]
+           + _ray_specs(ray_o, ray_d, active, tmax), dev)
+    n = ray_o.shape[0]
+    lib = load_library()
+    t, tri, uv = _outputs(n, dev)
+    _launch("K2", lib.psdr_k2_brute, p0.data_ptr(), e1.data_ptr(),
+            e2.data_ptr(), f, ray_o.data_ptr(), ray_d.data_ptr(),
+            tmax.data_ptr(), active.data_ptr(), n, t.data_ptr(),
+            tri.data_ptr(), uv.data_ptr(), dev=dev)
+    LAUNCHES["k2"] += 1
+    return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
+
+
+def k3_cull(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+            active: torch.Tensor, tmax: torch.Tensor, ray_block: int = 512,
+            tri_block: int = 128):
+    """K3's tensor-code half: ``_block_cull`` of ``ray_block``-ray blocks
+    against ``tri_block``-slot leaf blocks, compacted into a CSR list:
+    ``starts`` (n_rb + 1,) int32 and ``blocks`` (starts[-1],) int32, each
+    ray block's occupied leaf blocks in ascending order. Returns
+    (starts, blocks, tri_block)."""
+    P, L = bvh.num_leaves, bvh.leaf_size
+    T = min(tri_block, P * L)
+    if T % L or (P * L) % T:
+        raise ValueError("K3: tri_block must be a multiple of the leaf size "
+                         "that divides the padded slot count")
+    occupied = _block_cull(bvh, ray_o, ray_d, active, tmax, ray_block, T)[4]
+    # row-major nonzero: each ray block's leaf blocks in ascending order
+    blocks = torch.nonzero(occupied)[:, 1].to(torch.int32).contiguous()
+    starts = torch.zeros((occupied.shape[0] + 1,), dtype=torch.int32,
+                         device=occupied.device)
+    starts[1:] = torch.cumsum(occupied.sum(dim=1), dim=0)
+    return starts, blocks, T
+
+
+def k3_cuda(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+            active: torch.Tensor, tmax: torch.Tensor, ray_block: int = 512,
+            tri_block: int = 128) -> HitRecord:
+    """``k3_cull``, then K3 (``csrc/culled.cu``) on the current stream:
+    one CTA of ``ray_block`` threads per ray block, over that block's
+    occupied leaf blocks in ascending order."""
+    dev = _cuda_device("k3_cuda", ray_o)
+    _check("K3", _bvh_specs(bvh) + _ray_specs(ray_o, ray_d, active, tmax),
+           dev)
+    if not 32 <= ray_block <= 1024 or ray_block % 32:
+        raise ValueError("K3: ray_block must be a multiple of 32 in "
+                         "[32, 1024]")
+    n = ray_o.shape[0]
+    t, tri, uv = _outputs(n, dev)
+    if n == 0:
+        return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
+    starts, blocks, T = k3_cull(bvh, ray_o, ray_d, active, tmax, ray_block,
+                                tri_block)
+    lib = load_library()
+    _launch("K3", lib.psdr_k3_culled, bvh.leaf_tris.data_ptr(),
+            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), bvh.leaf_size, T,
+            starts.data_ptr(), blocks.data_ptr(), starts.shape[0] - 1,
+            ray_block, ray_o.data_ptr(), ray_d.data_ptr(), tmax.data_ptr(),
+            active.data_ptr(), n, t.data_ptr(), tri.data_ptr(), uv.data_ptr(),
+            dev=dev)
+    LAUNCHES["k3"] += 1
+    return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
+
+
+# -- the plain PyTorch version of K1 and K3 --------------------------------------
 
 def _tri_comps_at(bvh: BVH, slot: torch.Tensor):
     """The 9 triangle components (p0, e1, e2) of padded slots ``slot``."""
@@ -196,31 +364,18 @@ CULL_ELEMS = 1 << 23
 PAIR_ELEMS = 1 << 23
 
 
-def k1_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
-             active: torch.Tensor, tmax: torch.Tensor) -> HitRecord:
-    """Block-culled dense closest hit in tensor code.
-
-    The leaf blocks are the heap level with ``B = P*L/T`` nodes (``T``
-    Morton-adjacent triangles each). Each ray block of ``R`` lanes is
-    slab-tested against every block AABB over (RayEpsilon, tmax); every
-    occupied (ray block, leaf block) pair then runs a dense (R, T)
-    Moller-Trumbore, batched over pairs. Each lane keeps the smallest
-    (t, slot) key over its pairs: the closest hit, ties to the lowest slot,
-    as a sequential sweep in block order would give. The winner's (u, v, t)
-    are recomputed by the same arithmetic."""
+def _block_cull(bvh: BVH, ray_o, ray_d, active, tmax, R: int, T: int):
+    """Slab cull of each block of ``R`` rays against the AABBs of the
+    leaf blocks of ``T`` slots (the heap level with ``P*L/T`` nodes), over
+    (RayEpsilon, tmax), a group of ray blocks at a time. Returns the rays
+    padded and reshaped to (n_rb, R, ...) as (o, d, active, tmax) and the
+    (n_rb, B) occupancy."""
     n = ray_o.shape[0]
     dev = ray_o.device
     P, L = bvh.num_leaves, bvh.leaf_size
-    T = min(TRI_BLOCK, P * L)
     B = max(1, P * L // T)
     blo, bhi = bvh.nodes[B:2 * B, :3], bvh.nodes[B:2 * B, 3:]
     block_mask = bvh.node_mask[B:2 * B]
-    # (P, 9L) -> (B, leaves/block, 9, L) -> (B, 9, T)
-    tri_rows = (bvh.leaf_tris.reshape(B, P // B, 9, L)
-                .permute(0, 2, 1, 3).reshape(B, 9, T))
-    valid_rows = bvh.tri_valid.reshape(B, T)
-
-    R = min(RAY_BLOCK, max(8, n))
     n_rb = -(-n // R)
     pad = n_rb * R - n
     o = torch.nn.functional.pad(ray_o, (0, 0, 0, pad)).reshape(n_rb, R, 3)
@@ -229,8 +384,6 @@ def k1_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
     tm = torch.nn.functional.pad(tmax, (0, pad)).reshape(n_rb, R)
     small = torch.abs(d) < 1e-20
     inv_d = 1.0 / torch.where(small, torch.where(d < 0, -1e-20, 1e-20), d)
-
-    # --- cull: (ray blocks, R, B) slab tests, a group of ray blocks at once
     occupied = torch.zeros((n_rb, B), dtype=torch.bool, device=dev)
     g = max(1, CULL_ELEMS // (R * B))
     for s in range(0, n_rb, g):
@@ -245,6 +398,31 @@ def k1_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
             tf = torch.minimum(tf, torch.maximum(t0, t1))
         occupied[sl] = (((tn <= tf) & act[sl, :, None]).any(dim=1)
                         & block_mask[None, :])
+    return o, d, act, tm, occupied
+
+
+def k1_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+             active: torch.Tensor, tmax: torch.Tensor) -> HitRecord:
+    """Block-culled dense closest hit in tensor code.
+
+    ``_block_cull`` marks the occupied (ray block, leaf block) pairs; each
+    then runs a dense (R, T) Moller-Trumbore, batched over pairs. Each lane
+    keeps the smallest (t, slot) key over its pairs: the closest hit, ties
+    to the lowest slot, as a sequential sweep in block order would give.
+    The winner's (u, v, t) are recomputed by the same arithmetic."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    P, L = bvh.num_leaves, bvh.leaf_size
+    T = min(TRI_BLOCK, P * L)
+    B = max(1, P * L // T)
+    # (P, 9L) -> (B, leaves/block, 9, L) -> (B, 9, T)
+    tri_rows = (bvh.leaf_tris.reshape(B, P // B, 9, L)
+                .permute(0, 2, 1, 3).reshape(B, 9, T))
+    valid_rows = bvh.tri_valid.reshape(B, T)
+    R = min(RAY_BLOCK, max(8, n))
+    o, d, act, tm, occupied = _block_cull(bvh, ray_o, ray_d, active, tmax,
+                                          R, T)
+    n_rb = occupied.shape[0]
 
     # --- dense MT over occupied pairs; key = (t bits << 32) | slot
     none = torch.iinfo(torch.int64).max

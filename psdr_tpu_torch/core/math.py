@@ -1,7 +1,8 @@
 """Vectorized geometry and shading math; the last axis carries vector
-components. Counterpart of ``psdr_tpu/core/math.py``, forward only: the
-bounded derivative of ``safe_sqrt`` waits for slice 2 (the backward), so
-it refuses tensors that require grad."""
+components. Counterpart of ``psdr_tpu/core/math.py``. ``safe_sqrt`` and
+``safe_acos`` carry the JAX package's bounded derivatives in both autograd
+modes: a ``backward`` for reverse mode and a ``jvp`` for forward mode
+(``torch.autograd.forward_ad``)."""
 from __future__ import annotations
 
 import torch
@@ -32,15 +33,61 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
     return a * safe_rsqrt(squared_norm(a))[..., None]
 
 
-def _forward_only(x: torch.Tensor, name: str) -> None:
-    if x.requires_grad:
-        raise NotImplementedError(
-            f"{name}'s bounded derivative waits for slice 2 (the backward)")
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) with the derivative 0.5 / max(y, 1e-6): plain sqrt's
+    is inf at 0, which poisons whole wavefronts even on masked lanes."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(torch.clamp(x, min=0.0))
+        ctx.save_for_backward(y)
+        ctx.save_for_forward(y)
+        return y
+
+    @staticmethod
+    def _slope(ctx):
+        (y,) = ctx.saved_tensors
+        return 0.5 / torch.clamp(y, min=1e-6)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * _SafeSqrt._slope(ctx)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * _SafeSqrt._slope(ctx)
+
+
+class _SafeAcos(torch.autograd.Function):
+    """acos(clip(x, -1, 1)) with the derivative -1 / sqrt(max(1 - x^2,
+    1e-8)), finite at the poles |x| = 1."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+        return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+    @staticmethod
+    def _slope(ctx):
+        (x,) = ctx.saved_tensors
+        return -1.0 / torch.sqrt(torch.clamp(1.0 - x * x, min=1e-8))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * _SafeAcos._slope(ctx)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * _SafeAcos._slope(ctx)
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
-    _forward_only(x, "safe_sqrt")
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return _SafeSqrt.apply(x)
+
+
+def safe_acos(x: torch.Tensor) -> torch.Tensor:
+    return _SafeAcos.apply(x)
 
 
 def sqr(x):
@@ -54,6 +101,22 @@ def bilinear(p0, e1, e2, st):
 
 def rgb2luminance(rgb: torch.Tensor) -> torch.Tensor:
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
+def ray_intersect_triangle(p0, e1, e2, ray_o, ray_d):
+    """Differentiable Moller-Trumbore without validity clipping; returns
+    ((u, v), t). The caller masks."""
+    h = cross(ray_d, e2)
+    a = dot(e1, h)
+    # guard the parallel case so masked lanes cannot carry NaN gradients
+    a = torch.where(torch.abs(a) < 1e-20, torch.full_like(a, 1e-20), a)
+    f = 1.0 / a
+    s = ray_o - p0
+    u = f * dot(s, h)
+    q = cross(s, e1)
+    v = f * dot(ray_d, q)
+    t = f * dot(e2, q)
+    return torch.stack([u, v], dim=-1), t
 
 
 def scrub_nonfinite(x: torch.Tensor) -> torch.Tensor:

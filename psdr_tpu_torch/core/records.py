@@ -61,11 +61,10 @@ class BSDFSample(NamedTuple):
 @dataclass(frozen=True)
 class RenderOptions:
     """Render configuration; field names and defaults as in the JAX
-    package. ``log_level``, ``remat_passes`` and ``remat_lanes`` are carried
-    for the same names and have no effect on a forward render. ``sppe``,
-    ``sppse``, ``primary_edge_vis_check`` and ``camera_hit_prior`` wait for
-    slice 2 (boundary terms and the backward): ``Scene.build`` raises on
-    ``sppe``/``sppse`` > 0 and ``render_interior`` on the prior."""
+    package. ``log_level`` is carried for the same name and has no effect.
+    ``sppe``, ``sppse`` and ``primary_edge_vis_check`` wait for the boundary
+    terms (slice 2, second part): ``Scene.build`` raises on ``sppe``/``sppse``
+    > 0."""
     width: int = 64
     height: int = 64
     spp: int = 1
@@ -75,13 +74,30 @@ class RenderOptions:
     primary_edge_vis_check: bool = False
     # max lanes materialized at once; larger wavefronts run in passes
     pass_lanes: int = 1 << 21
+    # checkpoint each pass chunk under autograd: the backward re-runs the
+    # chunk's forward instead of keeping its intermediates. "auto" = on
+    # when the wavefront has more than remat_lanes lanes
     remat_passes: bool | str = "auto"
     remat_lanes: int = 1 << 23
     stratify_primary: bool = True
     # "sobol" (XOR-scrambled (0,2)-sequence over subpixel + first NEE/BSDF
     # dims) | "stratified" | "independent"
     sampler: str = "sobol"
+    # camera-hit prior: a detached pixel-center pre-trace records each
+    # pixel's hit triangle, and every camera ray's closest-hit query is
+    # bounded by its hit on that candidate. Exact; off by default, as in
+    # the JAX package. "auto" = on when spp >= 4
     camera_hit_prior: bool | str = False
+
+    def resolve_remat(self, count: int) -> bool:
+        if self.remat_passes == "auto":
+            return count > self.remat_lanes
+        return bool(self.remat_passes)
+
+    def resolve_camera_prior(self, spp: int) -> bool:
+        if self.camera_hit_prior == "auto":
+            return spp >= 4
+        return bool(self.camera_hit_prior)
 
     @property
     def num_pixels(self) -> int:

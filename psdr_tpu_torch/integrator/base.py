@@ -1,24 +1,76 @@
 """Integrator base: wavefront generation and image accumulation.
 
-Counterpart of ``psdr_tpu/integrator/base.py`` for the interior term of a
-detached forward render. One lane per (pixel, sample); lanes are
-pixel-major along a 32x32 tile traversal and run in pixel-aligned chunks of
-``RenderOptions.pass_lanes``, each with its own key from ``split``. The
-boundary estimators, the camera-hit prior, lane sharding and differentiable
-renders wait for later slices and raise ``NotImplementedError``.
+Counterpart of ``psdr_tpu/integrator/base.py`` for the interior term, in
+the forward render and under autograd. One lane per (pixel, sample); lanes
+are pixel-major along a 32x32 tile traversal and run in chunks of
+``RenderOptions.pass_lanes``, each with its own key from ``split``. Under
+``RenderOptions.resolve_remat`` each chunk is checkpointed: the backward
+re-runs the chunk's forward (same key, so the same uniforms and the same
+hits) instead of keeping its intermediates. The boundary estimators and
+lane sharding wait for later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import threefry
-from ..core.math import scrub_nonfinite
+from ..core.constants import RayEpsilon
+from ..core.gather import gather_rows
+from ..core.math import ray_intersect_triangle, scrub_nonfinite
+from ..core.records import RenderOptions
 from ..core.sampler import RngStream, ld_2d
-from ..scene.scene import FlatScene, Scene, detach_flat
+from ..scene.scene import FlatScene, Scene, _closest_hit, detach_flat
 from ..sensor.perspective import sample_primary_ray
 
 _M32 = 0xFFFFFFFF
+
+
+def camera_prior_rows(flat: FlatScene, sensor_id: int, pix_order: torch.Tensor,
+                      opts: RenderOptions) -> torch.Tensor:
+    """Detached per-pixel candidate rows for the camera-hit prior: one
+    pixel-center ray per pixel, packed as ``[p0 e1 e2 tri_id]`` (10 floats)
+    in tile order, so a pixel-aligned chunk reads its candidates as one
+    slice. Missed pixels get an all-zero row whose candidate never hits."""
+    flat_det = detach_flat(flat)
+    dev = pix_order.device
+    base = torch.stack([(pix_order % opts.width).float(),
+                        (pix_order // opts.width).float()], dim=-1)
+    film = torch.tensor([opts.width, opts.height], dtype=torch.float32,
+                        device=dev)
+    ray = sample_primary_ray(flat_det.sensors[sensor_id], (base + 0.5) / film)
+    hit = _closest_hit(flat_det, ray, torch.ones(pix_order.shape,
+                                                 dtype=torch.bool, device=dev))
+    rows = gather_rows(flat_det.face_table,
+                       torch.clamp(hit.tri_id, min=0))[:, 0:9]
+    rows = torch.where(hit.valid[..., None], rows, 0.0)
+    # tri ids are < 2^24 (enforced at build): exact in float32
+    tid = torch.where(hit.valid, hit.tri_id, -1).float()
+    return torch.cat([rows, tid[:, None]], dim=1)
+
+
+def camera_prior_for_rays(prior_rows_c: torch.Tensor, ray, spp: int):
+    """Per-lane prior tuple for ``ray_intersect_with_prior``: each pixel's
+    candidate row goes to its spp lanes, and each lane's ray is
+    intersected with it. A candidate hit is a real scene hit, so its t
+    bounds the closest t even for a row of another pixel."""
+    m = ray.o.shape[0]
+    ppc = prior_rows_c.shape[0]
+    pr = prior_rows_c[:, None, :].expand(ppc, spp, 10).reshape(m, 10)
+    o, d = ray.o.detach(), ray.d.detach()
+    uv_c, t_c = ray_intersect_triangle(pr[:, 0:3], pr[:, 3:6], pr[:, 6:9],
+                                       o, d)
+    cand_tri = pr[:, 9].to(torch.int32)
+    ok = ((uv_c[:, 0] >= 0.0) & (uv_c[:, 1] >= 0.0)
+          & (uv_c[:, 0] + uv_c[:, 1] <= 1.0) & (t_c > RayEpsilon)
+          & (t_c < 1e30) & (cand_tri >= 0))
+    inf = float("inf")
+    # the margin covers a last-ulp disagreement with the hit query's MT;
+    # a looser bound costs cull work, never correctness
+    tmax_b = torch.where(ok, t_c * 1.001 + 1e-4, inf)
+    return (tmax_b, cand_tri, torch.where(ok[..., None], uv_c, 0.0),
+            torch.where(ok, t_c, inf), ok)
 
 
 def tiled_pixel_order(width: int, height: int, tile: int = 32) -> np.ndarray:
@@ -44,6 +96,42 @@ def tile_pos_to_pixel(pos: torch.Tensor, width: int, height: int,
     return y * width + x
 
 
+def accumulate_image(value: torch.Tensor, pixel_idx: torch.Tensor,
+                     num_pixels: int) -> torch.Tensor:
+    """Sum sample values into a (num_pixels, 3) image; lanes with
+    ``pixel_idx < 0`` go to an overflow row that is dropped."""
+    idx = torch.where(pixel_idx >= 0, pixel_idx, num_pixels).long()
+    img = torch.zeros((num_pixels + 1, 3), dtype=value.dtype,
+                      device=value.device)
+    return img.index_add(0, idx, value)[:num_pixels]
+
+
+def _checkpointed(fn):
+    """``fn`` whose intermediates the backward recomputes instead of
+    keeping (``torch.utils.checkpoint``)."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def scan_lane_chunks(run_lanes, n: int, num_pixels: int, key: torch.Tensor,
+                     pass_lanes: int, device, remat: bool = False
+                     ) -> torch.Tensor:
+    """Run ``run_lanes(lane (m,), key) -> (num_pixels, 3)`` over the
+    wavefront in chunks of ``pass_lanes`` and sum the images. ``remat``
+    checkpoints each chunk."""
+    chunk = min(pass_lanes, n)
+    n_chunks = -(-n // chunk)
+    if remat:
+        run_lanes = _checkpointed(run_lanes)
+    if n_chunks == 1:
+        return run_lanes(torch.arange(n, device=device), key)
+    keys = threefry.split(key, n_chunks)
+    img = torch.zeros((num_pixels, 3), device=device)
+    for c in range(n_chunks):
+        lane = c * chunk + torch.arange(chunk, device=device)
+        img = img + run_lanes(lane, keys[c])
+    return img
+
+
 def _pix_hash(idx: torch.Tensor, word: int) -> torch.Tensor:
     """Per-pixel 32-bit hash of (pixel id, word), as the JAX package's
     scramble words (uint32 in int64)."""
@@ -54,8 +142,9 @@ def _pix_hash(idx: torch.Tensor, word: int) -> torch.Tensor:
 
 
 class Integrator:
-    """Base class; subclasses implement ``Li(scene, flat, rng, ray,
-    active)``."""
+    """Base class; subclasses implement ``Li(scene, flat, rng, ray, active,
+    prior=None)``. ``prior`` is the optional camera-hit prior for the
+    camera closest hit (``scene.ray_intersect_with_prior``)."""
 
     def Li(self, scene: Scene, flat: FlatScene, rng: RngStream, ray, active,
            prior=None) -> torch.Tensor:
@@ -67,8 +156,6 @@ class Integrator:
         if shard is not None:
             raise NotImplementedError("lane sharding waits for slice 5")
         opts = scene.opts
-        if opts.camera_hit_prior:
-            raise NotImplementedError("the camera-hit prior waits for slice 2")
         num_pixels = opts.num_pixels
         spp = opts.spp
         dev = scene.device
@@ -76,20 +163,20 @@ class Integrator:
             return torch.zeros((num_pixels, 3), device=dev)
         n = num_pixels * spp
         chunk = min(opts.pass_lanes, n)
-        if chunk % spp:
-            raise NotImplementedError(
-                "render_interior runs pixel-aligned chunks only: pass_lanes "
-                "must be a multiple of spp")
         pix_order_np = tiled_pixel_order(opts.width, opts.height)
         pix_order = torch.as_tensor(pix_order_np, device=dev).long()
         if opts.sampler not in ("sobol", "independent"):
             raise NotImplementedError(
                 f"sampler={opts.sampler!r} is not ported yet")
         use_sobol = opts.sampler == "sobol" and spp > 1
+        # pixel-aligned chunks: each pixel's spp lanes are adjacent, which
+        # the NEE visibility reuse and the per-chunk reduction rely on
+        aligned = chunk % spp == 0
         film = torch.tensor([opts.width, opts.height], dtype=torch.float32,
                             device=dev)
+        remat = opts.resolve_remat(n)
 
-        def lane_values(lane, key_c):
+        def lane_values(lane, key_c, prior_rows_c=None):
             pos = torch.clamp(lane // spp, max=num_pixels - 1)
             idx = tile_pos_to_pixel(pos, opts.width, opts.height)
             if idx is None:
@@ -97,8 +184,8 @@ class Integrator:
             base = torch.stack([(idx % opts.width).float(),
                                 (idx // opts.width).float()], dim=-1)
             rng = RngStream(key_c, salt=0, device=dev)
-            # pixel-aligned chunks: each pixel's spp lanes are adjacent
-            rng.vis_spp = spp
+            if aligned:
+                rng.vis_spp = spp
             m = lane.shape[0]
             if use_sobol:
                 # the JAX package draws a uniform jitter here and replaces
@@ -117,18 +204,49 @@ class Integrator:
                 jitter = rng.next_2d(m)
             ray = sample_primary_ray(flat.sensors[sensor_id],
                                      (base + jitter) / film)
-            value = scrub_nonfinite(self.Li(scene, flat, rng, ray, lane < n))
-            return torch.where((lane < n)[..., None], value, 0.0)
+            if prior_rows_c is None:
+                value = self.Li(scene, flat, rng, ray, lane < n)
+            else:
+                prior = camera_prior_for_rays(prior_rows_c, ray, spp)
+                value = self.Li(scene, flat, rng, ray, lane < n, prior=prior)
+            value = scrub_nonfinite(value)
+            return torch.where((lane < n)[..., None], value, 0.0), idx
 
+        if not aligned:
+            def run_lanes(lane, key_c):
+                value, idx = lane_values(lane, key_c)
+                return accumulate_image(value, torch.where(lane < n, idx, -1),
+                                        num_pixels)
+
+            img = scan_lane_chunks(run_lanes, n, num_pixels, key,
+                                   opts.pass_lanes, dev, remat=remat)
+            return img / spp
+
+        # each chunk reduces to a dense (chunk/spp, 3) block of pixels in
+        # tile order; one gather puts them back in pixel order
         ppc = chunk // spp
         n_chunks = -(-n // chunk)
-        keys = [key] if n_chunks == 1 else threefry.split(key, n_chunks)
-        blocks = []
-        for c in range(n_chunks):
+        prior_rows = None
+        if opts.resolve_camera_prior(spp):
+            prior_rows = camera_prior_rows(flat, sensor_id, pix_order, opts)
+
+        def chunk_block(c, key_c):
             lane = c * chunk + torch.arange(chunk, device=dev)
-            blocks.append(lane_values(lane, keys[c])
-                          .reshape(ppc, spp, 3).sum(dim=1))
-        tile_img = torch.cat(blocks)
+            pr_c = None
+            if prior_rows is not None:
+                # a slice that would run past the end starts earlier, as
+                # jax.lax.dynamic_slice clamps it
+                s = min(c * ppc, prior_rows.shape[0] - ppc)
+                pr_c = prior_rows[s:s + ppc]
+            value, _ = lane_values(lane, key_c, pr_c)
+            return value.reshape(ppc, spp, 3).sum(dim=1)
+
+        if remat:
+            chunk_block = _checkpointed(chunk_block)
+
+        keys = [key] if n_chunks == 1 else threefry.split(key, n_chunks)
+        tile_img = torch.cat([chunk_block(c, keys[c])
+                              for c in range(n_chunks)])
         # pixel p sits at tile position inv_order[p]
         inv_order = torch.as_tensor(np.argsort(pix_order_np), device=dev)
         return tile_img[inv_order] / spp
@@ -137,7 +255,8 @@ class Integrator:
     def radiance_image(self, scene: Scene, flat: FlatScene, sensor_id: int,
                        key: torch.Tensor, with_boundary: bool,
                        shard=None) -> torch.Tensor:
-        """Interior (+ boundary, slice 2) render -> (num_pixels, 3)."""
+        """Interior render -> (num_pixels, 3); the boundary terms (slice 2,
+        second part) raise."""
         keys = threefry.split(key, 3)
         img = self.render_interior(scene, flat, sensor_id, keys[0], shard)
         if with_boundary and (scene.opts.sppe > 0 or scene.opts.sppse > 0):
@@ -147,14 +266,16 @@ class Integrator:
     def render_fn(self, scene: Scene, sensor_id: int = 0,
                   with_boundary: bool = True, detached: bool = False):
         """``f(params, key) -> (num_pixels, 3)`` that rebuilds the scene
-        from params each call. ``detached=True`` is the forward renderer
-        (renderC semantics with per-frame rebuild)."""
-        if not detached:
-            raise NotImplementedError(
-                "differentiable renders (detached=False) wait for slice 2")
+        from params each call. Gradients flow from the image to every
+        params leaf that requires grad, through the build. ``detached=True``
+        is the forward renderer (renderC semantics with per-frame rebuild):
+        no graph, and the hit records are read without a recompute."""
         scene.prepare_accel()
 
         def f(params, key):
+            if not detached:
+                return self.radiance_image(scene, scene.build(params),
+                                           sensor_id, key, with_boundary)
             with torch.no_grad():
                 flat = detach_flat(scene.build(params))
                 return self.radiance_image(scene, flat, sensor_id, key,
@@ -169,5 +290,11 @@ class Integrator:
                                       sensor_id, threefry.PRNGKey(seed), False)
         return img.reshape(scene.opts.height, scene.opts.width, 3)
 
-    def renderD(self, scene: Scene, sensor_id: int = 0, seed: int = 0):
-        raise NotImplementedError("renderD waits for slice 2 (the backward)")
+    def renderD(self, scene: Scene, sensor_id: int = 0,
+                seed: int = 0) -> torch.Tensor:
+        """Primal of the differentiable render at the current params (the
+        recompute path; boundary terms are zero in the primal) -> (H, W,
+        3). It carries a graph where the scene's params require grad."""
+        img = self.radiance_image(scene, scene.flat, sensor_id,
+                                  threefry.PRNGKey(seed), True)
+        return img.reshape(scene.opts.height, scene.opts.width, 3)

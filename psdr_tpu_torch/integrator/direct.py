@@ -1,6 +1,7 @@
 """One-bounce direct-illumination integrator with MIS. Counterpart of the
-interior half of ``psdr_tpu/integrator/direct.py``; the secondary-edge
-boundary estimator and its guiding wait for slice 2.
+interior half of ``psdr_tpu/integrator/direct.py``, in the forward render
+and under autograd; the secondary-edge boundary estimator and its guiding
+wait for slice 2, second part.
 
 All masked divisions route through ``_mdiv`` so masked-out lanes never
 divide by zero (and, once gradients arrive, never carry 0 * inf = NaN).
@@ -13,13 +14,14 @@ import torch
 
 from ..bsdf import all_reflective_one_sided, eval_bsdf, pdf_bsdf, sample_bsdf
 from ..core.frame import to_local, to_world
+from ..core.gather import select_rows
 from ..core.math import dot, sqr, squared_norm
 from ..core.records import Ray
 from ..core.sampler import RngStream, ld_2d
 from ..scene.scene import (FlatScene, Scene, emitter_position_pdf,
                            ray_intersect, ray_intersect_emitter_first,
-                           ray_test, sample_emitter_position, scene_le,
-                           select_rows)
+                           ray_intersect_with_prior, ray_test,
+                           sample_emitter_position, scene_le)
 from .base import Integrator
 
 
@@ -60,15 +62,14 @@ class DirectIntegrator(Integrator):
 
     def Li(self, scene: Scene, flat: FlatScene, rng: RngStream, ray: Ray,
            active: torch.Tensor, prior=None) -> torch.Tensor:
-        if prior is not None:
-            raise NotImplementedError("the camera-hit prior waits for slice 2")
         kinds = scene.bsdf_kinds
         emeta = _emitter_meta(scene)
         offsets = scene.face_offset
         n = ray.o.shape[0]
         dev = ray.o.device
 
-        its = ray_intersect(flat, ray, active)
+        # solid-angle formulation, tmax-bounded under the camera-hit prior
+        its = ray_intersect_with_prior(flat, ray, active, prior)
         active = active & its.valid
 
         result = (torch.zeros((n, 3), device=dev) if self.hide_emitters
@@ -132,8 +133,8 @@ class DirectIntegrator(Integrator):
             side_ok = (ps.emitter < 0) | (cos_val > 0.0)
             if all_reflective_one_sided(kinds):
                 side_ok = (side_ok
-                           & (to_local(its.sh_frame, wo)[..., 2] > 0.0)
-                           & (its.wi[..., 2] > 0.0))
+                           & (to_local(its.sh_frame, wo).detach()[..., 2] > 0.0)
+                           & (its.wi.detach()[..., 2] > 0.0))
             active1 = active1 & side_ok
 
             vis = self._nee_visibility(flat, rng, its.p, wo, dist, active1, n)

@@ -1,9 +1,11 @@
 """Scene container: the host-side object graph, and ``build``, which
 produces the flat device scene every render consumes.
 
-Counterpart of ``psdr_tpu/scene/scene.py`` for the detached forward render.
-Every tensor of a build is made on ``Scene.device``. Left for later slices:
-the differentiable hit recompute and the boundary-edge tables (slice 2),
+Counterpart of ``psdr_tpu/scene/scene.py`` for the interior render and its
+gradients. Every tensor of a build is made on ``Scene.device``; gradients
+reach the params leaves through the build and the differentiable hit
+recompute of ``ray_intersect``, while every hit query stays detached. Left
+for later slices: the boundary-edge tables (slice 2, second part) and
 environment maps (slice 4). ``ray_test`` takes the JAX package's
 ``sort_rays``/``sparse`` flags and ignores them: they ordered and compacted
 lanes for the TPU kernel's block cull and change no result.
@@ -15,14 +17,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..accel.bruteforce import HitRecord, ray_intersect_brute
+from ..accel.bruteforce import HitRecord
 from ..accel.bvh import BVH, BVHTopology, build_bvh_topology, refit_bvh
-from ..accel.intersect import ray_intersect_k1
+from ..accel.intersect import ray_intersect_brute, ray_intersect_k1
 from ..bsdf import check_kinds
 from ..core.constants import ShadowEpsilon
 from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.frame import make_frame, to_local
-from ..core.math import bilinear, normalize, rgb2luminance
+from ..core.gather import gather_rows, select_rows
+from ..core.math import (bilinear, normalize, ray_intersect_triangle,
+                         rgb2luminance, squared_norm)
 from ..core.records import Intersection, PositionSample, Ray, RenderOptions
 from ..emitter.area import AreaLight
 from ..sensor.perspective import PerspectiveCamera, configure_sensor
@@ -341,14 +345,12 @@ def ray_test(flat: FlatScene, ray: Ray, dist: torch.Tensor,
 def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
                                 active: torch.Tensor,
                                 sort_rays: bool = True,
-                                want_tri_info: bool = False) -> Intersection:
+                                want_tri_info: bool = False):
     """Closest hit restricted to emitter geometry, plus a tmax-bounded
     any-hit occlusion sweep of the full scene. Exact wherever the caller
     reads the hit only on emitter lanes: a bounce ray counts iff its
-    nearest emitter hit exists and nothing occludes it."""
-    if want_tri_info:
-        raise NotImplementedError("the differentiable hit recompute waits "
-                                  "for slice 2 (the backward)")
+    nearest emitter hit exists and nothing occludes it. The emitter sweep
+    is K2's (``ray_intersect_brute``) on the card."""
     idxs = flat.em_tri_idx
     hit_e = ray_intersect_brute(flat.tri.p0[idxs], flat.tri.e1[idxs],
                                 flat.tri.e2[idxs], ray.o, ray.d, active)
@@ -361,26 +363,86 @@ def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
         valid=valid,
         tri_id=torch.where(valid, idxs[e_local].to(torch.int32), -1),
         t=torch.where(valid, hit_e.t, float("inf")))
+    # the recompute reads only emitter rows here: select them from the
+    # compact (E, 32) emitter slice of the face table
     rows = select_rows(flat.face_table[idxs], e_local)
     return ray_intersect(flat, ray, active, path_space=True, hit=hit,
-                         rows=rows)
+                         rows=rows, want_tri_info=want_tri_info)
 
 
 def ray_intersect(flat: FlatScene, ray: Ray, active: torch.Tensor,
                   path_space: bool = False, want_tri_info: bool = False,
-                  sort_rays: bool = False, hit=None, rows=None
-                  ) -> Intersection:
-    """Detached closest hit -> ``Intersection``. ``hit``: a precomputed
-    HitRecord; ``rows``: the matching (N, 32) face-table rows. On a
-    detached scene both formulations give the same record (J = 1)."""
-    if not flat.detached or want_tri_info:
-        raise NotImplementedError("the differentiable hit recompute waits "
-                                  "for slice 2 (the backward)")
+                  sort_rays: bool = False, hit=None, rows=None):
+    """Detached closest hit + differentiable recompute -> ``Intersection``
+    (and the hit's ``TriangleInfo`` with ``want_tri_info``). ``hit``: a
+    precomputed detached HitRecord; ``rows``: the matching (N, 32)
+    face-table rows.
+
+    ``path_space``: the hit point is re-derived from the triangle at the
+    query's (detached) barycentrics, so it moves with the geometry, and J
+    is the area ratio. Otherwise (solid angle) the ray is re-intersected
+    with the hit triangle and J = 1. On a detached scene both give the
+    query's own record, read without a recompute."""
     if hit is None:
         hit = _closest_hit(flat, ray, active)
     valid = hit.valid & active
     idx = torch.clamp(hit.tri_id, min=0).long()
-    return _intersection_detached(flat, ray, hit, valid, idx, rows)
+    if flat.detached and not want_tri_info:
+        return _intersection_detached(flat, ray, hit, valid, idx, rows)
+
+    if rows is None:
+        rows = gather_rows(flat.face_table, idx)
+    tri = TriangleInfo(
+        p0=rows[:, 0:3], e1=rows[:, 3:6], e2=rows[:, 6:9],
+        n0=rows[:, 9:12], n1=rows[:, 12:15], n2=rows[:, 15:18],
+        face_normal=rows[:, 18:21], face_area=rows[:, 21])
+    uv0g, uv1g, uv2g = rows[:, 22:24], rows[:, 24:26], rows[:, 26:28]
+    fmask = rows[:, 28] > 0.5
+    mesh_id_g = rows[:, 29].to(torch.int32)
+    bsdf_id_g = rows[:, 30].to(torch.int32)
+    emitter_id_g = rows[:, 31].to(torch.int32)
+
+    if path_space:
+        uv = hit.uv.detach()
+        p = bilinear(tri.p0, tri.e1, tri.e2, uv)
+        # miss lanes read triangle 0; were the ray origin on it, the norm
+        # below would have a NaN gradient at 0: park dead lanes at o + d
+        p = torch.where(valid[..., None], p, (ray.o + ray.d).detach())
+        d = p - ray.o
+        # sqrt(max(., eps)): a grazing hit whose barycentric recompute
+        # rounds to p == o must not put sqrt's 0/0 gradient on the lane
+        t = torch.sqrt(torch.clamp(squared_norm(d), min=1e-16))
+        d = d / t[..., None]
+        wi_world = -d
+        J = tri.face_area / tri.face_area.detach()
+    else:
+        uv, t = ray_intersect_triangle(tri.p0, tri.e1, tri.e2, ray.o, ray.d)
+        # keep the recompute finite on every lane: a caller-provided hit
+        # may mark a near-coplanar lane valid, whose unclamped t ~ 1e20
+        # would turn into inf/NaN downstream. Real hits lie far inside
+        # the clamps, which then pass gradients through.
+        t = torch.clamp(t, -1e6, 1e6)
+        uv = torch.clamp(uv, -8.0, 8.0)
+        # miss lanes recompute against triangle 0: park them at t = 1
+        t = torch.where(valid, t, 1.0)
+        uv = torch.where(valid[..., None], uv, 0.0)
+        p = ray.at(t)
+        wi_world = -ray.d
+        J = torch.ones_like(t)
+
+    sh_n = normalize(bilinear(tri.n0, tri.n1 - tri.n0, tri.n2 - tri.n0, uv))
+    sh_n = torch.where(fmask[..., None], tri.face_normal, sh_n)
+    frame = make_frame(sh_n)
+    uv_tex = bilinear(uv0g, uv1g - uv0g, uv2g - uv0g, uv)
+    its = Intersection(
+        valid=valid, t=t, p=p, n=tri.face_normal, sh_frame=frame,
+        uv=uv_tex, wi=to_local(frame, wi_world), J=J,
+        mesh_id=mesh_id_g, tri_id=hit.tri_id,
+        bsdf_id=torch.where(valid, bsdf_id_g, -1),
+        emitter_id=torch.where(valid, emitter_id_g, -1))
+    if want_tri_info:
+        return its, tri
+    return its
 
 
 def _intersection_detached(flat: FlatScene, ray: Ray, hit: HitRecord,
@@ -412,10 +474,26 @@ def _intersection_detached(flat: FlatScene, ray: Ray, hit: HitRecord,
         emitter_id=torch.where(valid, emitter_id_g, -1))
 
 
-def select_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for a small table: the same entries the JAX package's
-    static select chain picks (a gather is cheap on the card)."""
-    return table[idx.long()]
+def ray_intersect_with_prior(flat: FlatScene, ray: Ray, active: torch.Tensor,
+                             prior=None) -> Intersection:
+    """Camera closest hit bounded by the camera-hit prior
+    (``RenderOptions.camera_hit_prior``). ``prior`` is the detached tuple
+    ``(tmax_bound, cand_tri_id, cand_uv, cand_t, cand_ok)`` from
+    ``integrator.base.camera_prior_for_rays``: where a lane's ray hits its
+    pixel's candidate triangle at t0, the query runs with tmax about t0
+    (a real hit bounds the closest t, so the result is exact); lanes whose
+    query rejects the candidate by an ulp and finds nothing else inside
+    the bound take the candidate hit itself."""
+    if prior is None:
+        return ray_intersect(flat, ray, active)
+    tmax_b, cand_tri, cand_uv, cand_t, cand_ok = prior
+    hit = _closest_hit(flat, ray, active, tmax=tmax_b)
+    resc = active & cand_ok & ~hit.valid
+    hit = HitRecord(valid=hit.valid | resc,
+                    tri_id=torch.where(resc, cand_tri, hit.tri_id),
+                    uv=torch.where(resc[..., None], cand_uv, hit.uv),
+                    t=torch.where(resc, cand_t, hit.t))
+    return ray_intersect(flat, ray, active, hit=hit)
 
 
 def scene_le(flat: FlatScene, its: Intersection,

@@ -12,6 +12,7 @@ import torch
 from ..core import transform as xform
 from ..core import warp
 from ..core.distribution import Discrete, discrete_sample_reuse
+from ..core.gather import select_rows
 from ..core.math import bilinear, cross, norm, normalize
 from ..core.records import PositionSample
 
@@ -121,9 +122,9 @@ def sample_position(tri_info: TriangleInfo, face_distrb: Discrete,
     idx, _, sx = discrete_sample_reuse(face_distrb, sample2[..., 0])
     st = warp.square_to_uniform_triangle(
         torch.stack([sx, sample2[..., 1]], dim=-1))
-    packed = torch.cat(
+    packed = select_rows(torch.cat(
         [tri_info.p0, tri_info.e1, tri_info.e2, tri_info.face_normal,
-         tri_info.face_area[:, None]], dim=1)[idx.long()]
+         tri_info.face_area[:, None]], dim=1), idx)
     fa = packed[:, 12]
     p = bilinear(packed[:, 0:3], packed[:, 3:6], packed[:, 6:9], st)
     return PositionSample(

@@ -1,9 +1,13 @@
-"""Procedural test scenes, jax-free copies of ``tests/scenes.py``.
+"""Procedural test scenes, jax-free copies of the JAX package's test
+scenes.
 
-``cbox_scene`` builds the same host geometry, materials, light and camera
-as ``tests/scenes.py::cbox_scene`` (numpy throughout, so both packages get
-identical inputs). At ``occluder_subdiv=5`` it is the scene ``bench.py``
-measures: 20,492 triangles. ``triangle_soup`` is the random soup of
+``cbox_scene`` and ``sphere_light_scene`` build the same host geometry,
+materials, light and camera as ``tests/scenes.py`` (numpy throughout, so
+both packages get identical inputs); ``floor_light_scene`` is
+``tests/test_gradients.py::_floor_light_scene``, a floor under a light
+outside the view, whose image is smooth in the light's position. At
+``occluder_subdiv=5`` ``cbox_scene`` is the scene ``bench.py`` measures:
+20,492 triangles. ``triangle_soup`` is the random soup of
 ``tests/test_bvh.py`` that the intersection tests share.
 """
 from __future__ import annotations
@@ -59,6 +63,58 @@ def cbox_scene(width=48, height=48, spp=4, sppe=0, sppse=0,
 
     sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
                             sppse=sppse)
+    return sc
+
+
+def sphere_light_scene(width=32, height=32, spp=4, sppe=0, sppse=0,
+                       subdiv=1, device="cpu") -> Scene:
+    """Diffuse sphere on the z-axis lit by an overhead area light."""
+    sc = Scene(device=device)
+    white = sc.add_bsdf(Diffuse([0.8, 0.8, 0.8]), "white")
+    grey = sc.add_bsdf(Diffuse([0.5, 0.5, 0.5]), "grey")
+    sc.add_mesh(primitives.make_icosphere(subdiv=subdiv, radius=1.0,
+                                          bsdf_id=white))
+    floor = primitives.make_quad(size=8.0, bsdf_id=grey, enable_edges=False,
+                                 use_face_normals=True)
+    floor.set_transform(np.asarray(
+        xf.translate([0.0, -1.0, 0.0]) @ xf.rotate([1, 0, 0], -90.0)))
+    sc.add_mesh(floor)
+    light = primitives.make_quad(size=1.0, bsdf_id=-1, enable_edges=False,
+                                 use_face_normals=True)
+    light.set_transform(np.asarray(
+        xf.translate([0.0, 4.0, 0.0]) @ xf.rotate([1, 0, 0], 90.0)))
+    light_idx = sc.add_mesh(light)
+    sc.add_emitter(AreaLight([10.0, 10.0, 10.0], mesh_index=light_idx))
+    cam = PerspectiveCamera(fov_x=40.0, near=0.1, far=100.0)
+    cam.set_transform(np.asarray(xf.look_at([0, 1.5, 6.0], [0, 0, 0],
+                                            [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
+                            sppse=sppse)
+    return sc
+
+
+def floor_light_scene(width=16, height=16, spp=16, device="cpu") -> Scene:
+    """Floor + overhead light, nothing occluding and the light outside the
+    camera frustum: the image is a smooth function of a light translation,
+    so the interior gradient is the whole gradient."""
+    sc = Scene(device=device)
+    grey = sc.add_bsdf(Diffuse([0.6, 0.6, 0.6]), "grey")
+    floor = primitives.make_quad(size=4.0, bsdf_id=grey, enable_edges=False,
+                                 use_face_normals=True)
+    floor.set_transform(np.asarray(xf.rotate([1, 0, 0], -90.0)))
+    sc.add_mesh(floor)
+    light = primitives.make_quad(size=1.0, bsdf_id=-1, enable_edges=False,
+                                 use_face_normals=True)
+    light.set_transform(np.asarray(
+        xf.translate([0.0, 3.0, 0.0]) @ xf.rotate([1, 0, 0], 90.0)))
+    li = sc.add_mesh(light)
+    sc.add_emitter(AreaLight([8.0, 8.0, 8.0], mesh_index=li))
+    cam = PerspectiveCamera(fov_x=35.0, near=0.1, far=100.0)
+    cam.set_transform(np.asarray(xf.look_at([0, 2.0, 0.0], [0, 0, 0],
+                                            [0, 0, 1])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp)
     return sc
 
 

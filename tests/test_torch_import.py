@@ -1,5 +1,5 @@
-"""The port imports without jax, and K1's CUDA wrapper refuses what it
-cannot run instead of falling back."""
+"""The port imports without jax, and the kernels' CUDA wrappers refuse
+what they cannot run instead of falling back."""
 import pathlib
 import re
 import subprocess
@@ -16,7 +16,8 @@ PKG = ROOT / "psdr_tpu_torch"
 
 
 def test_import_without_jax():
-    """Every module of the package imports with jax blocked."""
+    """Every module of the package imports with jax blocked, core.gather
+    and the kernel modules included."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -24,6 +25,8 @@ def test_import_without_jax():
         "for m in pkgutil.walk_packages(psdr_tpu_torch.__path__,"
         " 'psdr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('core.gather', 'accel.intersect', 'accel.bruteforce'):\n"
+        "    assert 'psdr_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n")
@@ -46,6 +49,18 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     act, tmax = torch.ones(4, dtype=torch.bool), torch.full((4,), 1e30)
     with pytest.raises(ValueError, match="CUDA"):
         intersect.k1_cuda(bvh, o, d, act, tmax)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+def test_k2_k3_wrappers_reject_cpu_tensors(kernel):
+    tris = [torch.rand(8, 3) for _ in range(3)]
+    first = (tris if kernel == "k2" else
+             [t_bvh.refit_bvh(t_bvh.build_bvh_topology(
+                 *(x.numpy() for x in tris)), *tris)])
+    o, d = torch.rand(4, 3), torch.rand(4, 3)
+    act, tmax = torch.ones(4, dtype=torch.bool), torch.full((4,), 1e30)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(intersect, f"{kernel}_cuda")(*first, o, d, act, tmax)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

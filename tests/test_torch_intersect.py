@@ -1,11 +1,12 @@
-"""The port's BVH refit and K1 against the JAX package: refit exactly
-equal on one topology; the plain K1 (the tensor-code version of the CUDA
-kernel, which CPU tensors take) against ray_intersect_pallas_culled2 in
-interpret mode and against brute force, closest and any hit, with active
-and tmax. Tolerances as tests/test_bvh.py:43-50: valid exactly equal,
-tri_id equal except at t-ties (rtol 1e-5), t allclose (rtol 1e-5) — XLA
-fuses the Moller-Trumbore arithmetic and rounds a few ulps apart from
-unfused tensor code."""
+"""The port's BVH refit and intersection kernels against the JAX package:
+refit exactly equal on one topology; the plain versions that CPU tensors
+take (K1's and K3's ``k1_plain``, K2's ``brute_plain``) against the Pallas
+kernels they replace in interpret mode (ray_intersect_pallas_culled2,
+ray_intersect_pallas, ray_intersect_pallas_culled) and against brute
+force, with active and tmax. Tolerances as tests/test_bvh.py:43-50: valid
+exactly equal, tri_id equal except at t-ties (rtol 1e-5), t allclose
+(rtol 1e-5) — XLA fuses the Moller-Trumbore arithmetic and rounds a few
+ulps apart from unfused tensor code."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -14,8 +15,9 @@ import torch
 from psdr_tpu.accel.bruteforce import ray_intersect_brute as j_brute
 from psdr_tpu.accel.bvh import build_bvh_topology as j_topology
 from psdr_tpu.accel.bvh import refit_bvh as j_refit
-from psdr_tpu.accel.pallas_kernel import ray_intersect_pallas_culled2
-from psdr_tpu_torch.accel import bruteforce as t_brute
+from psdr_tpu.accel.pallas_kernel import (ray_intersect_pallas,
+                                          ray_intersect_pallas_culled,
+                                          ray_intersect_pallas_culled2)
 from psdr_tpu_torch.accel import bvh as t_bvh
 from psdr_tpu_torch.accel import intersect
 from psdr_tpu_torch.testing.scenes import triangle_soup as _soup
@@ -94,7 +96,7 @@ def test_plain_k1_matches_brute(any_hit):
     hit = intersect.ray_intersect_k1(tb, *_t(o, d, act, tmax), any_hit=any_hit)
     _assert_hits_match(ref, hit, any_hit)
     # the port's own brute force agrees with the port's plain K1 exactly
-    tbr = t_brute.ray_intersect_brute(*_t(p0, e1, e2, o, d, act, tmax))
+    tbr = intersect.ray_intersect_brute(*_t(p0, e1, e2, o, d, act, tmax))
     for f in ("valid", "tri_id", "t", "uv"):
         np.testing.assert_array_equal(getattr(tbr, f).numpy(),
                                       getattr(hit, f).numpy(), f)
@@ -106,8 +108,33 @@ def test_brute_matches_jax(n_tris):
     emitter-first query) and the chunked one."""
     p0, e1, e2, o, d, act, tmax = _soup(n_tris=n_tris)
     ref = j_brute(*_j(p0, e1, e2, o, d, act), tmax=jnp.asarray(tmax))
-    hit = t_brute.ray_intersect_brute(*_t(p0, e1, e2, o, d, act, tmax))
+    hit = intersect.ray_intersect_brute(*_t(p0, e1, e2, o, d, act, tmax))
     _assert_hits_match(ref, hit)
+
+
+def test_k2_plain_matches_jax_kernel():
+    """K2's plain version against ray_intersect_pallas (interpret) on the
+    700-triangle soup of tests/test_bvh.py:152-166, with active and tmax."""
+    p0, e1, e2, o, d, act, tmax = _soup(n_tris=700)
+    ref = ray_intersect_pallas(*_j(p0, e1, e2, o, d, act),
+                               tmax=jnp.asarray(tmax), interpret=True)
+    hit = intersect.ray_intersect_brute(*_t(p0, e1, e2, o, d, act, tmax))
+    _assert_hits_match(ref, hit)
+    assert not hit.valid.numpy()[~act].any()
+
+
+def test_k3_entry_matches_jax_kernel():
+    """K3's entry point on CPU tensors (its plain version) against
+    ray_intersect_pallas_culled (interpret) on the 2048-triangle soup of
+    tests/test_bvh.py:169-183, at K3's blocking (R 512, T 128)."""
+    p0, e1, e2, o, d, act, tmax = _soup()
+    jb = j_refit(j_topology(p0, e1, e2, leaf_size=4), *_j(p0, e1, e2))
+    ref = ray_intersect_pallas_culled(jb, *_j(o, d, act),
+                                      tmax=jnp.asarray(tmax), interpret=True)
+    _, tb = _port_bvh(p0, e1, e2)
+    hit = intersect.ray_intersect_k3(tb, *_t(o, d, act, tmax))
+    _assert_hits_match(ref, hit)
+    assert not hit.valid.numpy()[~act].any()
 
 
 def test_plain_k1_batching_does_not_change_results(monkeypatch):

@@ -69,12 +69,16 @@ def test_scene_build_matches_jax():
 
 
 def test_unported_options_raise():
-    """What slice 1 leaves out raises instead of doing something else."""
-    ts = t_cbox(width=8, height=8, spp=1, occluder_subdiv=1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TDirect(1, 1).render_fn(ts, detached=False)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TDirect(1, 1).renderD(ts)
-    ts.opts = ts.opts.__class__(width=8, height=8, spp=1, sppe=1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ts.build(ts.params())
+    """What the port leaves out, the boundary terms (sppe/sppse > 0),
+    raises instead of doing something else: in the build, and so in
+    render_fn and renderD."""
+    for opt in ("sppe", "sppse"):
+        ts = t_cbox(width=8, height=8, spp=1, occluder_subdiv=1)
+        ts.opts = ts.opts.__class__(width=8, height=8, spp=1, **{opt: 1})
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            ts.build(ts.params())
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            TDirect(1, 1).render_fn(ts, with_boundary=True)(
+                ts.params(), threefry.PRNGKey(0))
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            TDirect(1, 1).renderD(ts)
