@@ -8,12 +8,18 @@ Every phase passes or the script exits nonzero:
    TF32 off for matmuls and convolutions;
 2. build the kernels (``psdr_tpu_torch/csrc/*.cu``: K1 ``intersect.cu``,
    K2 ``brute.cu``, K3 ``culled.cu``), one ``nvcc`` per source in parallel;
-3. K1 against its plain PyTorch version on the card: a random triangle
-   soup (2048 tris, 600 rays, mixed ``active`` and ``tmax``), then the bench
-   scene (20,492 tris) on 2^16 camera rays, 2^16 cosine-bounce rays from
-   their hits and 2^16 light-sample shadow rays; then both timed on one
-   2^21-lane camera chunk and one 2^21-lane shadow sweep (the main path's
-   shapes), and the timed runs' results compared the same way;
+3. K1 against its plain PyTorch version on the card, closest hits bit for
+   bit and any hits in ``valid``: a random triangle soup (2048 tris, 600
+   rays, mixed ``active`` and ``tmax``), a soup whose tree has an even
+   depth, two coincident triangles in different leaves under rays from
+   both sides (K1 and K3: the lowest slot wins), then the bench scene
+   (20,492 tris) on 2^16 camera rays, 2^16 cosine-bounce rays from their
+   hits and 2^16 light-sample shadow rays. Then K1 timed on the main
+   path's own shapes, the first 2^21-lane camera chunk in tile order
+   (closest) and the bounce and shadow sweeps from its hits (any), and on
+   2^21 rays through random pixels, the incoherent case; each timed run's
+   result compared the same way, and each shape's slab and triangle tests
+   counted once by the kernel's counting instantiation, for its bound;
 4. ``renderC`` on the card against ``renderC`` on the CPU (64x64, spp 4,
    1,292 tris), same key;
 5. the forward at full width: ``DirectIntegrator(1, 1)`` through
@@ -27,13 +33,20 @@ Every phase passes or the script exits nonzero:
    ``scripts/bench_intersect.py``: 1,280- and 20,480-triangle icospheres
    under 2^20 tiled pinhole rays and the bench scene's first 2^21-lane
    camera chunk (tile order, spp 64), each bit for bit against
-   ``k1_plain`` and K1, the camera chunk timed beside both;
+   ``k1_plain`` and K1, the camera chunk also at a second blocking and
+   timed beside K1;
 8. a gradient on the card against the same on the CPU (64x64, spp 4);
 9. the main path of this slice, the backward at ``bench.py``'s config:
    ``value_and_grad`` of mean(img^2) through ``Scene.build`` and
    ``render_fn(with_boundary=False)`` on ``cbox_scene(512, 512, spp=16,
    occluder_subdiv=5)``: one warm-up step, three timed steps, then one
    profiled step; every leaf finite, K1 (both modes) and K2 launched.
+
+A kernel's bound is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its operations on these rays over
+67 TFLOP/s (float32 outside the tensor cores), the published peaks of the
+H100 SXM. No single PyTorch call computes a ray / triangle closest hit, so
+``library_ms`` is null throughout.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. No JAX is imported.
@@ -53,7 +66,7 @@ os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 import torch  # noqa: E402  (after the device choice)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-RTOL = 1e-5              # hit t and t-ties, as tests/test_bvh.py:43-50
+RTOL = 1e-5              # hit t, as tests/test_bvh.py:43-50
 IMG_RTOL, IMG_ATOL = 1e-4, 1e-5   # per-pixel, as tests/test_torch_render.py
 IMG_CLOSE_FRAC = 0.99
 IMG_MEAN_REL = 1e-4
@@ -64,6 +77,15 @@ N_ICO = 1 << 20         # tiled pinhole rays per icosphere (K3's entry point)
 N_CHECK = 1 << 16       # rays per bench-scene comparison
 N_TIME = 1 << 21        # rays per timed sweep: one pass_lanes chunk
 DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+FP32_FLOPS = 67e12          # float32 outside the tensor cores, published
+# flops as the sources execute them: K1's slab test reads the near and far
+# planes by the ray's sign, K3's takes them by min/max; a Moller-Trumbore
+# test left after u, left after v, or run in full with its accept test
+K1_SLAB_FLOPS = 19
+K3_SLAB_FLOPS = 25
+MT_FLOPS = (25, 43, 51)
+RAY_BYTES = 29 + 16         # o, d, tmax, active read; t, tri_id, uv written
 
 
 def log(*args):
@@ -78,51 +100,40 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def check_hits(label, args, tris, hk, hp, any_hit):
-    """Kernel record ``hk`` against plain record ``hp`` on the K1 inputs
-    ``args`` (bvh, ray_o, ray_d, active, tmax) over triangles ``tris``
-    (p0, e1, e2): ``valid`` exactly equal. Closest hit: same tri except at
-    t-ties, t allclose to ``hp``'s. Any hit, where the walk may stop at
-    another triangle than the closest: the plain Moller-Trumbore on the
-    kernel's triangle accepts the hit and gives its t and uv. Returns
-    (largest |t_kernel - t_plain| over hit lanes, lanes whose ``valid``
-    differs)."""
+def check_any_hits(label, args, tris, hk, hp):
+    """Any-hit kernel record ``hk`` against plain record ``hp`` on the K1
+    inputs ``args`` (bvh, ray_o, ray_d, active, tmax) over triangles
+    ``tris`` (p0, e1, e2): ``valid`` exactly equal; and, as the walk may
+    stop at another triangle than the closest, the plain Moller-Trumbore
+    on the kernel's triangle accepts the hit and gives its t and uv.
+    Returns (largest |t_kernel - t_plain MT| over hit lanes, lanes whose
+    ``valid`` differs)."""
     from psdr_tpu_torch.accel.bruteforce import _accept, moller_trumbore_tile
     vk, vp = hk.valid.cpu().numpy(), hp.valid.cpu().numpy()
     n_bad = int((vk != vp).sum())
     if n_bad:
         raise AssertionError(f"{label}: valid differs on {n_bad} lanes")
-    if not vk.any():
-        raise AssertionError(f"{label}: no lane hit, nothing to compare")
-    tk = hk.t.cpu().numpy()[vk]
-    if any_hit:
-        _, ray_o, ray_d, _, tmax = args
-        hit = hk.valid
-        ids = hk.tri_id[hit].long()
-        tri9 = tuple(x[ids, c] for x in tris for c in range(3))
-        u, v, t = moller_trumbore_tile(
-            *(ray_o[hit, c] for c in range(3)),
-            *(ray_d[hit, c] for c in range(3)), tri9)
-        if not bool(_accept(u, v, t, tmax[hit]).all()):
-            raise AssertionError(f"{label}: a kernel hit fails the plain "
-                                 "accept test")
-        tp = t.cpu().numpy()
-        np.testing.assert_allclose(hk.uv[hit].cpu().numpy(),
-                                   torch.stack([u, v], -1).cpu().numpy(),
-                                   rtol=1e-4, atol=1e-5, err_msg=label)
-        what = "occluded, t against the plain MT on the kernel's triangle"
-    else:
-        tp = hp.t.cpu().numpy()[vp]
-        same = hk.tri_id.cpu().numpy() == hp.tri_id.cpu().numpy()
-        tie = np.isclose(hk.t.cpu().numpy(), hp.t.cpu().numpy(), rtol=RTOL)
-        if not np.all(same | tie):
-            raise AssertionError(f"{label}: tri_id differs off t-ties on "
-                                 f"{int((~(same | tie)).sum())} lanes")
-        what = f"hit, tri_id equal on {same[vk].mean():.6f} of hits"
+    if not vk.any():    # a sweep that nothing blocks: valid is all there is
+        log(f"  {label}: 0 / {vk.size} occluded; valid equal")
+        return 0.0, 0
+    _, ray_o, ray_d, _, tmax = args
+    hit = hk.valid
+    ids = hk.tri_id[hit].long()
+    tri9 = tuple(x[ids, c] for x in tris for c in range(3))
+    u, v, t = moller_trumbore_tile(
+        *(ray_o[hit, c] for c in range(3)),
+        *(ray_d[hit, c] for c in range(3)), tri9)
+    if not bool(_accept(u, v, t, tmax[hit]).all()):
+        raise AssertionError(f"{label}: a kernel hit fails the plain "
+                             "accept test")
+    np.testing.assert_allclose(hk.uv[hit].cpu().numpy(),
+                               torch.stack([u, v], -1).cpu().numpy(),
+                               rtol=1e-4, atol=1e-5, err_msg=label)
+    tk, tp = hk.t.cpu().numpy()[vk], t.cpu().numpy()
     np.testing.assert_allclose(tk, tp, rtol=RTOL, err_msg=label)
     err = float(np.abs(tk - tp).max())
-    log(f"  {label}: {vk.sum()} / {vk.size} {what}; valid equal, "
-        f"max |dt| {err:.3g}")
+    log(f"  {label}: {vk.sum()} / {vk.size} occluded, t against the plain "
+        f"MT on the kernel's triangle; valid equal, max |dt| {err:.3g}")
     return err, n_bad
 
 
@@ -142,101 +153,133 @@ def time_ms(fn, reps: int, warmup: bool = True):
     return start.elapsed_time(end) / reps, out
 
 
-def soup_case(intersect, bvh_mod, dev, record):
-    """The tests/test_bvh.py:192-197 soup: 2048 tris, 600 rays."""
+def bound(n_bytes, flops):
+    """(bound ms, the side that sets it)."""
+    by, op = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def tree_bytes(bvh):
+    """Bytes of the tree that K1 reads, each once: the wide nodes, the leaf
+    rows, their validity bytes and the permutation."""
+    P, L = bvh.num_leaves, bvh.leaf_size
+    return (bvh.wide.numel() + bvh.leaf_tris.numel()) * 4 + P * L * 5
+
+
+def small_cases(intersect, bvh_mod, dev, record):
+    """The tests/test_bvh.py:192-197 soup (2048 tris, 600 rays; the tree
+    is 9 levels deep), a 1000-triangle soup (8 levels), and the tie case:
+    two coincident triangles in different leaves, rays from both sides,
+    the lowest slot wins in K1 and K3."""
     from psdr_tpu_torch.scene.scene import BVH_LEAF_SIZE
-    from psdr_tpu_torch.testing.scenes import triangle_soup
-    p0, e1, e2, o, d, act, tmax = triangle_soup()
-    topo = bvh_mod.build_bvh_topology(p0, e1, e2, leaf_size=BVH_LEAF_SIZE)
-    t = [torch.as_tensor(x, device=dev) for x in (p0, e1, e2, o, d, act, tmax)]
-    bvh = bvh_mod.refit_bvh(topo, *t[:3])
-    args = (bvh, t[3], t[4], t[5], t[6])
-    for any_hit in (False, True):
-        mode = "any" if any_hit else "closest"
-        record(mode, check_hits(f"soup {mode}", args, t[:3],
-                                intersect.k1_cuda(*args, any_hit=any_hit),
-                                intersect.k1_plain(*args), any_hit))
+    from psdr_tpu_torch.testing.scenes import coincident_case, triangle_soup
+
+    def on_card(xs):
+        return [torch.as_tensor(x, device=dev) for x in xs]
+
+    for n_tris in (2048, 1000):
+        p0, e1, e2, *rays = triangle_soup(n_tris=n_tris)
+        topo = bvh_mod.build_bvh_topology(p0, e1, e2, leaf_size=BVH_LEAF_SIZE)
+        tris = on_card((p0, e1, e2))
+        args = (bvh_mod.refit_bvh(topo, *tris), *on_card(rays))
+        hp = intersect.k1_plain(*args)
+        record("closest", exact(f"soup {n_tris} closest",
+                                intersect.k1_cuda(*args), hp))
+        record("any", check_any_hits(f"soup {n_tris} any", args, tris,
+                                     intersect.k1_cuda(*args, any_hit=True),
+                                     hp))
+    for swap in (False, True):
+        (topo, *arrs), winner = coincident_case(swap)
+        p0, e1, e2, *rays = on_card(arrs)
+        args = (bvh_mod.refit_bvh(topo, p0, e1, e2), *rays)
+        hp = intersect.k1_plain(*args)
+        label = f"coincident triangles (winner id {winner})"
+        record("closest", exact(f"{label}: K1", intersect.k1_cuda(*args), hp))
+        exact(f"{label}: K3", intersect.k3_cuda(*args), hp)
+        exact(f"{label}: the walk in tensor code",
+              intersect.k1_walk_plain(*args), hp)
+        ids = hp.tri_id.cpu().numpy()
+        if (ids == winner).sum() < 100 or (ids == 60 - winner).any():
+            raise AssertionError(f"{label}: the tie case has no ties")
 
 
-def bench_rays(pt, flat, n, seed, dev):
-    """Camera rays of the bench scene, cosine-bounce rays from their hits
-    and light-sample shadow rays, n each, from a numpy seed."""
-    from psdr_tpu_torch.core.constants import ShadowEpsilon
-    from psdr_tpu_torch.core.frame import to_world
-    from psdr_tpu_torch.core.records import Ray
-    from psdr_tpu_torch.core.warp import square_to_cosine_hemisphere
-    from psdr_tpu_torch.integrator.direct import _emitter_meta
-    from psdr_tpu_torch.scene.scene import (ray_intersect,
-                                            sample_emitter_position)
-    from psdr_tpu_torch.sensor.perspective import sample_primary_ray
-    rng = np.random.default_rng(seed)
-    u = torch.as_tensor(rng.uniform(size=(n, 6)).astype(np.float32),
-                        device=dev)
-    cam = sample_primary_ray(flat.sensors[0], u[:, 0:2])
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
-    its = ray_intersect(flat, cam, active)
-    hit = its.valid
-    bounce = Ray(its.p, to_world(its.sh_frame,
-                                 square_to_cosine_hemisphere(u[:, 2:4])))
-    ps = sample_emitter_position(flat, pt.face_offset, _emitter_meta(pt),
-                                 its.p, u[:, 4:6], hit)
-    wo = ps.p - its.p
-    dist = torch.sqrt(torch.clamp((wo * wo).sum(-1), min=1e-20))
-    shadow = Ray(its.p, wo / dist[:, None])
-    return (cam, active, None), (bounce, hit, None), \
-        (shadow, hit, dist - ShadowEpsilon)
+def bench_scene(dev):
+    """The bench scene on the card: (scene, detached flat scene)."""
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**BENCH, device=dev)
+    sc.prepare_accel()
+    return sc, detach_flat(sc.build(sc.params()))
+
+
+def k1_args(flat, ray, act, tmax):
+    return (flat.accel, ray.o.contiguous(), ray.d.contiguous(), act,
+            (torch.full_like(ray.o[:, 0], float("inf")) if tmax is None
+             else tmax.contiguous()))
 
 
 def k1_phase(intersect, bvh_mod, dev):
-    """Phase 3: K1 against its plain version on the soup and the bench
-    scene, then both timed at the main path's shapes. Returns
-    ({mode: [(max |dt|, valid mismatches), ...]}, {mode: (kernel ms,
-    plain ms)})."""
-    from psdr_tpu_torch.scene.scene import detach_flat
-    from psdr_tpu_torch.testing.scenes import cbox_scene
+    """Phase 3: K1 against its plain version on the small cases and the
+    bench scene, then timed at the main path's shapes and on random rays.
+    Returns ({mode: [(max |dt|, valid mismatches), ...]}, {shape: dict of
+    its mode, kernel ms, plain ms, counts and bound})."""
+    from psdr_tpu_torch.testing.scenes import scene_rays, tiled_camera_rays
     err = {"closest": [], "any": []}
-    soup_case(intersect, bvh_mod, dev, lambda m, e: err[m].append(e))
-    sc = cbox_scene(**BENCH, device=dev)
-    sc.prepare_accel()
-    flat = detach_flat(sc.build(sc.params()))
+    small_cases(intersect, bvh_mod, dev, lambda m, e: err[m].append(e))
+    sc, flat = bench_scene(dev)
     tris = (flat.tri.p0, flat.tri.e1, flat.tri.e2)
     log(f"  bench scene: {flat.tri.p0.shape[0]} tris, "
-        f"{flat.accel.num_leaves} leaves")
+        f"{flat.accel.num_leaves} leaves, "
+        f"{bvh_mod.wide_layout(flat.accel.num_leaves)}")
 
-    def k1_args(ray, act, tmax):
-        return (flat.accel, ray.o.contiguous(), ray.d.contiguous(), act,
-                (torch.full_like(ray.o[:, 0], float("inf")) if tmax is None
-                 else tmax.contiguous()))
+    def compare(label, args, hk, hp, any_hit):
+        mode = "any" if any_hit else "closest"
+        err[mode].append(
+            check_any_hits(f"{label} {mode}", args, tris, hk, hp)
+            if any_hit else exact(f"{label} {mode}", hk, hp))
 
     for label, rays in zip(("camera", "bounce", "shadow"),
-                           bench_rays(sc, flat, N_CHECK, 1, dev)):
+                           scene_rays(sc, flat, N_CHECK, 1)):
+        args = k1_args(flat, *rays)
+        hp = intersect.k1_plain(*args)
         for any_hit in ((False, True) if rays[2] is None else (True,)):
-            mode = "any" if any_hit else "closest"
-            args = k1_args(*rays)
-            err[mode].append(check_hits(
-                f"{label} {mode}", args, tris,
-                intersect.k1_cuda(*args, any_hit=any_hit),
-                intersect.k1_plain(*args), any_hit))
-    # the main path's shapes: one 2^21-lane camera chunk and one 2^21-lane
-    # shadow sweep, timed, and the results of the timed runs compared
-    cam, _, shd = bench_rays(sc, flat, N_TIME, 2, dev)
-    ms = {}
-    for mode, label, args in (("closest", "camera chunk", k1_args(*cam)),
-                              ("any", "shadow sweep", k1_args(*shd))):
-        any_hit = mode == "any"
-        # plain, kernel, kernel, plain
-        p1, hp = time_ms(lambda: intersect.k1_plain(*args), 1)
-        k1, hk = time_ms(
-            lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20)
+            compare(label, args, intersect.k1_cuda(*args, any_hit=any_hit),
+                    hp, any_hit)
+    # timed: the main path's shapes (tile order) and the incoherent case
+    t_cam, t_bnc, t_shd = tiled_camera_rays(sc, flat, N_TIME, BENCH["spp"], 2)
+    r_cam, _, r_shd = scene_rays(sc, flat, N_TIME, 2)
+    shapes = {}
+    for name, any_hit, rays in (
+            ("tiled camera chunk", False, t_cam),
+            ("tiled bounce sweep", True, t_bnc),
+            ("tiled shadow sweep", True, t_shd),
+            ("random camera rays", False, r_cam),
+            ("random shadow rays", True, r_shd)):
+        args = k1_args(flat, *rays)
+        # kernel, plain (once), kernel
+        k1, hk = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit),
+                         20)
+        p1, hp = time_ms(lambda: intersect.k1_plain(*args), 1, warmup=False)
         k2, _ = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20)
-        p2, _ = time_ms(lambda: intersect.k1_plain(*args), 1, warmup=False)
-        ms[mode] = (min(k1, k2), min(p1, p2))
-        log(f"  {N_TIME} rays, {label} ({mode}, {int(args[3].sum())} "
-            f"active): kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.1f} / "
-            f"{p2:.1f} ms")
-        err[mode].append(check_hits(f"{N_TIME} {label} {mode}", args, tris,
-                                    hk, hp, any_hit))
-    return err, ms
+        counts = torch.zeros((4,), dtype=torch.int64, device=dev)
+        intersect.k1_cuda(*args, any_hit=any_hit, counts=counts)
+        n_box, *n_tri = (int(c) for c in counts.cpu())
+        flops = n_box * K1_SLAB_FLOPS + sum(
+            n * f for n, f in zip(n_tri, MT_FLOPS))
+        b_ms, b_by = bound(N_TIME * RAY_BYTES + tree_bytes(flat.accel), flops)
+        ms = min(k1, k2)
+        per_ray = " + ".join(f"{n / N_TIME:.1f}" for n in n_tri)
+        log(f"  {N_TIME} rays, {name} ({'any' if any_hit else 'closest'}, "
+            f"{int(args[3].sum())} active): kernel {k1:.3f} / {k2:.3f} ms, "
+            f"plain {p1:.1f} ms; {n_box / N_TIME:.1f} slab tests and "
+            f"{per_ray} triangle tests (left after u + left after v + in "
+            f"full) a ray, {flops / N_TIME:.0f} flops a ray -> bound "
+            f"{b_ms:.4f} ms by {b_by}, reached {b_ms / ms:.3f}")
+        compare(f"{N_TIME} {name}", args, hk, hp, any_hit)
+        shapes[name] = dict(any_hit=any_hit, ms=ms, plain_ms=p1,
+                            slab_tests=n_box, tri_tests_by_stage=n_tri,
+                            flops=flops, bound_ms=b_ms, bound_by=b_by)
+    return err, shapes
 
 
 def exact(label, hk, hp):
@@ -262,20 +305,18 @@ def exact(label, hk, hp):
 def k2_phase(intersect, dev):
     """Phase 6: K2 against brute_plain on two soups and on the bench
     scene's 2^21-lane emitter-first sweep, the last timed. Returns
-    ([(max |dt|, valid mismatches), ...], (kernel ms, plain ms))."""
+    ([(max |dt|, valid mismatches), ...], (kernel ms, plain ms, bound ms,
+    the bound's side))."""
     from psdr_tpu_torch.accel.bruteforce import brute_plain
-    from psdr_tpu_torch.scene.scene import detach_flat
-    from psdr_tpu_torch.testing.scenes import cbox_scene, triangle_soup
+    from psdr_tpu_torch.testing.scenes import scene_rays, triangle_soup
     err = []
     for n_tris in (700, 24):
         args = [torch.as_tensor(x, device=dev)
                 for x in triangle_soup(n_tris=n_tris)]
         err.append(exact(f"soup {n_tris} tris", intersect.k2_cuda(*args),
                          brute_plain(*args)))
-    sc = cbox_scene(**BENCH, device=dev)
-    sc.prepare_accel()
-    flat = detach_flat(sc.build(sc.params()))
-    _, (bounce, hit, _), _ = bench_rays(sc, flat, N_TIME, 2, dev)
+    sc, flat = bench_scene(dev)
+    _, (bounce, hit, _), _ = scene_rays(sc, flat, N_TIME, 2)
     idxs = flat.em_tri_idx
     args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
                                              flat.tri.e2)),
@@ -289,7 +330,13 @@ def k2_phase(intersect, dev):
         f"({int(hit.sum())} active): kernel {k1:.4f} / {k2:.4f} ms, plain "
         f"{p1:.3f} / {p2:.3f} ms")
     err.append(exact(f"{N_TIME} emitter-first sweep", hk, hp))
-    return err, (min(k1, k2), min(p1, p2))
+    n_faces = idxs.shape[0]
+    # K2 runs every test in full: it has no early exit
+    b_ms, b_by = bound(N_TIME * RAY_BYTES + n_faces * 36,
+                       N_TIME * n_faces * MT_FLOPS[2])
+    log(f"  bound {b_ms:.4f} ms by {b_by}, reached "
+        f"{b_ms / min(k1, k2):.3f}")
+    return err, (min(k1, k2), min(p1, p2), b_ms, b_by)
 
 
 def icosphere_case(bvh_mod, dev, subdiv):
@@ -323,37 +370,20 @@ def icosphere_case(bvh_mod, dev, subdiv):
             torch.full((n,), float("inf"), device=dev)), m.num_faces
 
 
-def tiled_camera_rays(flat, n, spp, seed, dev):
-    """The first n lanes of the main path's camera wavefront: the first
-    n / spp pixels in 32x32-tile order, spp uniformly jittered samples
-    each (numpy seed), as render_interior lays them out."""
-    from psdr_tpu_torch.integrator.base import tiled_pixel_order
-    from psdr_tpu_torch.sensor.perspective import sample_primary_ray
-    w, h = BENCH["width"], BENCH["height"]
-    pix = np.repeat(tiled_pixel_order(w, h)[:n // spp], spp)
-    jitter = np.random.default_rng(seed).uniform(size=(n, 2))
-    xy = (np.stack([pix % w, pix // w], axis=-1) + jitter) / [w, h]
-    return sample_primary_ray(flat.sensors[0],
-                              torch.as_tensor(xy.astype(np.float32),
-                                              device=dev))
-
-
-def k3_phase(intersect, bvh_mod, dev):
+def k3_phase(intersect, bvh_mod, dev, k1_bound):
     """Phase 7: K3's entry point over the icospheres and a bench-scene
     camera chunk, with the launch counts set to 0 just before and read
     just after; then each result against k1_plain and K1, bit for bit,
-    and the camera chunk timed. Returns (K3 launches on its path,
-    [(max |dt|, valid mismatches), ...], (K3 ms, plain ms, K1 ms))."""
-    from psdr_tpu_torch.scene.scene import detach_flat
-    from psdr_tpu_torch.testing.scenes import cbox_scene
+    the camera chunk also at a second blocking, and timed. ``k1_bound``
+    is K1's (bound ms, side) on the same chunk, which K3 shares. Returns
+    (K3 launches on its path, [(max |dt|, valid mismatches), ...], dict of
+    K3 ms, plain ms, K1 ms, the second blocking's ms and the floor of K3's
+    own dense arithmetic)."""
+    from psdr_tpu_torch.testing.scenes import tiled_camera_rays
     cases = [icosphere_case(bvh_mod, dev, s) for s in (3, 5)]
-    sc = cbox_scene(**BENCH, device=dev)
-    sc.prepare_accel()
-    flat = detach_flat(sc.build(sc.params()))
-    cam = tiled_camera_rays(flat, N_TIME, BENCH["spp"], 2, dev)
-    cam_args = (flat.accel, cam.o.contiguous(), cam.d.contiguous(),
-                torch.ones((N_TIME,), dtype=torch.bool, device=dev),
-                torch.full((N_TIME,), float("inf"), device=dev))
+    sc, flat = bench_scene(dev)
+    cam_args = k1_args(flat, *tiled_camera_rays(sc, flat, N_TIME,
+                                                BENCH["spp"], 2)[0])
     labels = [f"icosphere {f} tris, {N_ICO} rays" for _, f in cases] + [
         f"bench camera chunk, {N_TIME} rays"]
     all_args = [a for a, _ in cases] + [cam_args]
@@ -370,21 +400,42 @@ def k3_phase(intersect, bvh_mod, dev):
         hp = intersect.k1_plain(*args)
         err.append(exact(f"{label}: K3 vs k1_plain", hk, hp))
         exact(f"{label}: K1 vs k1_plain", intersect.k1_cuda(*args), hp)
-    # the camera chunk, timed: plain, K3, K3, plain, with K1 and K3's
-    # tensor-code cull (part of K3's time) beside
-    p1, hp = time_ms(lambda: intersect.k1_plain(*cam_args), 1)
+    # the camera chunk, timed: K3, plain (once), K3, with K1 and K3 at a
+    # second blocking beside
+    second = dict(ray_block=128, tri_block=256)
     t1, _ = time_ms(lambda: intersect.k3_cuda(*cam_args), 20)
+    p1, hp = time_ms(lambda: intersect.k1_plain(*cam_args), 1, warmup=False)
     t2, _ = time_ms(lambda: intersect.k3_cuda(*cam_args), 20)
-    c1, (starts, _, _) = time_ms(lambda: intersect.k3_cull(*cam_args), 20)
+    s1, h2 = time_ms(lambda: intersect.k3_cuda(*cam_args, **second), 20)
     m1, h1 = time_ms(lambda: intersect.k1_cuda(*cam_args), 20)
-    p2, _ = time_ms(lambda: intersect.k1_plain(*cam_args), 1, warmup=False)
-    n_rb = starts.shape[0] - 1
-    log(f"  {labels[-1]}: K3 {t1:.3f} / {t2:.3f} ms, of which the cull "
-        f"{c1:.3f} ms ({int(starts[-1])} occupied leaf blocks over {n_rb} "
-        f"ray blocks); K1 {m1:.3f} ms; plain {p1:.1f} / {p2:.1f} ms")
+    # the floor of K3's design: every ray against every non-empty
+    # leaf-block box, and for every (ray block, leaf block) pair that the
+    # plain cull over (RayEpsilon, tmax) leaves occupied, every ray against
+    # every valid slot at least as far as u
+    bvh = flat.accel
+    n_boxes = bvh.num_leaves * bvh.leaf_size // 128
+    occupied = intersect._block_cull(*cam_args, 512, 128)[4]
+    pairs = int(occupied.sum())
+    pair_slots = int((occupied.double()
+                      @ bvh.tri_valid.reshape(n_boxes, 128).sum(1).double())
+                     .sum())
+    full_boxes = int(bvh.node_mask[n_boxes:2 * n_boxes].sum())
+    floor_ms = (N_TIME * full_boxes * K3_SLAB_FLOPS
+                + pair_slots * 512 * MT_FLOPS[0]) / FP32_FLOPS * 1e3
+    ms = min(t1, t2)
+    log(f"  {labels[-1]}: K3 {t1:.3f} / {t2:.3f} ms at 512 x 128, {s1:.3f} ms "
+        f"at {second['ray_block']} x {second['tri_block']}; K1 {m1:.3f} ms; "
+        f"plain {p1:.1f} ms; bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
+        f"(K1's, same rays), reached {k1_bound[0] / ms:.4f}; its own dense "
+        f"arithmetic ({pairs} occupied pairs with {pair_slots} valid slots "
+        f"over {N_TIME // 512} ray blocks and {full_boxes} non-empty of "
+        f"{n_boxes} leaf blocks) at least {floor_ms:.3f} ms")
     err.append(exact(f"{labels[-1]}: K3 vs k1_plain", hits[-1], hp))
+    err.append(exact(f"{labels[-1]}: K3 at {second['ray_block']} x "
+                     f"{second['tri_block']} vs k1_plain", h2, hp))
     exact(f"{labels[-1]}: K1 vs k1_plain", h1, hp)
-    return launches, err, (min(t1, t2), min(p1, p2), m1, c1)
+    return launches, err, dict(ms=ms, plain_ms=p1, k1_ms=m1, second_ms=s1,
+                               dense_floor_ms=floor_ms)
 
 
 def grad_step(render, base, dev, key):
@@ -546,7 +597,7 @@ def main() -> int:
     log("phase 3: K1 kernel vs plain PyTorch version on the card")
     # a function of its own, so that its tensors are freed before phase 5
     # reads the peak memory
-    err, ms = k1_phase(intersect, bvh_mod, dev)
+    err, shapes = k1_phase(intersect, bvh_mod, dev)
 
     # -- 4. the port on the card against the port on the CPU ------------------
     log("phase 4: renderC on the card vs on the CPU (64x64, spp 4)")
@@ -593,6 +644,9 @@ def main() -> int:
                              f"({launches})")
     if launches["k2"] == 0:
         raise AssertionError(f"phase 5: K2 not launched ({launches})")
+    if launches["k3"] != 0:
+        raise AssertionError(f"phase 5: K3 is off the render path, yet it "
+                             f"launched ({launches})")
     rays = BENCH["width"] * BENCH["height"] * BENCH["spp"] * 3
     dt = float(np.median(times))
     log(f"  frames {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f}"
@@ -613,7 +667,9 @@ def main() -> int:
 
     # -- 7. K3's entry point ---------------------------------------------------
     log("phase 7: K3 entry point; K3 and K1 vs k1_plain on the card")
-    k3_launches, k3_err, k3_ms = k3_phase(intersect, bvh_mod, dev)
+    chunk = shapes["tiled camera chunk"]
+    k3_launches, k3_err, k3_ms = k3_phase(
+        intersect, bvh_mod, dev, (chunk["bound_ms"], chunk["bound_by"]))
 
     # -- 8. a gradient on the card against the CPU -------------------------------
     log("phase 8: value_and_grad on the card vs on the CPU (64x64, spp 4)")
@@ -624,22 +680,34 @@ def main() -> int:
         f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
     bwd = backward_phase(intersect, dev)
 
-    # launches: the backward's three timed steps (the main path); K3, off
-    # the render path, its entry point's run in phase 7
-    kernels = [{
-        "name": f"ray_intersect_k1 ({mode} hit)",
-        "route": "cuda",
-        "source": "psdr_tpu_torch/csrc/intersect.cu",
-        "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-        "launches": bwd[mode],
-        "launches_forward": launches[mode],
-        # |t| error of the hits: closest against k1_plain's hit, any against
-        # the plain Moller-Trumbore on the kernel's triangle
-        "max_abs_err": max(e for e, _ in err[mode]),
-        "valid_mismatches": sum(n for _, n in err[mode]),
-        "ms": ms[mode][0],
-        "plain_ms": ms[mode][1],
-    } for mode in ("closest", "any")]
+    # launches: the backward's three timed steps (the main path) and the
+    # forward's three timed frames; K3, off the render path, its entry
+    # point's run in phase 7. ms, plain_ms and bound_ms of K1 are the tiled
+    # camera chunk's (closest) and the tiled shadow sweep's (any); the
+    # other timed shapes stand under "shapes".
+    kernels = []
+    for mode, main in (("closest", "tiled camera chunk"),
+                       ("any", "tiled shadow sweep")):
+        mine = {k: v for k, v in shapes.items()
+                if v["any_hit"] == (mode == "any")}
+        kernels.append({
+            "name": f"ray_intersect_k1 ({mode} hit)",
+            "route": "cuda",
+            "source": "psdr_tpu_torch/csrc/intersect.cu",
+            "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
+            "launches": bwd[mode],
+            "launches_forward": launches[mode],
+            # |t| error of the hits: closest against k1_plain's hit, any
+            # against the plain Moller-Trumbore on the kernel's triangle
+            "max_abs_err": max(e for e, _ in err[mode]),
+            "valid_mismatches": sum(n for _, n in err[mode]),
+            "ms": mine[main]["ms"],
+            "plain_ms": mine[main]["plain_ms"],
+            "bound_ms": mine[main]["bound_ms"],
+            "bound_by": mine[main]["bound_by"],
+            "library_ms": None,
+            "shapes": mine,
+        })
     kernels.append({
         "name": "ray_intersect_brute (K2)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/brute.cu",
@@ -647,16 +715,17 @@ def main() -> int:
         "launches": bwd["k2"], "launches_forward": launches["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
-        "ms": k2_ms[0], "plain_ms": k2_ms[1]})
+        "ms": k2_ms[0], "plain_ms": k2_ms[1], "bound_ms": k2_ms[2],
+        "bound_by": k2_ms[3], "library_ms": None})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:232",
-        "launches": k3_launches,
+        "launches": k3_launches, "launches_forward": launches["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
-        "ms": k3_ms[0], "plain_ms": k3_ms[1], "k1_ms": k3_ms[2],
-        "cull_ms": k3_ms[3]})
+        "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
+        "library_ms": None, **k3_ms})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

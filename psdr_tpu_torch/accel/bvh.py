@@ -8,8 +8,15 @@ Counterpart of the topology and refit half of ``psdr_tpu/accel/bvh.py``.
   the AABBs.
 * Heap indexing + skip links. Node ``i`` has children ``2i, 2i+1``; leaves
   live at ``[P, 2P)``. ``skip[i]`` is the next preorder node after subtree
-  ``i`` (0 = done), so a traversal carries one node index and no stack —
-  the walk the CUDA kernel in ``accel/intersect.py`` takes.
+  ``i`` (0 = done), so a stackless traversal carries one node index. The
+  plain version of the kernels (``accel/intersect.py`` ``k1_plain``) and K3
+  read the binary ``nodes`` and ``node_mask``.
+* Wide nodes. K1's CUDA kernel walks the same tree collapsed into 4-wide
+  nodes, ``BVH.wide``: one 128-byte record per node that holds the boxes
+  and mask bits of its four grandchildren in the binary tree, so a step of
+  the walk is one record and four slab tests and the depth halves. The
+  tree is complete, so the collapse is a reshape of the refit's per-level
+  boxes (``wide_layout``, ``_wide_nodes``).
 """
 from __future__ import annotations
 
@@ -39,6 +46,10 @@ class BVH(NamedTuple):
     tri_valid: torch.Tensor  # (P, L) bool
     perm: torch.Tensor       # (P*L,) int32 (-1 for padding)
     skip: torch.Tensor       # (2P,) int32 preorder skip links
+    wide: torch.Tensor       # (max(W, 1), 32) float32 4-wide nodes, see
+                             # ``wide_layout``: [lo.x*4, lo.y*4, lo.z*4,
+                             # hi.x*4, hi.y*4, hi.z*4, mask*4 (1.0 / 0.0),
+                             # 0*4], child c in column c of each group
 
     @property
     def num_leaves(self) -> int:
@@ -47,6 +58,46 @@ class BVH(NamedTuple):
     @property
     def leaf_size(self) -> int:
         return self.leaf_tris.shape[1] // 9
+
+
+class WideLayout(NamedTuple):
+    """The 4-wide collapse of a complete binary tree over P = 2^D leaves.
+
+    Wide level k stands for the binary nodes of level D % 2 + 2k; its
+    children are their grandchildren. With an odd D the binary root is
+    left out and the walk starts from its two children (``roots`` = 2).
+    Levels are stored one after the other, so that wide node w has the
+    children 4w + roots + c, c = 0..3; an id of ``nodes`` or more is the
+    leaf ``id - nodes``. P = 1 and P = 2 have no wide node: their roots
+    are the leaves themselves."""
+    roots: int     # 1 or 2 ids the walk starts from: 0 .. roots - 1
+    levels: int    # wide levels: D // 2
+    nodes: int     # W = roots * (4^levels - 1) / 3
+
+
+def wide_layout(num_leaves: int) -> WideLayout:
+    depth = num_leaves.bit_length() - 1
+    if num_leaves < 1 or 1 << depth != num_leaves:
+        raise ValueError("the tree is complete: num_leaves is a power of two")
+    roots, levels = 1 + depth % 2, depth // 2
+    return WideLayout(roots, levels, roots * (4 ** levels - 1) // 3)
+
+
+def _wide_nodes(levels_lo, levels_hi, levels_mask) -> torch.Tensor:
+    """Pack ``refit_bvh``'s per-level boxes and masks (leaves first, root
+    last) into the (max(W, 1), 32) records of ``BVH.wide``."""
+    depth = len(levels_lo) - 1
+    dev = levels_lo[0].device
+    recs = []
+    for k in range(depth // 2):
+        i = depth - (depth % 2 + 2 * k + 2)     # the children's level
+        lo, hi = (x[i].reshape(-1, 4, 3).transpose(1, 2).reshape(-1, 12)
+                  for x in (levels_lo, levels_hi))
+        mask = levels_mask[i].reshape(-1, 4).to(lo.dtype)
+        recs.append(torch.cat([lo, hi, mask, torch.zeros_like(mask)], dim=-1))
+    if not recs:
+        return torch.zeros((1, 32), device=dev)
+    return torch.cat(recs).contiguous()
 
 
 def _next_pow2(n: int) -> int:
@@ -95,7 +146,8 @@ def build_bvh_topology(p0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
 def refit_bvh(topo: BVHTopology, p0: torch.Tensor, e1: torch.Tensor,
               e2: torch.Tensor) -> BVH:
     """AABB refit: leaf AABBs from permuted triangles, internal levels by
-    pairwise min/max up the complete tree. All detached."""
+    pairwise min/max up the complete tree, and the same boxes packed into
+    4-wide nodes. All detached."""
     p0, e1, e2 = p0.detach(), e1.detach(), e2.detach()
     dev = p0.device
     inf = float("inf")
@@ -133,4 +185,5 @@ def refit_bvh(topo: BVHTopology, p0: torch.Tensor, e1: torch.Tensor,
     return BVH(nodes=torch.cat([node_lo, node_hi], dim=-1).contiguous(),
                node_mask=node_mask, leaf_tris=leaf_tris.contiguous(),
                tri_valid=valid.reshape(P, L), perm=perm,
-               skip=torch.as_tensor(topo.skip, device=dev))
+               skip=torch.as_tensor(topo.skip, device=dev),
+               wide=_wide_nodes(levels_lo, levels_hi, levels_mask))

@@ -3,17 +3,21 @@ returns a ``HitRecord`` for rays with t in (RayEpsilon, tmax):
 
 * K1, ``ray_intersect_k1``: closest or any hit against the refit BVH
   (``accel/bvh.py``). Replaces ``psdr_tpu/accel/pallas_kernel.py``
-  ``ray_intersect_pallas_culled2``. Kernel ``csrc/intersect.cu``; plain
-  version ``k1_plain``, which mirrors the JAX package's
-  ``ray_intersect_culled`` (``psdr_tpu/accel/bvh.py``): a slab cull of each
-  ray block against the leaf-block AABBs, then a dense Moller-Trumbore
-  over the occupied (ray block, leaf block) pairs.
+  ``ray_intersect_pallas_culled2``. Kernel ``csrc/intersect.cu``: one
+  thread per ray walks the tree's 4-wide nodes (``BVH.wide``), nearest
+  child first, with a stack in shared memory. Plain version ``k1_plain``,
+  which mirrors the JAX package's ``ray_intersect_culled``
+  (``psdr_tpu/accel/bvh.py``): a slab cull of each ray block against the
+  leaf-block AABBs, then a dense Moller-Trumbore over the occupied (ray
+  block, leaf block) pairs. ``k1_walk_plain`` is the kernel's own walk in
+  lockstep tensor code, visit order, cull margin and tie rule included;
+  tests hold it against ``k1_plain``, and no entry point dispatches to it.
 * K2, ``ray_intersect_brute``: dense closest hit, every ray against every
   triangle. Replaces ``ray_intersect_pallas``. Kernel ``csrc/brute.cu``;
   plain version ``bruteforce.brute_plain``.
-* K3, ``ray_intersect_k3``: the same block cull as ``k1_plain`` in tensor
-  code, the occupied leaf blocks of each ray block compacted in ascending
-  order, and a kernel that runs the dense Moller-Trumbore over them.
+* K3, ``ray_intersect_k3``: block-culled dense closest hit in one kernel:
+  a CTA per ray block slab-tests its rays against each leaf block's AABB,
+  votes, and sweeps the blocks that a ray enters, in ascending order.
   Replaces ``ray_intersect_pallas_culled``. Kernel ``csrc/culled.cu``;
   plain version ``k1_plain``, whose contract it shares.
 
@@ -38,7 +42,7 @@ import torch
 
 from ..core.constants import RayEpsilon
 from .bruteforce import HitRecord, _accept, brute_plain, moller_trumbore_tile
-from .bvh import BVH
+from .bvh import BVH, wide_layout
 
 _INF = float("inf")
 
@@ -131,9 +135,9 @@ def _find_nvcc() -> str | None:
 def build_library(nvcc: str | None = None) -> Path:
     """Compile ``csrc/*.cu`` (K1, K2, K3), one ``nvcc`` per source, all
     started together, and link them into one library,
-    ``build/psdr_tpu_torch/<hash of the sources>/libpsdr_kernels.so``,
-    unless that file exists. Each source's ``nvcc -Xptxas -v`` output goes
-    to ``build.log`` beside it."""
+    ``build/psdr_tpu_torch/<hash of the sources and flags>/
+    libpsdr_kernels.so``, unless that file exists. Each source's
+    ``nvcc -Xptxas -v`` output goes to ``build.log`` beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _SOURCES:
         h.update(src.read_bytes())
@@ -177,13 +181,12 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_library(nvcc)))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.psdr_k1_intersect.argtypes = (
-            [ptr] * 6 + [i32, i32] + [ptr] * 4 + [i32, i32] + [ptr] * 3
-            + [ptr])
+            [ptr, i32, i32, i32] + [ptr] * 3 + [i32] + [ptr] * 4 + [i32, i32]
+            + [ptr] * 3 + [ptr, ptr])
         lib.psdr_k2_brute.argtypes = (
             [ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
         lib.psdr_k3_culled.argtypes = (
-            [ptr] * 3 + [i32, i32] + [ptr] * 2 + [i32, i32]
-            + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+            [ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
         for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
                    lib.psdr_k3_culled):
             fn.restype = i32
@@ -224,7 +227,8 @@ def _bvh_specs(bvh):
         raise ValueError("the kernels index slots with int32")
     return [("nodes", bvh.nodes, torch.float32, (2 * P, 6)),
             ("node_mask", bvh.node_mask, torch.bool, (2 * P,)),
-            ("skip", bvh.skip, torch.int32, (2 * P,)),
+            ("wide", bvh.wide, torch.float32,
+             (max(wide_layout(P).nodes, 1), 32)),
             ("leaf_tris", bvh.leaf_tris, torch.float32, (P, 9 * L)),
             ("tri_valid", bvh.tri_valid, torch.bool, (P, L)),
             ("perm", bvh.perm, torch.int32, (P * L,))]
@@ -255,21 +259,31 @@ def _outputs(n, dev):
 
 def k1_cuda(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
             active: torch.Tensor, tmax: torch.Tensor,
-            any_hit: bool = False) -> HitRecord:
-    """Launch K1 (``csrc/intersect.cu``) on the current stream."""
+            any_hit: bool = False,
+            counts: torch.Tensor | None = None) -> HitRecord:
+    """Launch K1 (``csrc/intersect.cu``) on the current stream. With
+    ``counts``, a (4,) int64 CUDA tensor, the launch is the kernel's
+    counting instantiation, which adds to it the rays' slab tests and their
+    triangle tests left after u, left after v and run in full (a
+    measurement; no entry point passes it)."""
     dev = _cuda_device("k1_cuda", ray_o)
-    _check("K1", _bvh_specs(bvh) + _ray_specs(ray_o, ray_d, active, tmax),
-           dev)
+    specs = _bvh_specs(bvh) + _ray_specs(ray_o, ray_d, active, tmax)
+    if counts is not None:
+        specs.append(("counts", counts, torch.int64, (4,)))
+    _check("K1", specs, dev)
     n = ray_o.shape[0]
+    wide = wide_layout(bvh.num_leaves)
     lib = load_library()
     t, tri, uv = _outputs(n, dev)
-    _launch("K1", lib.psdr_k1_intersect,
-            bvh.nodes.data_ptr(), bvh.node_mask.data_ptr(),
-            bvh.skip.data_ptr(), bvh.leaf_tris.data_ptr(),
-            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), bvh.num_leaves,
-            bvh.leaf_size, ray_o.data_ptr(), ray_d.data_ptr(),
-            tmax.data_ptr(), active.data_ptr(), n, int(bool(any_hit)),
-            t.data_ptr(), tri.data_ptr(), uv.data_ptr(), dev=dev)
+    if n == 0:
+        return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
+    _launch("K1", lib.psdr_k1_intersect, bvh.wide.data_ptr(), wide.nodes,
+            wide.roots, wide.levels, bvh.leaf_tris.data_ptr(),
+            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), bvh.leaf_size,
+            ray_o.data_ptr(), ray_d.data_ptr(), tmax.data_ptr(),
+            active.data_ptr(), n, int(bool(any_hit)), t.data_ptr(),
+            tri.data_ptr(), uv.data_ptr(),
+            None if counts is None else counts.data_ptr(), dev=dev)
     LAUNCHES["any" if any_hit else "closest"] += 1
     return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
 
@@ -296,50 +310,31 @@ def k2_cuda(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
     return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
 
 
-def k3_cull(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
-            active: torch.Tensor, tmax: torch.Tensor, ray_block: int = 512,
-            tri_block: int = 128):
-    """K3's tensor-code half: ``_block_cull`` of ``ray_block``-ray blocks
-    against ``tri_block``-slot leaf blocks, compacted into a CSR list:
-    ``starts`` (n_rb + 1,) int32 and ``blocks`` (starts[-1],) int32, each
-    ray block's occupied leaf blocks in ascending order. Returns
-    (starts, blocks, tri_block)."""
-    P, L = bvh.num_leaves, bvh.leaf_size
-    T = min(tri_block, P * L)
-    if T % L or (P * L) % T:
-        raise ValueError("K3: tri_block must be a multiple of the leaf size "
-                         "that divides the padded slot count")
-    occupied = _block_cull(bvh, ray_o, ray_d, active, tmax, ray_block, T)[4]
-    # row-major nonzero: each ray block's leaf blocks in ascending order
-    blocks = torch.nonzero(occupied)[:, 1].to(torch.int32).contiguous()
-    starts = torch.zeros((occupied.shape[0] + 1,), dtype=torch.int32,
-                         device=occupied.device)
-    starts[1:] = torch.cumsum(occupied.sum(dim=1), dim=0)
-    return starts, blocks, T
-
-
 def k3_cuda(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
             active: torch.Tensor, tmax: torch.Tensor, ray_block: int = 512,
             tri_block: int = 128) -> HitRecord:
-    """``k3_cull``, then K3 (``csrc/culled.cu``) on the current stream:
-    one CTA of ``ray_block`` threads per ray block, over that block's
-    occupied leaf blocks in ascending order."""
+    """Launch K3 (``csrc/culled.cu``) on the current stream: one CTA of
+    ``ray_block`` threads per ray block, which culls and sweeps the leaf
+    blocks of ``tri_block`` slots in ascending order."""
     dev = _cuda_device("k3_cuda", ray_o)
     _check("K3", _bvh_specs(bvh) + _ray_specs(ray_o, ray_d, active, tmax),
            dev)
     if not 32 <= ray_block <= 1024 or ray_block % 32:
         raise ValueError("K3: ray_block must be a multiple of 32 in "
                          "[32, 1024]")
+    P, L = bvh.num_leaves, bvh.leaf_size
+    T = min(tri_block, P * L)
+    if T % L or (P * L) % T:
+        raise ValueError("K3: tri_block must be a multiple of the leaf size "
+                         "that divides the padded slot count")
     n = ray_o.shape[0]
+    lib = load_library()
     t, tri, uv = _outputs(n, dev)
     if n == 0:
         return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
-    starts, blocks, T = k3_cull(bvh, ray_o, ray_d, active, tmax, ray_block,
-                                tri_block)
-    lib = load_library()
-    _launch("K3", lib.psdr_k3_culled, bvh.leaf_tris.data_ptr(),
-            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), bvh.leaf_size, T,
-            starts.data_ptr(), blocks.data_ptr(), starts.shape[0] - 1,
+    _launch("K3", lib.psdr_k3_culled, bvh.nodes.data_ptr(),
+            bvh.node_mask.data_ptr(), bvh.leaf_tris.data_ptr(),
+            bvh.tri_valid.data_ptr(), bvh.perm.data_ptr(), L, T, P * L // T,
             ray_block, ray_o.data_ptr(), ray_d.data_ptr(), tmax.data_ptr(),
             active.data_ptr(), n, t.data_ptr(), tri.data_ptr(), uv.data_ptr(),
             dev=dev)
@@ -460,3 +455,112 @@ def k1_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
                      uv=torch.stack([torch.where(valid, u, zero),
                                      torch.where(valid, v, zero)], dim=-1),
                      t=torch.where(valid, t, _INF))
+
+
+# -- K1's walk in tensor code ------------------------------------------------------
+
+CULL_MARGIN = 1.0001     # kCullMargin of csrc/intersect.cu
+_MISS = 0x7FFFFFFF
+
+
+def k1_walk_plain(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                  active: torch.Tensor, tmax: torch.Tensor,
+                  any_hit: bool = False) -> HitRecord:
+    """The walk of ``csrc/intersect.cu`` with every ray in lockstep: the
+    4-wide nodes of ``bvh.wide``, the children a ray enters over
+    (RayEpsilon, CULL_MARGIN * best t) ordered by the bits of their entry
+    distance, the nearest walked next and the others stacked with that
+    distance and dropped when popped beyond the best t, and a hit taken at
+    a smaller t or at an equal t and a lower slot. In closest-hit mode the
+    record equals ``k1_plain``'s bit for bit, unless a hit's computed t
+    lies more than the margin below the distance at which the ray enters
+    the triangle's boxes (badly conditioned grazing rays from far away:
+    the note on ties in ``csrc/intersect.cu``); with ``any_hit`` a ray
+    stops at the first hit it takes, and ``valid`` equals ``k1_plain``'s."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    L = bvh.leaf_size
+    wide = wide_layout(bvh.num_leaves)
+    W = wide.nodes
+    small = torch.abs(ray_d) < 1e-20
+    inv_d = 1.0 / torch.where(small, torch.where(ray_d < 0, -1e-20, 1e-20),
+                              ray_d)
+    o3, d3 = ray_o.unbind(-1), ray_d.unbind(-1)
+    cap = 3 * wide.levels + wide.roots
+    stack_id = torch.zeros((n, cap), dtype=torch.int64, device=dev)
+    stack_tn = torch.full((n, cap), RayEpsilon, device=dev)
+    # ids below W are wide nodes, the others leaves (id - W); -1: pop next
+    cur = torch.where(active, 0, -1)
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if wide.roots == 2:
+        stack_id[:, 0] = 1
+        sp = active.to(torch.int64)
+    t_best = tmax.clone()
+    slot_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    u_best = torch.zeros((n,), device=dev)
+    v_best = torch.zeros((n,), device=dev)
+    child_no = torch.arange(4, device=dev)
+
+    while True:
+        r = torch.nonzero((cur < 0) & (sp > 0))[:, 0]
+        if r.numel() == 0 and not bool((cur >= 0).any()):
+            break
+        if r.numel():                                          # pop
+            sp[r] -= 1
+            beyond = stack_tn[r, sp[r]] > t_best[r] * CULL_MARGIN
+            cur[r] = torch.where(beyond, -1, stack_id[r, sp[r]])
+        r = torch.nonzero(cur >= W)[:, 0]
+        if r.numel():                                          # a leaf
+            leaf = cur[r] - W
+            cur[r] = -1
+            taken = torch.zeros_like(leaf, dtype=torch.bool)
+            for j in range(L):
+                slot = leaf * L + j
+                u, v, t = moller_trumbore_tile(
+                    *(x[r] for x in o3), *(x[r] for x in d3),
+                    tuple(bvh.leaf_tris[leaf, c * L + j] for c in range(9)))
+                take = (_accept(u, v, t, tmax[r]) & bvh.tri_valid[leaf, j]
+                        & ((t < t_best[r])
+                           | ((t == t_best[r]) & (slot < slot_best[r]))))
+                if any_hit:
+                    take &= ~taken
+                t_best[r] = torch.where(take, t, t_best[r])
+                u_best[r] = torch.where(take, u, u_best[r])
+                v_best[r] = torch.where(take, v, v_best[r])
+                slot_best[r] = torch.where(take, slot, slot_best[r])
+                taken |= take
+            if any_hit:
+                sp[r[taken]] = 0
+        r = torch.nonzero((cur >= 0) & (cur < W))[:, 0]
+        if r.numel():                                          # a wide node
+            rec = bvh.wide[cur[r]]
+            lo, hi = rec[:, 0:12].reshape(-1, 3, 4), rec[:, 12:24].reshape(
+                -1, 3, 4)
+            tn = torch.full((r.numel(), 4), RayEpsilon, device=dev)
+            tf = (t_best[r] * CULL_MARGIN)[:, None].expand(-1, 4)
+            for c in range(3):
+                oc, ic = ray_o[r, c, None], inv_d[r, c, None]
+                t0, t1 = (lo[:, c] - oc) * ic, (hi[:, c] - oc) * ic
+                tn = torch.maximum(tn, torch.minimum(t0, t1))
+                tf = torch.minimum(tf, torch.maximum(t0, t1))
+            enters = (rec[:, 24:28] != 0) & (tn <= tf)
+            bits = tn.contiguous().view(torch.int32).to(torch.int64)
+            key = torch.where(enters, (bits & ~3) | child_no, _MISS)
+            key = torch.sort(key, dim=1).values      # nearest first, misses last
+            child0 = 4 * cur[r] + wide.roots
+            for q in (3, 2, 1):
+                m = key[:, q] != _MISS
+                rq, kq = r[m], key[m, q]
+                stack_id[rq, sp[rq]] = child0[m] + (kq & 3)
+                stack_tn[rq, sp[rq]] = (kq & ~3).to(torch.int32).view(
+                    torch.float32)
+                sp[rq] += 1
+            cur[r] = torch.where(key[:, 0] != _MISS,
+                                 child0 + (key[:, 0] & 3), -1)
+
+    valid = slot_best >= 0
+    slot = torch.where(valid, slot_best, 0)
+    return HitRecord(valid=valid,
+                     tri_id=torch.where(valid, bvh.perm[slot], -1),
+                     uv=torch.stack([u_best, v_best], dim=-1),
+                     t=torch.where(valid, t_best, _INF))

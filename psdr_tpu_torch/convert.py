@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu", requires_grad: bool = False):
+def params_from_numpy(tree, device="cuda", requires_grad: bool = False):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, requires_grad)
                 for k, v in tree.items()}

@@ -90,6 +90,8 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     if n >= (1 << 32):
         raise NotImplementedError("draws of 2^32 or more elements")
     k0, k1 = _words(key)
+    if device is None:
+        device = key.device
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = _hash(k0, k1, torch.zeros_like(lo), lo,
                    lambda v: v & _M32, _tensor_rotl)

@@ -89,7 +89,7 @@ class Scene:
     """Host-side scene: meshes, BSDFs, emitters and sensors, built into a
     ``FlatScene`` on ``device``."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.meshes: list[Mesh] = []
         self.bsdfs: list = []

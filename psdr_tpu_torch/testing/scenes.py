@@ -8,20 +8,34 @@ both packages get identical inputs); ``floor_light_scene`` is
 outside the view, whose image is smooth in the light's position. At
 ``occluder_subdiv=5`` ``cbox_scene`` is the scene ``bench.py`` measures:
 20,492 triangles. ``triangle_soup`` is the random soup of
-``tests/test_bvh.py`` that the intersection tests share.
+``tests/test_bvh.py`` that the intersection tests share;
+``coincident_case`` puts two coincident triangles into different leaves
+(the tie rule's case); ``scene_rays`` and ``tiled_camera_rays`` make the
+rays the render path sends through a built scene: camera rays, the bounce
+and shadow rays from their hits.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import (AreaLight, Diffuse, PerspectiveCamera, RenderOptions,
                 Scene)
+from ..accel.bvh import build_bvh_topology
 from ..core import transform as xf
+from ..core.constants import ShadowEpsilon
+from ..core.frame import to_world
+from ..core.records import Ray
+from ..core.warp import square_to_cosine_hemisphere
+from ..integrator.base import tiled_pixel_order
+from ..integrator.direct import _emitter_meta
+from ..scene.scene import ray_intersect, sample_emitter_position
+from ..sensor.perspective import sample_primary_ray
 from ..shape import primitives
 
 
 def cbox_scene(width=48, height=48, spp=4, sppe=0, sppse=0,
-               occluder_subdiv=1, device="cpu") -> Scene:
+               occluder_subdiv=1, device="cuda") -> Scene:
     """Cornell-box-style: 5 walls, overhead area light, floating sphere
     occluder."""
     sc = Scene(device=device)
@@ -67,7 +81,7 @@ def cbox_scene(width=48, height=48, spp=4, sppe=0, sppse=0,
 
 
 def sphere_light_scene(width=32, height=32, spp=4, sppe=0, sppse=0,
-                       subdiv=1, device="cpu") -> Scene:
+                       subdiv=1, device="cuda") -> Scene:
     """Diffuse sphere on the z-axis lit by an overhead area light."""
     sc = Scene(device=device)
     white = sc.add_bsdf(Diffuse([0.8, 0.8, 0.8]), "white")
@@ -94,7 +108,7 @@ def sphere_light_scene(width=32, height=32, spp=4, sppe=0, sppse=0,
     return sc
 
 
-def floor_light_scene(width=16, height=16, spp=16, device="cpu") -> Scene:
+def floor_light_scene(width=16, height=16, spp=16, device="cuda") -> Scene:
     """Floor + overhead light, nothing occluding and the light outside the
     camera frustum: the image is a smooth function of a light translation,
     so the interior gradient is the whole gradient."""
@@ -135,3 +149,110 @@ def triangle_soup(n_tris=2048, n_rays=600):
     tmax = np.where(rng.uniform(size=n_rays) > 0.5, np.inf,
                     rng.uniform(0.5, 6, n_rays)).astype(np.float32)
     return p0, e1, e2, o, d, act, tmax
+
+
+def coincident_case(swap: bool = False, n_rays: int = 512):
+    """64 triangles in 16 leaves of 4: small random ones, and the same
+    large triangle twice, as ids 10 and 50, in the plane z = 0. The
+    topology's permutation is set by hand: slot = id, or with ``swap`` ids
+    10 and 50 trade slots, so the copy in the lower slot (leaf 2) has the
+    higher id. Rays come from both sides of the plane, even ones from above. Returns numpy
+    (topology, p0, e1, e2, ray_o, ray_d, active, tmax) and the id that
+    must win every tie."""
+    rng = np.random.default_rng(5)
+    p0 = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.3, 0.3, (64, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.3, 0.3, (64, 3)).astype(np.float32)
+    # the first four leaves lie above the plane and the last four below, so
+    # a ray from below meets the copy in the higher slot first, and enters
+    # the lower copy's subtree at the very t of its best hit
+    e1[:, 2] *= 0.8
+    e2[:, 2] *= 0.8
+    p0[:16, 2] = rng.uniform(0.3, 0.7, 16)
+    p0[48:, 2] = -rng.uniform(0.3, 0.7, 16)
+    for i in (10, 50):
+        p0[i], e1[i], e2[i] = (-0.8, -0.8, 0.0), (1.6, 0, 0), (0, 1.6, 0)
+    perm = np.arange(64, dtype=np.int32)
+    if swap:
+        perm[[10, 50]] = perm[[50, 10]]
+    topo = build_bvh_topology(p0, e1, e2, leaf_size=4)._replace(perm=perm)
+    xy = rng.uniform(-0.75, 0.6, (n_rays, 2)).astype(np.float32)
+    side = np.where(np.arange(n_rays) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    o = np.concatenate([xy, 2.0 * side[:, None]], axis=-1)
+    d = rng.normal(scale=0.05, size=(n_rays, 3)).astype(np.float32)
+    d[:, 2] = -side
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (topo, p0, e1, e2, o, d, np.ones(n_rays, bool),
+            np.full(n_rays, np.inf, np.float32)), int(perm[10])
+
+
+def grazing_case(edge=0.05, dist=(20.0, 100.0), sine=(1e-4, 1e-2),
+                 n_tris=2048, n_rays=1500, seed=3):
+    """A triangle soup under badly conditioned rays: each ray aims at a
+    point inside some triangle, at an angle to its plane whose sine is
+    drawn log-uniformly from ``sine``, from an origin ``dist`` away, where
+    the triangles' edges are up to ``edge`` long. Numpy (p0, e1, e2, ray_o,
+    ray_d, active, tmax), every ray active with no tmax."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    e1 = rng.uniform(-edge, edge, (n_tris, 3)).astype(np.float32)
+    e2 = rng.uniform(-edge, edge, (n_tris, 3)).astype(np.float32)
+    i = rng.integers(0, n_tris, n_rays)
+    uv = rng.uniform(0.1, 0.4, (n_rays, 2))
+    p = p0[i] + uv[:, :1] * e1[i] + uv[:, 1:] * e2[i]
+    n = np.cross(e1[i], e2[i])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    t1 = e1[i] / np.linalg.norm(e1[i], axis=-1, keepdims=True)
+    t2 = np.cross(n, t1)
+    a = rng.uniform(0, 2 * np.pi, (n_rays, 1))
+    s = np.exp(rng.uniform(*np.log(sine), (n_rays, 1)))
+    d = np.cos(a) * t1 + np.sin(a) * t2 + s * n
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = p - d * rng.uniform(*dist, (n_rays, 1))
+    return (p0, e1, e2, o.astype(np.float32), d.astype(np.float32),
+            np.ones(n_rays, bool), np.full(n_rays, np.inf, np.float32))
+
+
+def scene_rays(scene, flat, n, seed):
+    """The three sweeps of the render path on a built scene ``flat``, n
+    rays each, from a numpy seed: camera rays through uniformly random
+    pixels, cosine-bounce rays from their hits and light-sample shadow
+    rays. Each is (Ray, active, tmax or None)."""
+    dev = flat.tri.p0.device
+    u = torch.as_tensor(np.random.default_rng(seed).uniform(size=(n, 6))
+                        .astype(np.float32), device=dev)
+    return _sweeps(scene, flat, sample_primary_ray(flat.sensors[0], u[:, 0:2]),
+                   u[:, 2:4], u[:, 4:6])
+
+
+def tiled_camera_rays(scene, flat, n, spp, seed):
+    """The sweeps of the first n lanes of the render path's wavefront: the
+    first n / spp pixels in 32x32-tile order, spp uniformly jittered
+    samples each (numpy seed), as ``render_interior`` lays them out, and
+    the bounce and shadow rays from their hits. As ``scene_rays``."""
+    dev = flat.tri.p0.device
+    w, h = scene.opts.width, scene.opts.height
+    pix = np.repeat(tiled_pixel_order(w, h)[:n // spp], spp)
+    u = np.random.default_rng(seed).uniform(size=(n, 6))
+    xy = (np.stack([pix % w, pix // w], axis=-1) + u[:, 0:2]) / [w, h]
+    u = torch.as_tensor(u.astype(np.float32), device=dev)
+    cam = sample_primary_ray(flat.sensors[0],
+                             torch.as_tensor(xy.astype(np.float32),
+                                             device=dev))
+    return _sweeps(scene, flat, cam, u[:, 2:4], u[:, 4:6])
+
+
+def _sweeps(scene, flat, cam, u_bounce, u_light):
+    active = torch.ones((cam.o.shape[0],), dtype=torch.bool,
+                        device=cam.o.device)
+    its = ray_intersect(flat, cam, active)
+    hit = its.valid
+    bounce = Ray(its.p, to_world(its.sh_frame,
+                                 square_to_cosine_hemisphere(u_bounce)))
+    ps = sample_emitter_position(flat, scene.face_offset,
+                                 _emitter_meta(scene), its.p, u_light, hit)
+    wo = ps.p - its.p
+    dist = torch.sqrt(torch.clamp((wo * wo).sum(-1), min=1e-20))
+    shadow = Ray(its.p, wo / dist[:, None])
+    return (cam, active, None), (bounce, hit, None), \
+        (shadow, hit, dist - ShadowEpsilon)

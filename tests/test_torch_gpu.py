@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: K1, K2 and K3 against their plain
-versions on the same CUDA tensors, and a small render and a small gradient
-on the card against the same on the CPU. Needs a CUDA device and nvcc;
+versions on the same CUDA tensors (trees of odd and even depth, the tie
+case, several blockings), the default device, and a small render and a
+small gradient on the card against the same on the CPU. Needs a CUDA device and nvcc;
 skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -15,7 +16,9 @@ from psdr_tpu_torch.accel import intersect
 from psdr_tpu_torch.accel.bruteforce import brute_plain
 from psdr_tpu_torch.convert import params_from_numpy
 from psdr_tpu_torch.core import threefry
-from psdr_tpu_torch.testing.scenes import cbox_scene, triangle_soup
+from psdr_tpu_torch.scene.scene import Scene
+from psdr_tpu_torch.testing.scenes import (cbox_scene, coincident_case,
+                                           grazing_case, triangle_soup)
 
 pytestmark = pytest.mark.gpu
 
@@ -29,29 +32,92 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_cuda_kernel_matches_plain(cuda, any_hit):
-    """valid exactly equal; closest hit: tri_id equal except at t-ties and
-    t allclose (rtol 1e-5), as tests/test_bvh.py:43-50."""
-    p0, e1, e2, o, d, act, tmax = triangle_soup()
+def _soup_args(cuda, n_tris=2048, arrays=None):
+    p0, e1, e2, o, d, act, tmax = arrays or triangle_soup(n_tris=n_tris)
     topo = t_bvh.build_bvh_topology(p0, e1, e2, leaf_size=4)
     bvh = t_bvh.refit_bvh(topo, *(torch.from_numpy(x).to(cuda)
                                   for x in (p0, e1, e2)))
-    args = (bvh, *(torch.from_numpy(x).to(cuda) for x in (o, d, act, tmax)))
+    return (bvh, *(torch.from_numpy(x).to(cuda) for x in (o, d, act, tmax)))
+
+
+def _assert_exact(plain, hit):
+    for f in ("valid", "tri_id", "t", "uv"):
+        np.testing.assert_array_equal(getattr(plain, f).cpu().numpy(),
+                                      getattr(hit, f).cpu().numpy(), f)
+
+
+@pytest.mark.parametrize("n_tris", [2048, 1000, 13, 7, 3])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cuda_kernel_matches_plain(cuda, any_hit, n_tris):
+    """K1 against k1_plain: the record bit for bit in closest-hit mode,
+    ``valid`` in any-hit mode; trees of odd depth (2048 triangles: 512
+    leaves), even depth (1000: 256), and of 4, 2 and 1 leaves."""
+    args = _soup_args(cuda, n_tris)
     plain = intersect.k1_plain(*args)
     before = dict(intersect.LAUNCHES)
     hit = intersect.k1_cuda(*args, any_hit=any_hit)
     torch.cuda.synchronize()
     mode = "any" if any_hit else "closest"
     assert intersect.LAUNCHES[mode] == before[mode] + 1
-    np.testing.assert_array_equal(plain.valid.cpu().numpy(),
-                                  hit.valid.cpu().numpy())
-    assert not hit.valid.cpu().numpy()[~act].any()
-    if not any_hit:
-        tp, tk = plain.t.cpu().numpy(), hit.t.cpu().numpy()
-        same = plain.tri_id.cpu().numpy() == hit.tri_id.cpu().numpy()
-        assert np.all(same | np.isclose(tp, tk, rtol=1e-5))
-        np.testing.assert_allclose(tp, tk, rtol=1e-5)
+    assert not hit.valid.cpu().numpy()[~args[3].cpu().numpy()].any()
+    if any_hit:
+        np.testing.assert_array_equal(plain.valid.cpu().numpy(),
+                                      hit.valid.cpu().numpy())
+    else:
+        _assert_exact(plain, hit)
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_ties_go_to_the_lowest_slot(cuda, swap):
+    """Two coincident triangles in different leaves, rays from both sides:
+    K1 and K3 return the copy in the lower slot, as k1_plain does."""
+    (topo, *arrs), winner = coincident_case(swap)
+    p0, e1, e2, *rays = (torch.from_numpy(x).to(cuda) for x in arrs)
+    args = (t_bvh.refit_bvh(topo, p0, e1, e2), *rays)
+    plain = intersect.k1_plain(*args)
+    ids = plain.tri_id.cpu().numpy()
+    assert (ids == winner).sum() > 100 and not (ids == 60 - winner).any()
+    _assert_exact(plain, intersect.k1_cuda(*args))
+    _assert_exact(plain, intersect.k3_cuda(*args))
+    _assert_exact(plain, intersect.k3_cuda(*args, ray_block=64, tri_block=16))
+
+
+@pytest.mark.parametrize("case,reference", [
+    (dict(edge=0.05, dist=(20.0, 100.0), sine=(1e-4, 1e-2)), "k1_plain"),
+    (dict(edge=0.02, dist=(200.0, 1000.0), sine=(1e-3, 1e-1)), "k1_plain"),
+    (dict(edge=0.3, dist=(1000.0, 5000.0), sine=(1e-6, 1e-4)),
+     "k1_walk_plain")])
+def test_grazing_rays(cuda, case, reference):
+    """Grazing rays and far origins over small triangles: K1 equals
+    k1_plain bit for bit while Moller-Trumbore's t stays within the cull
+    margin, and equals its own walk in tensor code beyond that."""
+    args = _soup_args(cuda, arrays=grazing_case(**case))
+    _assert_exact(getattr(intersect, reference)(*args),
+                  intersect.k1_cuda(*args))
+
+
+def test_counting_instantiation_counts(cuda):
+    """The counting instantiation returns the same record and counts at
+    least one slab test and one triangle test run in full for every ray
+    that hits; some tests are left after u and some after v."""
+    args = _soup_args(cuda)
+    counts = torch.zeros((4,), dtype=torch.int64, device=cuda)
+    hit = intersect.k1_cuda(*args, counts=counts)
+    _assert_exact(intersect.k1_cuda(*args), hit)
+    n_hit = int(hit.valid.sum())
+    n_box, left_at_u, left_at_v, in_full = (int(c) for c in counts.cpu())
+    assert n_box >= n_hit and in_full >= n_hit
+    assert left_at_u > 0 and left_at_v > 0
+
+
+def test_default_device_is_the_card(cuda):
+    """Scene() and the scene makers land on the card when the caller names
+    no device."""
+    assert Scene().device.type == "cuda"
+    sc = cbox_scene(8, 8, spp=1)
+    assert sc.build(sc.params()).tri.p0.is_cuda
+    assert params_from_numpy(sc.params())["meshes"][0][
+        "vertex_positions"].is_cuda
 
 
 def test_render_on_card_matches_cpu(cuda):
@@ -72,12 +138,6 @@ def test_render_on_card_matches_cpu(cuda):
     assert abs(card.mean() - cpu.mean()) / cpu.mean() < 1e-4
 
 
-def _assert_exact(plain, hit):
-    for f in ("valid", "tri_id", "t", "uv"):
-        np.testing.assert_array_equal(getattr(plain, f).cpu().numpy(),
-                                      getattr(hit, f).cpu().numpy(), f)
-
-
 @pytest.mark.parametrize("n_tris", [24, 700])
 def test_k2_matches_plain_exactly(cuda, n_tris):
     """K2 against brute_plain: its unrolled branch (up to 24 faces, as the
@@ -92,16 +152,15 @@ def test_k2_matches_plain_exactly(cuda, n_tris):
     _assert_exact(brute_plain(*args), hit)
 
 
-def test_k3_matches_plain_exactly(cuda):
-    """K3 against k1_plain (its plain version) on the 2048-triangle soup:
-    equal bit for bit."""
-    p0, e1, e2, o, d, act, tmax = triangle_soup()
-    topo = t_bvh.build_bvh_topology(p0, e1, e2, leaf_size=4)
-    bvh = t_bvh.refit_bvh(topo, *(torch.from_numpy(x).to(cuda)
-                                  for x in (p0, e1, e2)))
-    args = (bvh, *(torch.from_numpy(x).to(cuda) for x in (o, d, act, tmax)))
+@pytest.mark.parametrize("ray_block,tri_block", [(512, 128), (128, 256),
+                                                 (32, 8)])
+def test_k3_matches_plain_exactly(cuda, ray_block, tri_block):
+    """K3 against k1_plain (its plain version) on the 2048-triangle soup,
+    at its default blocking and two others: equal bit for bit."""
+    args = _soup_args(cuda)
     before = intersect.LAUNCHES["k3"]
-    hit = intersect.ray_intersect_k3(*args)
+    hit = intersect.ray_intersect_k3(*args, ray_block=ray_block,
+                                     tri_block=tri_block)
     torch.cuda.synchronize()
     assert intersect.LAUNCHES["k3"] == before + 1
     _assert_exact(intersect.k1_plain(*args), hit)

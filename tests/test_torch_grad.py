@@ -40,6 +40,7 @@ from test_gradients import _floor_light_scene as j_floor_light
 torch.set_num_threads(2)
 
 CBOX = dict(width=32, height=32, spp=4, occluder_subdiv=3)
+CPU = dict(device="cpu")     # the port defaults to the card
 
 
 def _leaves(tree):
@@ -64,7 +65,7 @@ def _jax_value_and_grad(js, integ, seed, opts=None):
 
 
 def _port_value_and_grad(ts, integ, params_np, seed):
-    p = params_from_numpy(params_np, requires_grad=True)
+    p = params_from_numpy(params_np, **CPU, requires_grad=True)
     img = integ.render_fn(ts, with_boundary=False)(p, threefry.PRNGKey(seed))
     loss = torch.mean(img ** 2)
     loss.backward()
@@ -94,8 +95,8 @@ def test_value_and_grad_matches_jax_cbox(reuse, monkeypatch):
     monkeypatch.delenv("PSDR_TPU_VIS_REUSE_Q", raising=False)
     js = j_cbox(**CBOX)
     j_loss, j_grads = _jax_value_and_grad(js, JDirect(1, 1), seed=3)
-    t_loss, t_grads = _port_value_and_grad(t_scenes.cbox_scene(**CBOX),
-                                           TDirect(1, 1), js.params(), seed=3)
+    t_loss, t_grads = _port_value_and_grad(
+        t_scenes.cbox_scene(**CBOX, **CPU), TDirect(1, 1), js.params(), seed=3)
     assert abs(t_loss - j_loss) <= 1e-5 * j_loss
     assert sum(np.linalg.norm(a) > 0 for a in j_grads) >= 15
     _assert_grads_match(j_grads, t_grads, rel_l2=1e-2, min_cos=0.999)
@@ -106,8 +107,8 @@ def test_value_and_grad_matches_jax_floor_light():
     js = j_floor_light(width=16, height=16, spp=16)
     j_loss, j_grads = _jax_value_and_grad(js, JDirect(1, 1), seed=1)
     t_loss, t_grads = _port_value_and_grad(
-        t_scenes.floor_light_scene(16, 16, 16), TDirect(1, 1), js.params(),
-        seed=1)
+        t_scenes.floor_light_scene(16, 16, 16, **CPU), TDirect(1, 1),
+        js.params(), seed=1)
     assert abs(t_loss - j_loss) <= 1e-5 * j_loss
     _assert_grads_match(j_grads, t_grads, rel_l2=1e-4)
 
@@ -119,7 +120,8 @@ def test_unaligned_chunks_and_remat_match_jax():
     js = j_cbox(width=16, height=16, spp=4, occluder_subdiv=1)
     opts = js.opts.__class__(width=16, height=16, spp=4, pass_lanes=1000)
     j_loss, j_grads = _jax_value_and_grad(js, JDirect(1, 1), 2, opts)
-    ts = t_scenes.cbox_scene(width=16, height=16, spp=4, occluder_subdiv=1)
+    ts = t_scenes.cbox_scene(width=16, height=16, spp=4, occluder_subdiv=1,
+                             **CPU)
     results = []
     for remat in (False, True):
         ts.opts = TOpts(width=16, height=16, spp=4, pass_lanes=1000,
@@ -140,7 +142,8 @@ def test_camera_prior_is_exact():
     several of them)."""
     out = []
     for prior in (False, True):
-        ts = t_scenes.cbox_scene(width=16, height=16, spp=4, occluder_subdiv=3)
+        ts = t_scenes.cbox_scene(width=16, height=16, spp=4,
+                                 occluder_subdiv=3, **CPU)
         ts.opts = TOpts(width=16, height=16, spp=4, pass_lanes=256,
                         camera_hit_prior=prior)
         out.append(_port_value_and_grad(ts, TDirect(1, 1), ts.params(),
@@ -154,7 +157,8 @@ def test_camera_prior_is_exact():
 def test_renderD_matches_renderC():
     """renderD is the primal of the differentiable render: the recompute
     path reproduces the detached render to float rounding."""
-    ts = t_scenes.cbox_scene(width=16, height=16, spp=4, occluder_subdiv=3)
+    ts = t_scenes.cbox_scene(width=16, height=16, spp=4, occluder_subdiv=3,
+                             **CPU)
     integ = TDirect(1, 1)
     d = integ.renderD(ts, seed=5).detach().numpy()
     c = integ.renderC(ts, seed=5).numpy()
@@ -169,13 +173,13 @@ def test_ad_matches_fd_pin_2e4():
     forward-mode AD (torch.autograd.forward_ad, through the Functions'
     jvp) of the image in a light translation against central finite
     differences with common random numbers; relative error < 2e-4."""
-    sc = t_scenes.floor_light_scene(16, 16, 16)
+    sc = t_scenes.floor_light_scene(16, 16, 16, **CPU)
     render = TDirect(0, 1).render_fn(sc, with_boundary=False)
     shift = torch.tensor([1.0, 0.0, 0.0])
     key = threefry.PRNGKey(0)
 
     def f(P):
-        p = params_from_numpy(sc.params())
+        p = params_from_numpy(sc.params(), **CPU)
         mp = p["meshes"][1]
         p["meshes"][1] = {"vertex_positions": mp["vertex_positions"]
                           + P * shift, "to_world": mp["to_world"]}
@@ -197,7 +201,7 @@ def test_known_hit_recompute_degenerate_lane_grads_finite():
     near-coplanar lanes valid; the solid-angle recompute stays finite, so
     the masked lanes' zero cotangents cannot poison any leaf."""
     js = j_cbox(width=8, height=8, spp=1)
-    ts = t_scenes.cbox_scene(width=8, height=8, spp=1)
+    ts = t_scenes.cbox_scene(width=8, height=8, spp=1, **CPU)
     n = 4
     d_np = np.array([[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 1e-8],
                      [1e-8, 1.0, 0.0]], np.float32)
@@ -214,7 +218,7 @@ def test_known_hit_recompute_degenerate_lane_grads_finite():
         return jnp.sum(jnp.where(mask, its.p, 0.0)) + jnp.sum(
             jnp.where(mask[..., 0], its.t, 0.0))
 
-    p = params_from_numpy(js.params(), requires_grad=True)
+    p = params_from_numpy(js.params(), **CPU, requires_grad=True)
     flat = ts.build(p)
     hit = HitRecord(valid=torch.ones(n, dtype=torch.bool),
                     tri_id=torch.zeros(n, dtype=torch.int32),

@@ -17,6 +17,7 @@ from psdr_tpu import DirectIntegrator as JDirect
 from psdr_tpu_torch import DirectIntegrator as TDirect
 from psdr_tpu_torch.convert import params_from_numpy
 from psdr_tpu_torch.core import threefry
+from psdr_tpu_torch.scene.scene import Scene
 from psdr_tpu_torch.testing.scenes import cbox_scene as t_cbox
 
 from scenes import cbox_scene as j_cbox
@@ -24,6 +25,7 @@ from scenes import cbox_scene as j_cbox
 torch.set_num_threads(2)
 
 SCENE = dict(width=32, height=32, spp=4, occluder_subdiv=3)
+CPU = dict(device="cpu")     # the port defaults to the card
 
 
 def _renders(seed):
@@ -31,9 +33,9 @@ def _renders(seed):
     j_img = np.asarray(jax.jit(JDirect(1, 1).render_fn(
         js, with_boundary=False, detached=True))(
             js.params(), jax.random.PRNGKey(seed)))
-    ts = t_cbox(**SCENE)
+    ts = t_cbox(**SCENE, **CPU)
     t_img = TDirect(1, 1).render_fn(ts, with_boundary=False, detached=True)(
-        params_from_numpy(js.params()), threefry.PRNGKey(seed)).numpy()
+        params_from_numpy(js.params(), **CPU), threefry.PRNGKey(seed)).numpy()
     return j_img, t_img
 
 
@@ -55,9 +57,9 @@ def test_render_matches_jax(reuse, q, monkeypatch):
 
 def test_scene_build_matches_jax():
     """The flat scene: face table (F, 32), emitter faces, emitter tables."""
-    js, ts = j_cbox(**SCENE), t_cbox(**SCENE)
+    js, ts = j_cbox(**SCENE), t_cbox(**SCENE, **CPU)
     jf = js.build(js.params())
-    tf = ts.build(params_from_numpy(js.params()))
+    tf = ts.build(params_from_numpy(js.params(), **CPU))
     np.testing.assert_allclose(np.asarray(jf.face_table),
                                tf.face_table.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(jf.em_tri_idx),
@@ -82,3 +84,19 @@ def test_unported_options_raise():
                 ts.params(), threefry.PRNGKey(0))
         with pytest.raises(NotImplementedError, match="slice 2"):
             TDirect(1, 1).renderD(ts)
+
+
+def test_default_device_is_the_card_never_the_cpu():
+    """The scene makers, ``Scene`` and ``params_from_numpy`` name the card
+    when the caller names no device. Where there is no card, building
+    raises torch's own error: nothing falls back to the CPU."""
+    sc = t_cbox(8, 8, spp=1)
+    assert sc.device.type == Scene().device.type == "cuda"
+    if torch.cuda.is_available():
+        assert sc.build(sc.params()).tri.p0.is_cuda
+        assert params_from_numpy({"x": np.zeros(3)})["x"].is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        sc.build(sc.params())
+    with pytest.raises((AssertionError, RuntimeError)):
+        params_from_numpy({"x": np.zeros(3)})
