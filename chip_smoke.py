@@ -72,6 +72,14 @@ IMG_CLOSE_FRAC = 0.99
 IMG_MEAN_REL = 1e-4
 BENCH = dict(width=512, height=512, spp=64, occluder_subdiv=5)
 BWD = dict(BENCH, spp=16)   # bench.py's backward config
+# scripts/bench_renderD.py's config: the boundary step
+RENDERD = dict(width=256, height=256, spp=16, sppe=8, sppse=64,
+               occluder_subdiv=5)
+SMALL_BOUNDARY = dict(width=64, height=64, spp=4, sppe=2, sppse=4,
+                      occluder_subdiv=3)
+GUIDING = dict(reso=(24, 3, 3, 4), nrounds=8, seed=3)
+K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
+SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
 GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
 N_ICO = 1 << 20         # tiled pinhole rays per icosphere (K3's entry point)
 N_CHECK = 1 << 16       # rays per bench-scene comparison
@@ -85,7 +93,8 @@ FP32_FLOPS = 67e12          # float32 outside the tensor cores, published
 K1_SLAB_FLOPS = 19
 K3_SLAB_FLOPS = 25
 MT_FLOPS = (25, 43, 51)
-RAY_BYTES = 29 + 16         # o, d, tmax, active read; t, tri_id, uv written
+LANE_BYTES = 1 + 16         # every lane: active read; t, tri_id, uv written
+ACTIVE_BYTES = 28           # an active lane besides: o, d, tmax read
 
 
 def log(*args):
@@ -137,14 +146,18 @@ def check_any_hits(label, args, tris, hk, hp):
     return err, n_bad
 
 
-def time_ms(fn, reps: int, warmup: bool = True):
+def time_ms(fn, reps: int, warmup: bool = True, spin: bool = False):
     """Mean device milliseconds of ``fn`` over ``reps`` back-to-back
-    launches, by CUDA events, and the last launch's result."""
+    launches, by CUDA events, and the last launch's result. ``spin`` queues
+    the launches behind a spin kernel (see ``launch_times_ms``): for a
+    kernel that runs shorter than the host takes to enqueue it."""
     if warmup:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -157,6 +170,12 @@ def bound(n_bytes, flops):
     """(bound ms, the side that sets it)."""
     by, op = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
+
+
+def ray_bytes(active):
+    """Bytes of rays and hits that K1, K2 or K3 must move under the mask
+    ``active``: an inactive lane's ray is never read."""
+    return active.numel() * LANE_BYTES + int(active.sum()) * ACTIVE_BYTES
 
 
 def tree_bytes(bvh):
@@ -232,12 +251,7 @@ def k1_phase(intersect, bvh_mod, dev):
         f"{flat.accel.num_leaves} leaves, "
         f"{bvh_mod.wide_layout(flat.accel.num_leaves)}")
 
-    def compare(label, args, hk, hp, any_hit):
-        mode = "any" if any_hit else "closest"
-        err[mode].append(
-            check_any_hits(f"{label} {mode}", args, tris, hk, hp)
-            if any_hit else exact(f"{label} {mode}", hk, hp))
-
+    compare = comparer(err, tris)
     for label, rays in zip(("camera", "bounce", "shadow"),
                            scene_rays(sc, flat, N_CHECK, 1)):
         args = k1_args(flat, *rays)
@@ -255,31 +269,55 @@ def k1_phase(intersect, bvh_mod, dev):
             ("tiled shadow sweep", True, t_shd),
             ("random camera rays", False, r_cam),
             ("random shadow rays", True, r_shd)):
-        args = k1_args(flat, *rays)
-        # kernel, plain (once), kernel
-        k1, hk = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit),
-                         20)
-        p1, hp = time_ms(lambda: intersect.k1_plain(*args), 1, warmup=False)
-        k2, _ = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20)
-        counts = torch.zeros((4,), dtype=torch.int64, device=dev)
-        intersect.k1_cuda(*args, any_hit=any_hit, counts=counts)
-        n_box, *n_tri = (int(c) for c in counts.cpu())
-        flops = n_box * K1_SLAB_FLOPS + sum(
-            n * f for n, f in zip(n_tri, MT_FLOPS))
-        b_ms, b_by = bound(N_TIME * RAY_BYTES + tree_bytes(flat.accel), flops)
-        ms = min(k1, k2)
-        per_ray = " + ".join(f"{n / N_TIME:.1f}" for n in n_tri)
-        log(f"  {N_TIME} rays, {name} ({'any' if any_hit else 'closest'}, "
-            f"{int(args[3].sum())} active): kernel {k1:.3f} / {k2:.3f} ms, "
-            f"plain {p1:.1f} ms; {n_box / N_TIME:.1f} slab tests and "
-            f"{per_ray} triangle tests (left after u + left after v + in "
-            f"full) a ray, {flops / N_TIME:.0f} flops a ray -> bound "
-            f"{b_ms:.4f} ms by {b_by}, reached {b_ms / ms:.3f}")
-        compare(f"{N_TIME} {name}", args, hk, hp, any_hit)
-        shapes[name] = dict(any_hit=any_hit, ms=ms, plain_ms=p1,
-                            slab_tests=n_box, tri_tests_by_stage=n_tri,
-                            flops=flops, bound_ms=b_ms, bound_by=b_by)
+        shapes[name] = k1_shape(intersect, flat, name, any_hit,
+                                k1_args(flat, *rays), compare)
     return err, shapes
+
+
+def comparer(err, tris):
+    """``compare(label, args, kernel hit, plain hit, any_hit)`` that holds a
+    K1 result to the plain version's (closest: bit for bit; any: ``valid``,
+    and the plain Moller-Trumbore on the kernel's triangle over ``tris``)
+    and appends (max |dt|, valid mismatches) to ``err[mode]``."""
+    def compare(label, args, hk, hp, any_hit):
+        mode = "any" if any_hit else "closest"
+        err[mode].append(
+            check_any_hits(f"{label} {mode}", args, tris, hk, hp)
+            if any_hit else exact(f"{label} {mode}", hk, hp))
+    return compare
+
+
+def k1_shape(intersect, flat, name, any_hit, args, compare):
+    """K1 timed on the rays ``args`` (kernel, plain once, kernel), its slab
+    and triangle tests counted once by the counting instantiation for the
+    bound, and the timed result compared with the plain version's through
+    ``compare(label, args, kernel hit, plain hit, any_hit)``. Returns the
+    dict of its mode, ms, plain ms, counts and bound."""
+    n = args[1].shape[0]
+    k1, hk = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20,
+                     spin=True)
+    p1, hp = time_ms(lambda: intersect.k1_plain(*args), 1, warmup=False)
+    k2, _ = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20,
+                    spin=True)
+    counts = torch.zeros((4,), dtype=torch.int64, device=args[1].device)
+    intersect.k1_cuda(*args, any_hit=any_hit, counts=counts)
+    n_box, *n_tri = (int(c) for c in counts.cpu())
+    flops = n_box * K1_SLAB_FLOPS + sum(
+        c * f for c, f in zip(n_tri, MT_FLOPS))
+    b_ms, b_by = bound(ray_bytes(args[3]) + tree_bytes(flat.accel), flops)
+    ms = min(k1, k2)
+    per_ray = " + ".join(f"{c / n:.1f}" for c in n_tri)
+    log(f"  {n} rays, {name} ({'any' if any_hit else 'closest'}, "
+        f"{int(args[3].sum())} active): kernel {k1:.3f} / {k2:.3f} ms, "
+        f"plain {p1:.1f} ms; {n_box / n:.1f} slab tests and "
+        f"{per_ray} triangle tests (left after u + left after v + in "
+        f"full) a ray, {flops / n:.0f} flops a ray -> bound "
+        f"{b_ms:.5f} ms by {b_by}, reached {b_ms / ms:.3f}")
+    compare(f"{n} {name}", args, hk, hp, any_hit)
+    return dict(any_hit=any_hit, rays=n, active=int(args[3].sum()), ms=ms,
+                plain_ms=p1,
+                slab_tests=n_box, tri_tests_by_stage=n_tri, flops=flops,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def exact(label, hk, hp):
@@ -304,9 +342,9 @@ def exact(label, hk, hp):
 
 def k2_phase(intersect, dev):
     """Phase 6: K2 against brute_plain on two soups and on the bench
-    scene's 2^21-lane emitter-first sweep, the last timed. Returns
-    ([(max |dt|, valid mismatches), ...], (kernel ms, plain ms, bound ms,
-    the bound's side))."""
+    scene's 2^21-lane emitter-first sweep, the last timed (``k2_timed``).
+    Returns ([(max |dt|, valid mismatches), ...], the timed sweep's
+    dict)."""
     from psdr_tpu_torch.accel.bruteforce import brute_plain
     from psdr_tpu_torch.testing.scenes import scene_rays, triangle_soup
     err = []
@@ -322,21 +360,58 @@ def k2_phase(intersect, dev):
                                              flat.tri.e2)),
             bounce.o.contiguous(), bounce.d.contiguous(), hit,
             torch.full_like(hit, float("inf"), dtype=torch.float32))
+    e, timed = k2_timed(intersect, args, "emitter-first sweep",
+                        f"{N_TIME} bounce rays")
+    return err + [e], timed
+
+
+def launch_times_ms(fn, reps):
+    """Device milliseconds of each of ``reps`` launches of ``fn``, by one
+    CUDA event between launches. The launches are queued behind a spin
+    kernel of some 50 ms, so the card finds each one waiting: the interval
+    between two events is then the kernel's own time, not the time the
+    host takes to enqueue it (which, for a kernel of tens of microseconds,
+    is the longer of the two)."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
+
+def k2_timed(intersect, args, name, what):
+    """K2 on ``args`` (p0, e1, e2, ray_o, ray_d, active, tmax) against
+    brute_plain bit for bit, timed launch by launch in two separate runs of
+    K2_LAUNCHES with the plain version's runs between them: the median and
+    the minimum over all launches. Returns ((max |dt|, valid mismatches),
+    dict of ms (the median), ms_min, plain ms, rays, active rays, faces and
+    the bound)."""
+    from psdr_tpu_torch.accel.bruteforce import brute_plain
+    n, n_faces = args[3].shape[0], args[0].shape[0]
+    n_active = int(args[5].sum())
+    hk = intersect.k2_cuda(*args)
+    run1 = launch_times_ms(lambda: intersect.k2_cuda(*args), K2_LAUNCHES)
     p1, hp = time_ms(lambda: brute_plain(*args), 5)
-    k1, hk = time_ms(lambda: intersect.k2_cuda(*args), 20)
-    k2, _ = time_ms(lambda: intersect.k2_cuda(*args), 20)
-    p2, _ = time_ms(lambda: brute_plain(*args), 5, warmup=False)
-    log(f"  {N_TIME} bounce rays x {idxs.shape[0]} emitter faces "
-        f"({int(hit.sum())} active): kernel {k1:.4f} / {k2:.4f} ms, plain "
-        f"{p1:.3f} / {p2:.3f} ms")
-    err.append(exact(f"{N_TIME} emitter-first sweep", hk, hp))
-    n_faces = idxs.shape[0]
-    # K2 runs every test in full: it has no early exit
-    b_ms, b_by = bound(N_TIME * RAY_BYTES + n_faces * 36,
-                       N_TIME * n_faces * MT_FLOPS[2])
-    log(f"  bound {b_ms:.4f} ms by {b_by}, reached "
-        f"{b_ms / min(k1, k2):.3f}")
-    return err, (min(k1, k2), min(p1, p2), b_ms, b_by)
+    run2 = launch_times_ms(lambda: intersect.k2_cuda(*args), K2_LAUNCHES)
+    both = np.concatenate([run1, run2])
+    ms, ms_min = float(np.median(both)), float(both.min())
+    # K2 runs every test of an active lane in full: it has no early exit
+    b_ms, b_by = bound(ray_bytes(args[5]) + n_faces * 36,
+                       n_active * n_faces * MT_FLOPS[2])
+    log(f"  {what} x {n_faces} faces, {name} ({n_active} active): "
+        f"kernel median {ms:.4f} ms, minimum {ms_min:.4f} ms over 2 x "
+        f"{K2_LAUNCHES} launches (runs' medians {np.median(run1):.4f} / "
+        f"{np.median(run2):.4f}, maxima {run1.max():.4f} / {run2.max():.4f})"
+        f"; plain {p1:.3f} ms; bound {b_ms:.5f} ms by {b_by}, reached "
+        f"{b_ms / ms:.3f} at the median, {b_ms / ms_min:.3f} at the minimum")
+    e = exact(f"{n} {name}", hk, hp)
+    return e, dict(rays=n, active=n_active, faces=n_faces, ms=ms,
+                   ms_min=ms_min, plain_ms=p1, bound_ms=b_ms, bound_by=b_by)
 
 
 def icosphere_case(bvh_mod, dev, subdiv):
@@ -450,19 +525,38 @@ def grad_step(render, base, dev, key):
     return loss.detach(), [x.grad for x in leaves]
 
 
-def grad_phase(dev):
-    """Phase 8: the gradient at 64x64, spp 4 on the card (twice, to read
-    the spread of the backward's scatter-adds) against the CPU. Returns
-    the largest relative L2 difference of a leaf, card against CPU."""
+def grad_phase(dev, phase=8, scene=None):
+    """Phases 8 and 10: the gradient of ``cbox_scene(**scene)`` (default
+    64x64, spp 4, interior only) on the card (twice, to read the spread of
+    the backward's scatter-adds) against the CPU; with boundary samples in
+    ``scene``, through ``render_fn(with_boundary=True)``, and each boundary
+    term's image must be exactly zero on both devices. Returns the largest
+    relative L2 difference of a leaf, card against CPU."""
     from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
+    scene = scene or dict(width=64, height=64, spp=4, occluder_subdiv=3)
+    boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
+    integ = DirectIntegrator(1, 1)
     out = []
     for d in (dev, dev, torch.device("cpu")):
-        sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=d)
-        render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)
+        sc = cbox_scene(**scene, device=d)
+        render = integ.render_fn(sc, with_boundary=boundary)
         loss, g = grad_step(render, sc.params(), d, threefry.PRNGKey(7))
         out.append((float(loss), [x.cpu().numpy().ravel() for x in g]))
+        if boundary:
+            with torch.no_grad():
+                flat = sc.build(params_from_numpy(sc.params(), device=d))
+                for name, term in (("primary", integ.render_primary_edges),
+                                   ("secondary",
+                                    integ.render_secondary_edges)):
+                    img = term(sc, flat, 0, threefry.PRNGKey(7))
+                    if (img.shape != (sc.opts.num_pixels, 3)
+                            or bool(img.any())):
+                        raise AssertionError(
+                            f"phase {phase}: the {name}-edge image is not "
+                            f"exactly zero on {d}")
     (l_a, g_a), (_, g_b), (l_c, g_c) = out
 
     def rel(x, y):
@@ -475,7 +569,8 @@ def grad_phase(dev):
     worst, worst_cos = 0.0, 1.0
     for i, (a, c) in enumerate(zip(g_a, g_c)):
         if not np.isfinite(a).all():
-            raise AssertionError(f"phase 8: leaf {i} not finite on the card")
+            raise AssertionError(f"phase {phase}: leaf {i} not finite on "
+                                 "the card")
         r = rel(a, c)
         worst = max(worst, r)
         if np.linalg.norm(c) > 0:
@@ -487,8 +582,84 @@ def grad_phase(dev):
         f"leaf: worst relative L2 {worst:.3g} (bound {GRAD_REL_L2} + spread "
         f"= {tol:.3g}), worst cosine {worst_cos:.7f} (bound {GRAD_COS})")
     if loss_rel > 1e-5 or worst > tol or worst_cos < GRAD_COS:
-        raise AssertionError("phase 8: card and CPU gradients disagree")
+        raise AssertionError(f"phase {phase}: card and CPU gradients "
+                             "disagree")
+    if boundary:
+        log("  the primary- and the secondary-edge image are exactly zero "
+            "on the card and on the CPU")
     return worst
+
+
+def guiding_phase(dev):
+    """Phase 11: ``preprocess_secondary_edges`` at GUIDING's size on the
+    card (twice: the first call warms up, the second is timed) against the
+    CPU: the cell masses within rtol 1e-4 (atol 1e-4 of the largest cell:
+    the per-cell sums are atomic adds on the card). Then one guided
+    boundary step on the card under that table: every leaf finite, the
+    gradient unlike the unguided one."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    masses, integs = [], []
+    for d in (dev, dev, torch.device("cpu")):
+        sc = cbox_scene(**SMALL_BOUNDARY, device=d)
+        integ = DirectIntegrator(1, 1)
+        t0 = time.perf_counter()
+        integ.preprocess_secondary_edges(sc, 0, **GUIDING)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        masses.append((integ.warpper[0].distrb.pmf.cpu().numpy(), dt))
+        integs.append((sc, integ))
+    (_, t_warm), (m_card, t_card), (m_cpu, t_cpu) = masses
+    n_cells = int(np.prod(GUIDING["reso"][:3]))
+    lanes = n_cells * GUIDING["reso"][3]
+    log(f"  {n_cells} cells x {GUIDING['reso'][3]} samples x "
+        f"{GUIDING['nrounds']} rounds ({lanes} lanes a round): card "
+        f"{t_card:.3f} s (first call {t_warm:.3f} s), CPU {t_cpu:.3f} s; "
+        f"{int((m_card > 0).sum())} cells with mass; largest |card - CPU| "
+        f"{np.abs(m_card - m_cpu).max():.3g} of a largest cell "
+        f"{m_cpu.max():.3g}")
+    if m_card.shape != (n_cells,) or not (m_card > 0).any():
+        raise AssertionError("phase 11: no cell got any mass")
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-4,
+                               atol=1e-4 * m_cpu.max(),
+                               err_msg="phase 11: card and CPU masses differ")
+    sc, guided = integs[1]
+    key = threefry.PRNGKey(7)
+    _, g_guided = grad_step(guided.render_fn(sc, with_boundary=True),
+                            sc.params(), dev, key)
+    _, g_plain = grad_step(DirectIntegrator(1, 1).render_fn(
+        sc, with_boundary=True), sc.params(), dev, key)
+    if not all(bool(torch.isfinite(g).all()) for g in g_guided):
+        raise AssertionError("phase 11: a guided leaf is not finite")
+    moved = max(float((a - b).abs().max()) for a, b in zip(g_guided, g_plain))
+    log(f"  guided boundary step on the card: every leaf finite; largest "
+        f"|guided - unguided| entry {moved:.3g}")
+    if not moved > 0.0:
+        raise AssertionError("phase 11: guiding changed no gradient")
+    return t_card
+
+
+def timed_steps(intersect, render, base, dev, first_key=0, n_steps=3):
+    """One warm-up step with PRNGKey(first_key), the peak-memory mark and
+    the launch counts set to 0, then ``n_steps`` timed steps with the next
+    keys (host clock around a synchronize). Returns (seconds per step, the
+    last step's loss and gradients, the launch counts, peak bytes)."""
+    from psdr_tpu_torch.core import threefry
+    grad_step(render, base, dev, threefry.PRNGKey(first_key))     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect.reset_launch_counts()
+    times = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        loss, grads = grad_step(render, base, dev,
+                                threefry.PRNGKey(first_key + 1 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (times, loss, grads, dict(intersect.LAUNCHES),
+            torch.cuda.max_memory_allocated())
 
 
 def profile_step(fn, label):
@@ -528,18 +699,8 @@ def backward_phase(intersect, dev):
     log(f"  remat: {sc.opts.remat_passes!r} -> "
         f"{sc.opts.resolve_remat(sc.opts.num_pixels * sc.opts.spp)} at "
         f"{sc.opts.num_pixels * sc.opts.spp} lanes")
-    grad_step(render, base, dev, threefry.PRNGKey(0))          # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    intersect.reset_launch_counts()
-    times = []
-    for i in range(3):
-        t0 = time.perf_counter()
-        loss, grads = grad_step(render, base, dev, threefry.PRNGKey(i + 1))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(intersect.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    times, loss, grads, launches, peak = timed_steps(intersect, render, base,
+                                                     dev)
     bad = [i for i, g in enumerate(grads)
            if g is None or not bool(torch.isfinite(g).all())]
     if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
@@ -557,6 +718,160 @@ def backward_phase(intersect, dev):
     profile_step(lambda: grad_step(render, base, dev, threefry.PRNGKey(9)),
                  "step")
     return launches
+
+
+def boundary_phase(intersect, dev):
+    """Phase 12: the boundary step at scripts/bench_renderD.py's config.
+    Returns (the launch counts of the three timed steps, {shape: dict} of
+    K1 at this path's shapes, the same of K2, {mode: [(max |dt|, valid
+    mismatches), ...]} of those comparisons with K2's under "k2")."""
+    import dataclasses
+
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**RENDERD, device=dev)
+    opts = sc.opts
+    integ = DirectIntegrator(1, 1)
+    base = sc.params()
+    render = integ.render_fn(sc, with_boundary=True)
+    lanes = {t: opts.num_pixels * getattr(opts, t)
+             for t in ("spp", "sppe", "sppse")}
+    log(f"  lanes a step: interior {lanes['spp']}, primary edges "
+        f"{lanes['sppe']} (x2 rays), secondary edges {lanes['sppse']}; "
+        f"pass_lanes {opts.pass_lanes}; remat "
+        f"{[opts.resolve_remat(v) for v in lanes.values()]}")
+    times, loss, grads, launches, peak = timed_steps(intersect, render, base,
+                                                     dev)
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
+        raise AssertionError(f"phase 12: loss {float(loss)}, leaves without "
+                             f"a finite gradient: {bad}")
+    if launches["closest"] == 0 or launches["any"] == 0 or launches["k2"] == 0:
+        raise AssertionError(f"phase 12: K1 (both modes) and K2 must launch "
+                             f"({launches})")
+    if launches["k3"] != 0:
+        raise AssertionError(f"phase 12: K3 is off the render path, yet it "
+                             f"launched ({launches})")
+    # the interior-only gradient of the last step's key: same loss, another
+    # gradient
+    nb_loss, nb_grads = grad_step(integ.render_fn(sc, with_boundary=False),
+                                  base, dev, threefry.PRNGKey(3))
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(grads, nb_grads)
+           if float(b.norm()) > 0]
+    if (abs(float(nb_loss) - float(loss)) > 1e-6 * float(loss)
+            or not max(rel) > 1e-3):
+        raise AssertionError(
+            f"phase 12: loss {float(loss)} / interior-only {float(nb_loss)}"
+            f"; the boundary terms moved no leaf by more than {max(rel)}")
+    dt = float(np.median(times))
+    samples = opts.num_pixels * (opts.spp + opts.sppe + opts.sppse)
+    log(f"  steps {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f} "
+        f"s -> {samples / dt / 1e6:.3f} M grad-samples/s (pixels x (spp + "
+        f"sppe + sppse)); loss {float(loss):.6f}; {len(grads)} leaves, all "
+        f"finite; boundary terms move a leaf by up to {max(rel):.3g} "
+        f"relative L2 (median leaf {float(np.median(rel)):.3g}); peak memory "
+        f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}")
+    profile_step(lambda: grad_step(render, base, dev, threefry.PRNGKey(9)),
+                 "boundary step")
+    # the split by term, as the script's probes: each term off in turn
+    for label, off in (("sppe 0", dict(sppe=0)), ("sppse 0", dict(sppse=0)),
+                       ("interior only", dict(sppe=0, sppse=0))):
+        sc_t = cbox_scene(**RENDERD, device=dev)
+        sc_t.opts = dataclasses.replace(sc_t.opts, **off)
+        t_times = timed_steps(
+            intersect,
+            DirectIntegrator(1, 1).render_fn(sc_t, with_boundary=True),
+            base, dev, first_key=20)[0]
+        log(f"  {label}: steps {', '.join(f'{t:.3f}' for t in t_times)} s; "
+            f"median {float(np.median(t_times)):.3f} s")
+    k1_shapes, k2_shapes, err = boundary_shapes(intersect, sc, dev)
+    return launches, k1_shapes, k2_shapes, err
+
+
+def boundary_shapes(intersect, sc, dev):
+    """K1 and K2 at the boundary step's shapes, each compared with its
+    plain version, timed, and counted for its bound: the concatenated -/+
+    camera sweep of one primary-edge chunk (K1 closest), and on the
+    compacted wavefront of one secondary-edge chunk the emitter-first sweep
+    (K2), its occlusion sweep (K1 any) and the opposite closest hit (K1
+    closest). The rays are made as ``render_primary_edges`` and
+    ``render_secondary_edges`` make them."""
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.core.constants import ShadowEpsilon
+    from psdr_tpu_torch.core.math import normalize
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.core.sampler import RngStream
+    from psdr_tpu_torch.integrator.direct import (_compact_boundary_lanes,
+                                                  _compact_eligibility,
+                                                  _emitter_meta)
+    from psdr_tpu_torch.scene.scene import (detach_flat,
+                                            sample_boundary_segment_direct)
+    from psdr_tpu_torch.sensor.perspective import sample_primary_edge
+    opts = sc.opts
+    err = {"closest": [], "any": [], "k2": []}
+    k1_shapes, k2_shapes = {}, {}
+    with torch.no_grad():
+        flat = detach_flat(sc.build(sc.params()))
+        compare = comparer(err, (flat.tri.p0, flat.tri.e1, flat.tri.e2))
+        # one primary-edge chunk
+        m = min(max(1, opts.pass_lanes // 2), opts.num_pixels * opts.sppe)
+        rng = RngStream(threefry.PRNGKey(11), salt=1, device=dev)
+        pes = sample_primary_edge(flat.sensors[0],
+                                  torch.sort(rng.next_1d(m)).values)
+        valid = pes.idx >= 0
+        edges = flat.sensors[0].edges
+        log(f"  primary edges: {int(edges.valid.sum())} silhouette edges of "
+            f"{edges.valid.numel()}; {int(valid.sum())} of {m} lanes valid")
+        rays = Ray(torch.cat([pes.ray_n.o, pes.ray_p.o]),
+                   torch.cat([pes.ray_n.d, pes.ray_p.d]))
+        name = "primary-edge -/+ camera sweep"
+        k1_shapes[name] = k1_shape(
+            intersect, flat, name, False,
+            k1_args(flat, rays, torch.cat([valid, valid]), None), compare)
+        # one secondary-edge chunk, compacted
+        m = min(opts.pass_lanes, opts.num_pixels * opts.sppse)
+        rng = RngStream(threefry.PRNGKey(12), salt=2, device=dev)
+        sample3 = rng.next_3d(m)
+        sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
+        s, ks = _compact_eligibility(m)
+        emeta = _emitter_meta(sc)
+        everywhere = torch.ones((m,), dtype=torch.bool, device=dev)
+        bss_v = sample_boundary_segment_direct(
+            flat, sc.face_offset, emeta, sample3, everywhere).valid
+        idx, weight, live = _compact_boundary_lanes(
+            bss_v, sample3[:, 0], rng.next_1d(m), s, ks)
+        bss = sample_boundary_segment_direct(
+            flat, sc.face_offset, emeta, sample3[idx], everywhere[idx])
+        log(f"  secondary edges: {int(flat.sec_edge.valid.sum())} candidate "
+            f"edges of {flat.sec_edge.valid.numel()}; {int(bss_v.sum())} of "
+            f"{m} lanes valid ({float(bss_v.float().mean()):.4f}); segments "
+            f"of {s} keep {ks}: {idx.numel()} lanes, {int(live.sum())} live, "
+            f"largest weight {float(weight.max()):.3f}")
+        p0 = bss.p0.contiguous()
+        direction = normalize(bss.p2 - p0).contiguous()
+        idxs = flat.em_tri_idx
+        inf = torch.full((idx.numel(),), float("inf"), device=dev)
+        k2_args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
+                                                    flat.tri.e2)),
+                   p0, direction, bss.valid, inf)
+        name = "secondary-edge emitter-first sweep, compacted"
+        e, k2_shapes[name] = k2_timed(intersect, k2_args, name,
+                                      f"{idx.numel()} segment rays")
+        err["k2"].append(e)
+        hit_e = intersect.k2_cuda(*k2_args)
+        valid_e = hit_e.valid & bss.valid
+        tmax = torch.where(valid_e, hit_e.t, 0.0) - ShadowEpsilon
+        name = "secondary-edge occlusion sweep, compacted"
+        k1_shapes[name] = k1_shape(
+            intersect, flat, name, True,
+            k1_args(flat, Ray(p0, direction), valid_e, tmax), compare)
+        name = "secondary-edge opposite closest hit, compacted"
+        k1_shapes[name] = k1_shape(
+            intersect, flat, name, False,
+            k1_args(flat, Ray(p0, -direction), valid_e, None), compare)
+    return k1_shapes, k2_shapes, err
 
 
 def main() -> int:
@@ -680,11 +995,31 @@ def main() -> int:
         f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
     bwd = backward_phase(intersect, dev)
 
-    # launches: the backward's three timed steps (the main path) and the
-    # forward's three timed frames; K3, off the render path, its entry
-    # point's run in phase 7. ms, plain_ms and bound_ms of K1 are the tiled
-    # camera chunk's (closest) and the tiled shadow sweep's (any); the
-    # other timed shapes stand under "shapes".
+    # -- 10. the boundary gradient on the card against the CPU --------------------
+    log("phase 10: value_and_grad with the boundary terms on the card vs on "
+        "the CPU (64x64, spp 4, sppe 2, sppse 4)")
+    grad_phase(dev, phase=10, scene=SMALL_BOUNDARY)
+
+    # -- 11. guiding on the card -----------------------------------------------------
+    log(f"phase 11: preprocess_secondary_edges {GUIDING} on the card vs on "
+        "the CPU")
+    guiding_phase(dev)
+
+    # -- 12. the boundary step at full width -----------------------------------------
+    log(f"phase 12: DirectIntegrator(1, 1) boundary step, {RENDERD}, reuse "
+        f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
+    bnd, bnd_k1, bnd_k2, bnd_err = boundary_phase(intersect, dev)
+    shapes.update(bnd_k1)
+    for mode in ("closest", "any"):
+        err[mode] += bnd_err[mode]
+    k2_err = k2_err + bnd_err["k2"]
+
+    # launches: the backward's three timed steps (the main path), the
+    # forward's three timed frames and the boundary step's three timed
+    # steps; K3, off the render path, its entry point's run in phase 7. ms,
+    # plain_ms and bound_ms of K1 are the tiled camera chunk's (closest) and
+    # the tiled shadow sweep's (any); the other timed shapes stand under
+    # "shapes".
     kernels = []
     for mode, main in (("closest", "tiled camera chunk"),
                        ("any", "tiled shadow sweep")):
@@ -697,6 +1032,7 @@ def main() -> int:
             "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
             "launches": bwd[mode],
             "launches_forward": launches[mode],
+            "launches_boundary": bnd[mode],
             # |t| error of the hits: closest against k1_plain's hit, any
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
@@ -713,15 +1049,20 @@ def main() -> int:
         "source": "psdr_tpu_torch/csrc/brute.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
         "launches": bwd["k2"], "launches_forward": launches["k2"],
+        "launches_boundary": bnd["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
-        "ms": k2_ms[0], "plain_ms": k2_ms[1], "bound_ms": k2_ms[2],
-        "bound_by": k2_ms[3], "library_ms": None})
+        # the median launch of the emitter-first sweep of 2^21 bounce rays
+        "ms": k2_ms["ms"], "plain_ms": k2_ms["plain_ms"],
+        "bound_ms": k2_ms["bound_ms"], "bound_by": k2_ms["bound_by"],
+        "library_ms": None,
+        "shapes": {"emitter-first sweep": k2_ms, **bnd_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:232",
         "launches": k3_launches, "launches_forward": launches["k3"],
+        "launches_boundary": bnd["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],

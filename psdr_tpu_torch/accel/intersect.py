@@ -302,6 +302,8 @@ def k2_cuda(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
     n = ray_o.shape[0]
     lib = load_library()
     t, tri, uv = _outputs(n, dev)
+    if n == 0:
+        return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
     _launch("K2", lib.psdr_k2_brute, p0.data_ptr(), e1.data_ptr(),
             e2.data_ptr(), f, ray_o.data_ptr(), ray_d.data_ptr(),
             tmax.data_ptr(), active.data_ptr(), n, t.data_ptr(),

@@ -1,4 +1,4 @@
-"""Carry scene parameters across from the JAX package.
+"""Carry scene parameters and sampling tables across from the JAX package.
 
 ``psdr_tpu``'s ``Scene.params()`` is a pytree of dicts and lists whose
 leaves are numpy arrays (or anything ``numpy.asarray`` takes);
@@ -6,11 +6,21 @@ leaves are numpy arrays (or anything ``numpy.asarray`` takes);
 ``device``, which this package's ``Scene.build`` and ``render_fn`` take;
 ``requires_grad=True`` makes every leaf a fresh autograd leaf, so a
 backward fills its ``.grad``.
+
+Sampling tables are state, not parameters: ``discrete_from_numpy`` and
+``hypercube_from_numpy`` rebuild a ``Discrete`` or a guiding ``HyperCube``
+from the other package's arrays. Given its ``cmf`` too, the table is that
+cmf bit for bit (two cumulative sums of one pmf may round apart in the last
+place, and a sample that falls between the two values would pick another
+entry); without it the cmf is summed here.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .core.distribution import (Discrete, HyperCube, discrete_init,
+                                hypercube_init)
 
 
 def params_from_numpy(tree, device="cuda", requires_grad: bool = False):
@@ -22,3 +32,20 @@ def params_from_numpy(tree, device="cuda", requires_grad: bool = False):
                           for v in tree)
     return torch.tensor(np.asarray(tree, np.float32), device=device,
                         requires_grad=requires_grad)
+
+
+def discrete_from_numpy(pmf, cmf=None, device="cuda") -> Discrete:
+    pmf = torch.tensor(np.asarray(pmf, np.float32), device=device)
+    if cmf is None:
+        return discrete_init(pmf)
+    cmf = torch.tensor(np.asarray(cmf, np.float32), device=device)
+    return Discrete(pmf=pmf, cmf=cmf, total=cmf[-1])
+
+
+def hypercube_from_numpy(resolution, pmf, cmf=None,
+                         device="cuda") -> HyperCube:
+    """A ``HyperCube`` over ``resolution`` with the cell masses ``pmf`` (as
+    ``hypercube_set_mass`` left them in the other package: its
+    ``distrb.pmf``) and optionally its ``distrb.cmf``."""
+    d = discrete_from_numpy(pmf, cmf, device)
+    return hypercube_init(resolution, d.pmf)._replace(distrb=d)

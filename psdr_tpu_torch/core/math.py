@@ -94,6 +94,12 @@ def sqr(x):
     return x * x
 
 
+def sign_eps(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Ternary sign with a dead zone: +1 if x > eps, -1 if x < -eps, else 0
+    (int32)."""
+    return (x > eps).to(torch.int32) - (x < -eps).to(torch.int32)
+
+
 def bilinear(p0, e1, e2, st):
     """p0 + e1*s + e2*t with st shape (..., 2)."""
     return p0 + e1 * st[..., 0:1] + e2 * st[..., 1:2]

@@ -58,13 +58,65 @@ class BSDFSample(NamedTuple):
     wo: torch.Tensor      # (..., 3)
 
 
+class SensorDirectSample(NamedTuple):
+    """Projection of a world point to the sensor."""
+    valid: torch.Tensor
+    q: torch.Tensor           # (..., 2) sample-plane coords in [0,1)^2
+    pixel_idx: torch.Tensor   # (...) int32, -1 if offscreen
+    sensor_val: torch.Tensor  # importance W
+
+
+class PrimaryEdgeSample(NamedTuple):
+    """A point on a screen-space silhouette edge."""
+    idx: torch.Tensor       # pixel index, -1 invalid
+    x_dot_n: torch.Tensor   # normal velocity of the edge point: the only
+    #                         output that carries a gradient
+    ray_p: Ray              # offset ray on the positive side
+    ray_n: Ray              # offset ray on the negative side
+    pdf: torch.Tensor
+    ray_c: Ray              # center ray toward the edge point (vis check)
+    vis_dist: torch.Tensor  # camera -> edge-point distance, margin applied
+
+
+class BoundarySegSample(NamedTuple):
+    """A direct boundary segment: p0 on an edge (differentiable), p2 on an
+    emitter; pdf in area measure x direction factor."""
+    valid: torch.Tensor
+    p0: torch.Tensor     # (..., 3) differentiable edge point
+    edge: torch.Tensor   # (..., 3) normalized (detached) edge direction
+    edge2: torch.Tensor  # (..., 3) detached: the edge triangle's opposite
+    #                      vertex minus the edge's first endpoint
+    p2: torch.Tensor     # (..., 3) emitter point (detached)
+    n: torch.Tensor      # (..., 3) emitter normal
+    pdf: torch.Tensor
+
+
+def _map_tensors(fn, x):
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_map_tensors(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(fn, v) for k, v in x.items()}
+    return x
+
+
+def detach_tree(x):
+    """``x`` (a tensor, or NamedTuples, tuples, lists and dicts of them)
+    with every tensor detached: the JAX package's ``stop_gradient`` of a
+    pytree."""
+    return _map_tensors(torch.Tensor.detach, x)
+
+
 @dataclass(frozen=True)
 class RenderOptions:
     """Render configuration; field names and defaults as in the JAX
     package. ``log_level`` is carried for the same name and has no effect.
-    ``sppe``, ``sppse`` and ``primary_edge_vis_check`` wait for the boundary
-    terms (slice 2, second part): ``Scene.build`` raises on ``sppe``/``sppse``
-    > 0."""
+    ``sppe`` and ``sppse`` are the samples per pixel of the primary- and
+    secondary-edge boundary terms; ``primary_edge_vis_check`` rejects
+    primary-edge samples whose edge point is hidden from the camera."""
     width: int = 64
     height: int = 64
     spp: int = 1

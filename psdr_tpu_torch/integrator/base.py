@@ -1,15 +1,19 @@
 """Integrator base: wavefront generation and image accumulation.
 
-Counterpart of ``psdr_tpu/integrator/base.py`` for the interior term, in
-the forward render and under autograd. One lane per (pixel, sample); lanes
-are pixel-major along a 32x32 tile traversal and run in chunks of
-``RenderOptions.pass_lanes``, each with its own key from ``split``. Under
-``RenderOptions.resolve_remat`` each chunk is checkpointed: the backward
-re-runs the chunk's forward (same key, so the same uniforms and the same
-hits) instead of keeping its intermediates. The boundary estimators and
-lane sharding wait for later slices and raise ``NotImplementedError``.
+Counterpart of ``psdr_tpu/integrator/base.py``: the interior term and the
+primary-edge boundary term, in the forward render and under autograd. One
+lane per (pixel, sample); interior lanes are pixel-major along a 32x32 tile
+traversal and run in chunks of ``RenderOptions.pass_lanes``, each with its
+own key from ``split``. Under ``RenderOptions.resolve_remat`` each chunk is
+checkpointed: the backward re-runs the chunk's forward (same key, so the
+same uniforms and the same hits) instead of keeping its intermediates. The
+boundary terms are zero in the primal (``x - x.detach()``) and carry only a
+gradient. Lane sharding waits for a later slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -19,10 +23,11 @@ from ..core import threefry
 from ..core.constants import RayEpsilon
 from ..core.gather import gather_rows
 from ..core.math import ray_intersect_triangle, scrub_nonfinite
-from ..core.records import RenderOptions
+from ..core.records import Ray, RenderOptions
 from ..core.sampler import RngStream, ld_2d
-from ..scene.scene import FlatScene, Scene, _closest_hit, detach_flat
-from ..sensor.perspective import sample_primary_ray
+from ..scene.scene import (FlatScene, Scene, _closest_hit, detach_flat,
+                           ray_test)
+from ..sensor.perspective import sample_primary_edge, sample_primary_ray
 
 _M32 = 0xFFFFFFFF
 
@@ -251,16 +256,88 @@ class Integrator:
         inv_order = torch.as_tensor(np.argsort(pix_order_np), device=dev)
         return tile_img[inv_order] / spp
 
+    # -- primary boundary ------------------------------------------------------
+    def render_primary_edges(self, scene: Scene, flat: FlatScene,
+                             sensor_id: int, key: torch.Tensor,
+                             shard=None) -> torch.Tensor:
+        """The primary-edge (silhouette) boundary term -> (num_pixels, 3),
+        zero in the primal: radiance difference across a sampled screen-space
+        edge point times its normal velocity ``x_dot_n``, the only factor
+        that carries a gradient."""
+        if shard is not None:
+            raise NotImplementedError("lane sharding waits for slice 5")
+        opts = scene.opts
+        num_pixels = opts.num_pixels
+        dev = scene.device
+        sensor = flat.sensors[sensor_id]
+        if opts.sppe == 0 or sensor.edges is None:
+            return torch.zeros((num_pixels, 3), device=dev)
+        n = num_pixels * opts.sppe
+        flat_det = detach_flat(flat)
+
+        def run_lanes(lane, key_c):
+            rng = RngStream(key_c, salt=1, device=dev)
+            m = lane.shape[0]
+            # edge-sorted lanes are spatially coherent, so the NEE
+            # visibility reuse applies with 16 consecutive lanes in the
+            # role of a pixel's strata (its control variate is unbiased for
+            # any grouping). Both concatenated halves group independently,
+            # since 16 divides m.
+            if m % 16 == 0 and os.environ.get(
+                    "PSDR_TPU_VIS_REUSE", "edge") == "edge":
+                rng.vis_spp = 16
+            pes = sample_primary_edge(sensor,
+                                      torch.sort(rng.next_1d(m)).values)
+            valid = (pes.idx >= 0) & (lane < n)
+            if opts.primary_edge_vis_check:
+                # reject samples whose edge point is hidden from the camera
+                occluded = ray_test(flat_det, pes.ray_c, pes.vis_dist, valid)
+                valid = valid & ~occluded
+            # ONE Li over the concatenated -/+ rays: each query then runs
+            # once at twice the width; lanes stay edge-sorted in each half
+            rays_cat = Ray(torch.cat([pes.ray_n.o, pes.ray_p.o]),
+                           torch.cat([pes.ray_n.d, pes.ray_p.d]))
+            with torch.no_grad():
+                L = self.Li(scene, flat_det, rng, rays_cat,
+                            torch.cat([valid, valid]))
+            delta_L = L[:m] - L[m:]
+            pdf = torch.where(valid, pes.pdf.detach(), 1.0)
+            value = pes.x_dot_n[..., None] * (delta_L / pdf[..., None])
+            # scrub before the subtraction: NaN - NaN would stay NaN
+            value = scrub_nonfinite(value)
+            if opts.sppe > 1:
+                value = value / opts.sppe
+            value = value - value.detach()
+            value = torch.where(valid[..., None], value, 0.0)
+            return accumulate_image(value, torch.where(valid, pes.idx, -1),
+                                    num_pixels)
+
+        # halved chunk: run_lanes doubles its lane count (the concatenated
+        # -/+ rays), which keeps a chunk's tensors at pass_lanes
+        return scan_lane_chunks(run_lanes, n, num_pixels, key,
+                                max(1, opts.pass_lanes // 2), dev,
+                                remat=opts.resolve_remat(n))
+
+    # -- secondary boundary: overridden by integrators that support it ---------
+    def render_secondary_edges(self, scene: Scene, flat: FlatScene,
+                               sensor_id: int, key: torch.Tensor,
+                               shard=None) -> torch.Tensor:
+        return torch.zeros((scene.opts.num_pixels, 3), device=scene.device)
+
     # -- public API -------------------------------------------------------------
     def radiance_image(self, scene: Scene, flat: FlatScene, sensor_id: int,
                        key: torch.Tensor, with_boundary: bool,
                        shard=None) -> torch.Tensor:
-        """Interior render -> (num_pixels, 3); the boundary terms (slice 2,
-        second part) raise."""
+        """Interior render plus, with ``with_boundary``, the primary- and
+        secondary-edge boundary terms -> (num_pixels, 3)."""
         keys = threefry.split(key, 3)
         img = self.render_interior(scene, flat, sensor_id, keys[0], shard)
-        if with_boundary and (scene.opts.sppe > 0 or scene.opts.sppse > 0):
-            raise NotImplementedError("boundary terms wait for slice 2")
+        if with_boundary and scene.opts.sppe > 0:
+            img = img + self.render_primary_edges(scene, flat, sensor_id,
+                                                  keys[1], shard)
+        if with_boundary and scene.opts.sppse > 0:
+            img = img + self.render_secondary_edges(scene, flat, sensor_id,
+                                                    keys[2], shard)
         return img
 
     def render_fn(self, scene: Scene, sensor_id: int = 0,
@@ -293,8 +370,9 @@ class Integrator:
     def renderD(self, scene: Scene, sensor_id: int = 0,
                 seed: int = 0) -> torch.Tensor:
         """Primal of the differentiable render at the current params (the
-        recompute path; boundary terms are zero in the primal) -> (H, W,
-        3). It carries a graph where the scene's params require grad."""
+        recompute path; the boundary terms are zero in the primal and add
+        only their gradient) -> (H, W, 3). It carries a graph where the
+        scene's params require grad."""
         img = self.radiance_image(scene, scene.flat, sensor_id,
                                   threefry.PRNGKey(seed), True)
         return img.reshape(scene.opts.height, scene.opts.width, 3)

@@ -1,10 +1,20 @@
-"""One-bounce direct-illumination integrator with MIS. Counterpart of the
-interior half of ``psdr_tpu/integrator/direct.py``, in the forward render
-and under autograd; the secondary-edge boundary estimator and its guiding
-wait for slice 2, second part.
+"""One-bounce direct-illumination integrator with MIS and the secondary-edge
+boundary term. Counterpart of ``psdr_tpu/integrator/direct.py``, in the
+forward render and under autograd:
+
+* ``Li``: m BSDF samples + n light samples, power-2 MIS; BSDF-sampled hits
+  go to area measure with a detached geometry factor;
+* ``render_secondary_edges`` + ``eval_secondary_edge``: the direct boundary
+  integral. A boundary segment (p0 on a silhouette edge, p2 on an emitter),
+  three detached traces and one differentiable recompute at the camera-side
+  point, the geometric factor (t / dist)(sin phi / sin phi2) cos2, and the
+  normal-velocity term dot(n, u2) as ``result - result.detach()``. Sparse
+  valid lanes are compacted (``_compact_boundary_lanes``) before the tail;
+* ``preprocess_secondary_edges``: Monte-Carlo cell masses for the 3D
+  hypercube that guides the edge samples (``self.warpper``).
 
 All masked divisions route through ``_mdiv`` so masked-out lanes never
-divide by zero (and, once gradients arrive, never carry 0 * inf = NaN).
+divide by zero, nor carry 0 * inf = NaN into a gradient.
 """
 from __future__ import annotations
 
@@ -12,17 +22,27 @@ import os
 
 import torch
 
+from ..accel.bruteforce import HitRecord
 from ..bsdf import all_reflective_one_sided, eval_bsdf, pdf_bsdf, sample_bsdf
+from ..core import threefry
+from ..core.constants import Epsilon, ShadowEpsilon
+from ..core.distribution import (hypercube_init, hypercube_sample_reuse,
+                                 hypercube_set_mass)
 from ..core.frame import to_local, to_world
 from ..core.gather import select_rows
-from ..core.math import dot, sqr, squared_norm
-from ..core.records import Ray
+from ..core.math import (bilinear, cross, dot, norm, normalize,
+                         ray_intersect_triangle, scrub_nonfinite, sqr,
+                         squared_norm)
+from ..core.records import Ray, detach_tree
 from ..core.sampler import RngStream, ld_2d
-from ..scene.scene import (FlatScene, Scene, emitter_position_pdf,
-                           ray_intersect, ray_intersect_emitter_first,
+from ..scene.scene import (FlatScene, Scene, detach_flat,
+                           emitter_position_pdf, ray_intersect,
+                           ray_intersect_emitter_first,
                            ray_intersect_with_prior, ray_test,
+                           sample_boundary_segment_direct,
                            sample_emitter_position, scene_le)
-from .base import Integrator
+from ..sensor.perspective import sample_direct, sample_primary_ray
+from .base import Integrator, accumulate_image, scan_lane_chunks
 
 
 def _stratify2(u2: torch.Tensor, rng: RngStream, which: int) -> torch.Tensor:
@@ -43,6 +63,58 @@ def _mdiv(a, b, mask):
     return a / b[..., None] if a.ndim > b.ndim else a / b
 
 
+def _compact_eligibility(m: int, guided: bool = False):
+    """(segment, keep) sizes for the compaction of a boundary pass, or None
+    when the wavefront does not factor, is too small, or compaction is off
+    (``PSDR_TPU_SSE_COMPACT=0``, read at call time).
+
+    Unguided samples pass the validity test rarely (a few percent), so a
+    full 32k segment keeps s / 16 lanes; guided streams concentrate on
+    valid regions and keep the conservative s / 4, as do the smaller
+    segments of small wavefronts. ``PSDR_TPU_SSE_COMPACT_SHIFT`` overrides
+    both."""
+    s = min(1 << 15, m)
+    shift = int(os.environ.get(
+        "PSDR_TPU_SSE_COMPACT_SHIFT",
+        "4" if (not guided and s == (1 << 15)) else "2"))
+    ks = s >> shift
+    if (m % s or ks < 256
+            or os.environ.get("PSDR_TPU_SSE_COMPACT", "1") != "1"):
+        return None
+    return s, ks
+
+
+def _compact_boundary_lanes(valid_eff, edge_coord, u_sel, s: int, ks: int):
+    """Keep the first ``ks`` lanes of each ``s``-lane segment after sorting
+    valid lanes first by the uniform key ``u_sel`` (a uniformly random
+    subset when a segment overflows), then restore edge coherence by
+    sorting the kept lanes by ``edge_coord``. Both sorts are stable, as the
+    JAX package's: every dead lane carries the key 2.0, and which of them
+    fill a segment's tail must not depend on the sort.
+
+    Returns ``(idx, weight, live)``: gather indices into the full wavefront
+    (m // s * ks,), the per-lane weight max(1, count / ks) that keeps the
+    estimator unbiased (1 when the segment's valid lanes all fit: then the
+    compacted estimator is exact), and the kept lanes' liveness."""
+    m = valid_eff.shape[0]
+    dev = valid_eff.device
+    key2 = torch.where(valid_eff, u_sel.detach(), 2.0)
+    local = torch.argsort(key2.reshape(m // s, s), dim=1,
+                          stable=True)[:, :ks]
+    sel = (local + (torch.arange(m // s, device=dev) * s)[:, None]
+           ).reshape(-1)
+    counts = valid_eff.reshape(m // s, s).sum(dim=1)
+    weight = torch.repeat_interleave(
+        torch.clamp(counts.float() / ks, min=1.0), ks)
+    live_c = valid_eff[sel]
+    key3 = torch.where(live_c, edge_coord.detach()[sel], 2.0)
+    local2 = torch.argsort(key3.reshape(m // s, ks), dim=1, stable=True)
+    sel2 = (local2 + (torch.arange(m // s, device=dev) * ks)[:, None]
+            ).reshape(-1)
+    # weight is constant over a segment, so the re-sort leaves it in place
+    return sel[sel2], weight, live_c[sel2]
+
+
 def _emitter_meta(scene: Scene):
     meta = [("area", e.mesh_index) if e.kind == "area" else ("env", -1)
             for e in scene.emitters]
@@ -59,6 +131,7 @@ class DirectIntegrator(Integrator):
         self.bsdf_samples = bsdf_samples
         self.light_samples = light_samples
         self.hide_emitters = hide_emitters
+        self.warpper: dict = {}   # per-sensor guiding HyperCube
 
     def Li(self, scene: Scene, flat: FlatScene, rng: RngStream, ray: Ray,
            active: torch.Tensor, prior=None) -> torch.Tensor:
@@ -246,3 +319,230 @@ class DirectIntegrator(Integrator):
         V2 = torch.where(trace2, 1.0 - occ2.float(), zero)
         corr = torch.where(B, (V2 - V_ref) * k_lane.float(), zero)
         return torch.where(probe, V0, V_ref + corr)
+
+    # -- secondary boundary ------------------------------------------------------
+    def render_secondary_edges(self, scene: Scene, flat: FlatScene,
+                               sensor_id: int, key: torch.Tensor,
+                               shard=None) -> torch.Tensor:
+        """The secondary-edge (shadow) boundary term -> (num_pixels, 3),
+        zero in the primal."""
+        if shard is not None:
+            raise NotImplementedError("lane sharding waits for slice 5")
+        opts = scene.opts
+        num_pixels = opts.num_pixels
+        dev = scene.device
+        n = num_pixels * opts.sppse
+        warp = self.warpper.get(sensor_id)
+        flat_det = detach_flat(flat)
+        emeta = _emitter_meta(scene)
+
+        def eval_tail(sample3_t, pdf0_t, live_t, weight_t=None):
+            pix, value = self.eval_secondary_edge(scene, flat, sensor_id,
+                                                  sample3_t, ad=True)
+            value = scrub_nonfinite(value)
+            guided = pdf0_t > Epsilon
+            value = torch.where(
+                guided[..., None],
+                value / torch.where(guided, pdf0_t, 1.0)[..., None], value)
+            if weight_t is not None:
+                # the overflow weight count / ks, on the value, so that the
+                # guiding-pdf gate above keeps its own threshold
+                value = value * weight_t[..., None]
+            if opts.sppse > 1:
+                value = value / opts.sppse
+            return accumulate_image(
+                torch.where(live_t[..., None], value, 0.0),
+                torch.where(live_t, pix, -1), num_pixels)
+
+        def run_lanes(lane, key_c):
+            rng = RngStream(key_c, salt=2, device=dev)
+            m = lane.shape[0]
+            sample3 = rng.next_3d(m)
+            # iid lanes: sorting by the edge-selecting coordinate preserves
+            # the measure and groups the lanes of one edge into coherent ray
+            # blocks (each lane finds its own pixel). Stable, as jnp.argsort.
+            sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
+            if warp is not None:
+                sample3, pdf0 = hypercube_sample_reuse(warp, sample3)
+            else:
+                pdf0 = torch.ones((m,), device=dev)
+            live = lane < n
+
+            # Boundary segments are sparse: few unguided samples pass the
+            # silhouette / emitter validity, yet the estimator's traces
+            # would run at full width. A cheap detached sampling pre-pass
+            # finds the valid lanes, and the whole tail (emitter-first
+            # trace, opposite closest hit, camera any-hit, BSDF, AD term)
+            # runs on the compacted wavefront. A segment that holds more
+            # than ks valid lanes keeps a uniformly random ks of them,
+            # weighted by count / ks: unbiased still; below that every valid
+            # lane is kept once with weight 1 and the pass is exact.
+            elig = _compact_eligibility(m, guided=warp is not None)
+            if elig is None:
+                return eval_tail(sample3, pdf0, live)
+            s, ks = elig
+            with torch.no_grad():
+                bss_v = sample_boundary_segment_direct(
+                    flat_det, scene.face_offset, emeta, sample3, live).valid
+            idx, weight, live_c = _compact_boundary_lanes(
+                bss_v & live, sample3[:, 0], rng.next_1d(m), s, ks)
+            return eval_tail(sample3[idx], pdf0[idx], live_c,
+                             weight_t=weight)
+
+        return scan_lane_chunks(run_lanes, n, num_pixels, key,
+                                opts.pass_lanes, dev,
+                                remat=opts.resolve_remat(n))
+
+    def eval_secondary_edge(self, scene: Scene, flat: FlatScene,
+                            sensor_id: int, sample3: torch.Tensor, ad: bool):
+        """Returns (pixel_idx, value). ``ad=False`` is the guiding variant:
+        the value's magnitude without the normal-velocity factor, and
+        pixel_idx all -1."""
+        kinds = scene.bsdf_kinds
+        emeta = _emitter_meta(scene)
+        offsets = scene.face_offset
+        sensor = flat.sensors[sensor_id]
+        dev = sample3.device
+
+        bss = sample_boundary_segment_direct(
+            flat, offsets, emeta, sample3,
+            torch.ones(sample3.shape[:-1], dtype=torch.bool, device=dev))
+        valid = bss.valid
+
+        _p0 = bss.p0.detach()
+        _p2 = bss.p2  # already detached
+        _dir = normalize(_p2 - _p0)
+
+        # visibility p0 -> p2, with the differentiable TriangleInfo of the
+        # hit. The segment is valid only when the closest hit IS the emitter
+        # point p2, so the emitter-first query (a tiny emitter closest hit +
+        # an occlusion sweep) replaces the full-scene closest hit exactly
+        if flat.em_tri_idx is not None:
+            its2_full, tri_info = ray_intersect_emitter_first(
+                flat, Ray(_p0, _dir), valid, want_tri_info=True)
+        else:  # more than 8192 emitter faces: the dense sweep loses
+            its2_full, tri_info = ray_intersect(
+                flat, Ray(_p0, _dir), valid, path_space=True,
+                want_tri_info=True)
+        _its2 = detach_tree(its2_full)
+        valid = valid & _its2.valid & (norm(_its2.p - _p2) < ShadowEpsilon)
+
+        # the opposite trace completes the boundary segment (p1, p2); the
+        # lanes are edge-sorted already
+        with torch.no_grad():
+            _its1 = detach_tree(ray_intersect(flat, Ray(_p0, -_dir), valid,
+                                              path_space=True))
+        valid = valid & _its1.valid
+        _p1 = _its1.p
+
+        # project p1 to the image plane
+        sds = sample_direct(sensor, _p1)
+        valid = valid & sds.valid
+
+        # differentiable camera ray toward p1 (sds.q itself is detached;
+        # gradients enter through the sensor matrices). The camera trace
+        # only needs "is p1 visible" and a differentiable recompute at p1,
+        # whose triangle the opposite trace has found: a tmax-bounded
+        # any-hit and a known-triangle recompute replace a full closest
+        # hit; the epsilon check below keeps the same accept set
+        cam_sensor = sensor if ad else detach_tree(sensor)
+        camera_ray = sample_primary_ray(cam_sensor, sds.q)
+        t_cam = norm(_p1 - camera_ray.o.detach())
+        occluded = ray_test(flat, camera_ray, t_cam, valid, sparse=True)
+        vis = valid & ~occluded
+        known = HitRecord(valid=vis,
+                          tri_id=torch.where(vis, _its1.tri_id, -1),
+                          uv=torch.zeros(vis.shape + (2,), device=dev),
+                          t=t_cam)
+        its1 = ray_intersect(flat, camera_ray, vis, path_space=False,
+                             hit=known)
+        valid = vis & its1.valid & (norm(its1.p.detach() - _p1)
+                                    < ShadowEpsilon)
+
+        # geometric base value
+        dist = norm(_p2 - _p1)
+        cos2 = torch.abs(dot(bss.n, -_dir))
+        e = cross(bss.edge, _dir)
+        sinphi = norm(e)
+        proj = normalize(cross(e, bss.n))
+        sinphi2 = norm(cross(_dir, proj))
+        base_v = (_mdiv(_its1.t, dist, valid) * _mdiv(sinphi, sinphi2, valid)
+                  * cos2)
+        valid = valid & (sinphi > Epsilon) & (sinphi2 > Epsilon)
+
+        # detached BSDF at p1
+        bsdfs_det = detach_tree(flat.bsdfs)
+        d0 = -camera_ray.d.detach()
+        d0_local = to_local(_its1.sh_frame, d0)
+        bsdf_val = eval_bsdf(kinds, bsdfs_det, _its1, d0_local, valid)
+        corr_num = _its1.wi[..., 2] * dot(d0, _its1.n)
+        corr_den = d0_local[..., 2] * dot(_dir, _its1.n)
+        correction = torch.abs(_mdiv(corr_num, corr_den,
+                                     valid & (corr_den != 0.0)))
+        bsdf_val = bsdf_val * correction[..., None]
+
+        le = scene_le(flat, _its2, valid).detach()
+        value0 = bsdf_val * le * (base_v * sds.sensor_val)[..., None]
+        value0 = _mdiv(value0, bss.pdf, valid & (bss.pdf > 0.0))
+        value0 = torch.where(valid[..., None], value0, 0.0)
+
+        if not ad:
+            return (torch.full(valid.shape, -1, dtype=torch.int32,
+                               device=dev), value0)
+
+        # AD normal-velocity term
+        nrm = normalize(cross(bss.n, proj))
+        value0 = value0 * (torch.sign(dot(e, bss.edge2))
+                           * torch.sign(dot(e, nrm)))[..., None]
+
+        v0, e1, e2 = tri_info.p0, tri_info.e1, tri_info.e2
+        sh_dir = normalize(bss.p0 - its1.p)
+        uv, _ = ray_intersect_triangle(v0, e1, e2, its1.p, sh_dir)
+        u2 = bilinear(v0.detach(), e1.detach(), e2.detach(), uv)
+
+        result = value0.detach() * dot(nrm.detach(), u2)[..., None]
+        result = torch.where(valid[..., None], result, 0.0)
+        pix = torch.where(valid, sds.pixel_idx, -1)
+        return pix, result - result.detach()
+
+    # -- guiding -------------------------------------------------------------------
+    def preprocess_secondary_edges(self, scene: Scene, sensor_id: int,
+                                   reso, nrounds: int = 1, seed: int = 0,
+                                   mesh=None) -> None:
+        """Build the secondary-edge guiding hypercube of ``sensor_id`` into
+        ``self.warpper``: ``reso`` = (r0, r1, r2, samples per cell); each of
+        ``nrounds`` rounds evaluates every cell's samples through
+        ``eval_secondary_edge(ad=False)`` and adds the per-cell sums. The
+        rounds are a loop and the per-cell sum an ``index_add_`` (atomic
+        adds on the card). ``mesh`` (the JAX package's lane-sharded build)
+        is not ported."""
+        if mesh is not None:
+            raise NotImplementedError("lane sharding waits for slice 5")
+        if nrounds <= 0:
+            raise ValueError("nrounds must be positive")
+        reso = tuple(int(r) for r in reso)
+        dev = scene.device
+        hc = hypercube_init(reso[:3], device=dev)
+        num_cells = hc.num_cells
+        spp_cell = reso[3]
+        n = num_cells * spp_cell
+
+        with torch.no_grad():
+            flat = detach_flat(scene.flat)
+            idx = torch.arange(n, device=dev) // spp_cell
+            base = hc.cells[idx].float()
+            mass = torch.zeros((num_cells,), device=dev)
+            keys = threefry.split(threefry.PRNGKey(seed), nrounds)
+            for r in range(nrounds):
+                rng = RngStream(keys[r], device=dev)
+                sample3 = (base + rng.next_3d(n)) * hc.unit
+                _, value0 = self.eval_secondary_edge(scene, flat, sensor_id,
+                                                     sample3, ad=False)
+                value0 = scrub_nonfinite(value0)
+                if spp_cell > 1:
+                    value0 = value0 / spp_cell
+                mass = mass + torch.zeros_like(mass).index_add_(
+                    0, idx, value0.amax(dim=-1))
+            if nrounds > 1:
+                mass = mass / nrounds
+        self.warpper[sensor_id] = hypercube_set_mass(hc, mass)

@@ -1,11 +1,12 @@
 """Scene container: the host-side object graph, and ``build``, which
 produces the flat device scene every render consumes.
 
-Counterpart of ``psdr_tpu/scene/scene.py`` for the interior render and its
-gradients. Every tensor of a build is made on ``Scene.device``; gradients
-reach the params leaves through the build and the differentiable hit
-recompute of ``ray_intersect``, while every hit query stays detached. Left
-for later slices: the boundary-edge tables (slice 2, second part) and
+Counterpart of ``psdr_tpu/scene/scene.py`` for the interior render, the
+boundary terms and their gradients. Every tensor of a build is made on
+``Scene.device``; gradients reach the params leaves through the build, the
+differentiable hit recompute of ``ray_intersect`` and the edge tables
+(``sec_edge``, each sensor's ``edges``, built when ``sppe`` or ``sppse`` is
+positive), while every hit query stays detached. Left for a later slice:
 environment maps (slice 4). ``ray_test`` takes the JAX package's
 ``sort_rays``/``sparse`` flags and ignores them: they ordered and compacted
 lanes for the TPU kernel's block cull and change no result.
@@ -21,16 +22,21 @@ from ..accel.bruteforce import HitRecord
 from ..accel.bvh import BVH, BVHTopology, build_bvh_topology, refit_bvh
 from ..accel.intersect import ray_intersect_brute, ray_intersect_k1
 from ..bsdf import check_kinds
-from ..core.constants import ShadowEpsilon
+from ..core.constants import EdgeEpsilon, Epsilon, ShadowEpsilon
 from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.frame import make_frame, to_local
 from ..core.gather import gather_rows, select_rows
-from ..core.math import (bilinear, normalize, ray_intersect_triangle,
-                         rgb2luminance, squared_norm)
-from ..core.records import Intersection, PositionSample, Ray, RenderOptions
+from ..core.math import (bilinear, dot, norm, normalize,
+                         ray_intersect_triangle, rgb2luminance, safe_sqrt,
+                         sign_eps, squared_norm)
+from ..core.records import (BoundarySegSample, Intersection, PositionSample,
+                            Ray, RenderOptions, detach_tree)
 from ..emitter.area import AreaLight
-from ..sensor.perspective import PerspectiveCamera, configure_sensor
-from ..shape.mesh import (Mesh, TriangleInfo, compute_triangle_info,
+from ..sensor.perspective import (PerspectiveCamera, PrimaryEdgeInfo,
+                                  build_primary_edges, configure_sensor,
+                                  finalize_primary_edges)
+from ..shape.mesh import (Mesh, SecondaryEdgeInfo, TriangleInfo,
+                          compute_sec_edge_info, compute_triangle_info,
                           sample_position)
 
 BVH_LEAF_SIZE = 4   # triangles per BVH leaf
@@ -46,6 +52,9 @@ class FlatScene(NamedTuple):
     mesh_id: torch.Tensor          # (F,) int32
     bsdf_id: torch.Tensor          # (F,) int32, -1 none
     emitter_id: torch.Tensor       # (F,) int32, -1 none
+    sec_edge: SecondaryEdgeInfo    # (E,) stacked over meshes; one invalid
+    #                                row where no mesh has edges
+    sec_distrb: Discrete           # over edges, by detached length
     emitter_radiance: torch.Tensor  # (L, 3)
     emitter_weight: torch.Tensor   # (L,) normalized sampling weights
     emitter_inv_area: torch.Tensor  # (L,)
@@ -68,21 +77,10 @@ class FlatScene(NamedTuple):
     detached: bool = False
 
 
-def _map_tensors(fn, x):
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_map_tensors(fn, v) for v in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(_map_tensors(fn, v) for v in x)
-    if isinstance(x, dict):
-        return {k: _map_tensors(fn, v) for k, v in x.items()}
-    return x
-
-
 def detach_flat(flat: FlatScene) -> FlatScene:
-    """Detach every tensor and mark the scene detached."""
-    return _map_tensors(torch.Tensor.detach, flat)._replace(detached=True)
+    """Detach every tensor, the edge tables included, and mark the scene
+    detached."""
+    return detach_tree(flat)._replace(detached=True)
 
 
 class Scene:
@@ -194,9 +192,6 @@ class Scene:
     def build(self, params: dict) -> FlatScene:
         if not self.meshes or not self.sensors:
             raise ValueError("a scene needs meshes and a sensor")
-        if self.opts.sppe > 0 or self.opts.sppse > 0:
-            raise NotImplementedError(
-                "boundary terms (sppe/sppse > 0) wait for slice 2")
         for em in self.emitters:
             if getattr(em, "kind", None) != "area":
                 raise NotImplementedError(
@@ -204,6 +199,7 @@ class Scene:
                     "wait for slice 4")
         check_kinds(self.bsdf_kinds)
         dev = self.device
+        with_edges = self.opts.sppse > 0 or self.opts.sppe > 0
 
         params = {k: [{kk: torch.as_tensor(vv, dtype=torch.float32,
                                           device=dev)
@@ -251,6 +247,23 @@ class Scene:
             bid_l.append(full(nf, mesh.bsdf_id, torch.int32))
             eid_l.append(full(nf, mesh.emitter_id, torch.int32))
 
+        # secondary-edge arrays, masked not compacted
+        sec_list = [compute_sec_edge_info(vp, info, mesh.edge_table(dev))
+                    for mesh, vp, info in zip(self.meshes, world_vps,
+                                              tri_infos)
+                    if mesh.enable_edges and with_edges
+                    and mesh.edge_indices.shape[0]]
+        if sec_list:
+            sec_edge = SecondaryEdgeInfo(*(torch.cat(xs)
+                                           for xs in zip(*sec_list)))
+        else:
+            z3 = torch.zeros((1, 3), device=dev)
+            zb = torch.zeros((1,), dtype=torch.bool, device=dev)
+            sec_edge = SecondaryEdgeInfo(valid=zb, is_boundary=zb, p0=z3,
+                                         e1=z3, n0=z3, n1=z3, p2=z3)
+        sec_distrb = discrete_init(torch.where(
+            sec_edge.valid, norm(sec_edge.e1.detach()), 0.0))
+
         # emitters: radiance, 1/area, sampling weight = area x luminance
         rads, inv_areas, weights, face_distrbs = [], [], [], []
         for i, em in enumerate(self.emitters):
@@ -270,6 +283,23 @@ class Scene:
         w = torch.stack(weights)
         emitter_distrb = discrete_init(w)
         emitter_weight = w / torch.clamp(emitter_distrb.total, min=1e-20)
+
+        # sensors: primary-edge tables
+        if self.opts.sppe > 0:
+            for k, st in enumerate(sensor_states):
+                rows = [build_primary_edges(st, vp, info,
+                                            mesh.edge_table(dev),
+                                            mesh.use_face_normals)
+                        for mesh, vp, info in zip(self.meshes, world_vps,
+                                                  tri_infos)
+                        if mesh.enable_edges and mesh.edge_indices.shape[0]]
+                if rows:
+                    stacked = PrimaryEdgeInfo(
+                        *(torch.cat([getattr(r, f) for r in rows])
+                          for f in PrimaryEdgeInfo._fields[:-1]),
+                        distrb=rows[0].distrb)
+                    sensor_states[k] = st._replace(
+                        edges=finalize_primary_edges(stacked))
 
         accel = None
         if (self._bvh_topo is not None
@@ -304,6 +334,7 @@ class Scene:
         return FlatScene(
             tri=tri, uv0=uv0, uv1=uv1, uv2=uv2, face_normal_mask=fmask,
             mesh_id=mesh_id, bsdf_id=bsdf_id, emitter_id=emitter_id,
+            sec_edge=sec_edge, sec_distrb=sec_distrb,
             emitter_radiance=radiance, emitter_weight=emitter_weight,
             emitter_inv_area=inv_area, emitter_distrb=emitter_distrb,
             emitter_face_distrb=tuple(face_distrbs),
@@ -558,3 +589,54 @@ def emitter_position_pdf(flat: FlatScene, emitter_meta, ref_p: torch.Tensor,
     pdf = (select_rows(flat.emitter_weight, eid)
            * select_rows(flat.emitter_inv_area, eid))
     return torch.where(active, pdf, 0.0)
+
+
+def sample_boundary_segment_direct(flat: FlatScene, face_offsets,
+                                   emitter_meta, sample3: torch.Tensor,
+                                   active: torch.Tensor) -> BoundarySegSample:
+    """Sample (edge point p0, emitter point p2) for the direct boundary
+    integral. Only ``p0`` carries a gradient."""
+    edge_idx, pdf0, s1 = discrete_sample_reuse(flat.sec_distrb,
+                                               sample3[..., 0])
+    se = flat.sec_edge
+    # two packed row gathers: the endpoint and edge vector, which carry
+    # the gradient, and the columns that are read detached. The lanes are
+    # sorted by edge, so equal indices come in long runs: gather_rows
+    # (backward: index_add_), not table[idx]
+    ends = gather_rows(torch.cat([se.p0, se.e1], dim=1), edge_idx)
+    rest = gather_rows(torch.cat(
+        [se.n0, se.n1, se.p2, se.valid.float()[:, None],
+         se.is_boundary.float()[:, None], flat.sec_distrb.pmf[:, None]],
+        dim=1).detach(), edge_idx)
+    info = SecondaryEdgeInfo(
+        p0=ends[:, 0:3], e1=ends[:, 3:6], n0=rest[:, 0:3], n1=rest[:, 3:6],
+        p2=rest[:, 6:9], valid=rest[:, 9] > 0.5,
+        is_boundary=rest[:, 10] > 0.5)
+    ok = info.valid & (rest[:, 11] > 0.0)
+
+    p0 = info.p0 + info.e1 * s1[..., None]           # differentiable
+    e1_det = info.e1.detach()
+    edge = normalize(e1_det)
+    edge2 = info.p2 - info.p0.detach()
+    p0_det = p0.detach()
+    pdf0 = pdf0 / torch.clamp(norm(e1_det), min=1e-20)
+
+    # the emitter point is read detached: no graph (reverse mode), and no
+    # tangent either (forward mode, which no_grad leaves on)
+    with torch.no_grad():
+        ps2 = detach_tree(sample_emitter_position(
+            flat, face_offsets, emitter_meta, p0_det, sample3[..., 1:3],
+            active))
+
+    e = ps2.p - p0_det
+    dist_sqr = squared_norm(e)
+    e = e / safe_sqrt(dist_sqr)[..., None]
+    cos_theta = dot(ps2.n, -e)
+
+    sgn0 = sign_eps(dot(info.n0, e), EdgeEpsilon)
+    sgn1 = sign_eps(dot(info.n1, e), EdgeEpsilon)
+    valid = (active & ok & ps2.valid & (cos_theta > Epsilon)
+             & torch.where(info.is_boundary, sgn0 != 0, sgn0 * sgn1 < 0))
+    pdf = torch.where(valid, pdf0 * ps2.pdf * dist_sqr / cos_theta, 0.0)
+    return BoundarySegSample(valid=valid, p0=p0, edge=edge, edge2=edge2,
+                             p2=ps2.p, n=ps2.n, pdf=pdf)

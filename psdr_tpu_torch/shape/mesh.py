@@ -1,7 +1,7 @@
-"""Triangle meshes: host-side topology and the world-space geometry build.
-Counterpart of ``psdr_tpu/shape/mesh.py``. The edge-adjacency table, OBJ
-loading, authored vertex normals and the 1D vertex offset wait for later
-slices (boundary terms: slice 2; IO: slice 4)."""
+"""Triangle meshes: host-side topology (the edge-adjacency table included)
+and the world-space geometry build. Counterpart of
+``psdr_tpu/shape/mesh.py``. OBJ loading, authored vertex normals and the 1D
+vertex offset wait for later slices (IO: slice 4)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -11,6 +11,7 @@ import torch
 
 from ..core import transform as xform
 from ..core import warp
+from ..core.constants import EdgeEpsilon
 from ..core.distribution import Discrete, discrete_sample_reuse
 from ..core.gather import select_rows
 from ..core.math import bilinear, cross, norm, normalize
@@ -27,6 +28,18 @@ class TriangleInfo(NamedTuple):
     n2: torch.Tensor
     face_normal: torch.Tensor  # (F, 3) unit
     face_area: torch.Tensor    # (F,)
+
+
+class SecondaryEdgeInfo(NamedTuple):
+    """Per-edge silhouette-candidate data. ``valid`` is a mask, not a
+    compaction: invalid rows get zero sampling weight."""
+    valid: torch.Tensor        # (E,) bool  (dihedral filter & enable_edges)
+    is_boundary: torch.Tensor  # (E,) bool  (open edge: one adjacent face)
+    p0: torch.Tensor           # (E, 3) first endpoint
+    e1: torch.Tensor           # (E, 3) p1 - p0
+    n0: torch.Tensor           # (E, 3) adjacent face 0 normal
+    n1: torch.Tensor           # (E, 3) adjacent face 1 normal (n0 where open)
+    p2: torch.Tensor           # (E, 3) opposite vertex of face 0
 
 
 def compute_triangle_info(vertex_positions: torch.Tensor,
@@ -60,6 +73,25 @@ def compute_triangle_info(vertex_positions: torch.Tensor,
     return info, vn
 
 
+def compute_sec_edge_info(vertex_positions: torch.Tensor,
+                          tri_info: TriangleInfo,
+                          edge_indices) -> SecondaryEdgeInfo:
+    """World-space silhouette-candidate edges of one mesh from its
+    ``(E, 5)`` edge table (an array, or ``Mesh.edge_table``'s tensor)."""
+    ei = torch.as_tensor(edge_indices, device=vertex_positions.device).long()
+    is_boundary = ei[:, 3] < 0
+    f1 = torch.clamp(ei[:, 3], min=0)
+    p0 = vertex_positions[ei[:, 0]]
+    e1 = vertex_positions[ei[:, 1]] - p0
+    n0 = tri_info.face_normal[ei[:, 2]]
+    n1 = torch.where(is_boundary[:, None], n0, tri_info.face_normal[f1])
+    p2 = vertex_positions[ei[:, 4]]
+    # dihedral filter: drop edges whose adjacent faces are (nearly) coplanar
+    keep = (torch.sum(n0 * n1, dim=-1) < 1.0 - EdgeEpsilon) | is_boundary
+    return SecondaryEdgeInfo(valid=keep, is_boundary=is_boundary,
+                             p0=p0, e1=e1, n0=n0, n1=n1, p2=p2)
+
+
 class Mesh:
     """Host-side mesh: static topology + parameter leaves
     (``vertex_positions``: raw object-space positions (V, 3); ``to_world``:
@@ -85,15 +117,30 @@ class Mesh:
         self.uv_idx = (None if uv_idx is None
                        else np.ascontiguousarray(uv_idx, np.int32))
         self.use_face_normals = bool(use_face_normals)
-        # silhouette edges feed the boundary terms only (slice 2)
+        # silhouette edges feed the boundary terms only
         self.enable_edges = bool(enable_edges)
         self.bsdf_id = int(bsdf_id)
         self.emitter_id = int(emitter_id)
         self.id = mesh_id
         self.num_vertices = int(self.vertices.shape[0])
         self.num_faces = int(self.faces.shape[0])
+        self.edge_indices = (build_edges(self.faces) if self.enable_edges
+                             else np.zeros((0, 5), np.int32))
+        self._edge_table = None   # (edge_indices, device, its int64 tensor)
         self.vertex_positions = self.vertices
         self.to_world = np.eye(4, dtype=np.float32)
+
+    def edge_table(self, device) -> torch.Tensor:
+        """``edge_indices`` as int64 on ``device``: static topology, so it is
+        uploaded once and again only after ``edge_indices`` is replaced."""
+        device = torch.device(device)
+        cached = self._edge_table
+        if (cached is None or cached[0] is not self.edge_indices
+                or cached[1] != device):
+            cached = (self.edge_indices, device,
+                      torch.as_tensor(self.edge_indices, device=device).long())
+            self._edge_table = cached
+        return cached[2]
 
     def params(self) -> dict:
         return {"vertex_positions": self.vertex_positions,
@@ -113,6 +160,45 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh[nv={self.num_vertices}, nf={self.num_faces}"
                 + (f", id={self.id}" if self.id else "") + "]")
+
+
+def build_edges(faces: np.ndarray) -> np.ndarray:
+    """Edge-adjacency table (E, 5): [v0, v1, face0, face1|-1, opp_vertex0]
+    with v0 < v1. Rows stand in the order in which a walk over the faces
+    first meets each edge, and face0 is the adjacent face with the lower
+    index: the table of the JAX package's native C++ routine, row for row
+    (its numpy grouping yields the same edges in (v0, v1) order, and may
+    name the two faces the other way round). Enforces 2-manifoldness: an edge
+    shared by more than two faces, or twice by one face, raises."""
+    f = faces.astype(np.int64)
+    n_faces = f.shape[0]
+    # directed half-edges, face-major (half-edge 3 f + k), each with its
+    # face and opposite vertex
+    a = f.reshape(-1)
+    b = f[:, [1, 2, 0]].reshape(-1)
+    opp = f[:, [2, 0, 1]].reshape(-1)
+    face = np.repeat(np.arange(n_faces), 3)
+
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    nv = int(f.max()) + 1 if n_faces else 0
+    key = lo * nv + hi
+    # stable: within an edge, the half-edge of the lower face comes first
+    order = np.argsort(key, kind="stable")
+    key_s, face_s = key[order], face[order]
+
+    _, start, counts = np.unique(key_s, return_index=True,
+                                 return_counts=True)
+    if np.any(counts > 2):
+        raise ValueError("Non-manifold mesh: edge shared by more than 2 faces")
+    first = order[start]                 # each edge's first half-edge
+    second = np.where(
+        counts == 2, face_s[np.minimum(start + 1, key_s.shape[0] - 1)], -1)
+    if np.any((counts == 2) & (face[first] == second)):
+        raise ValueError("Duplicated faces sharing an edge")
+    rows = np.argsort(first)             # first-met order
+    first = first[rows]
+    return np.stack([lo[first], hi[first], face[first], second[rows],
+                     opp[first]], axis=1).astype(np.int32)
 
 
 def sample_position(tri_info: TriangleInfo, face_distrb: Discrete,

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: K1, K2 and K3 against their plain
 versions on the same CUDA tensors (trees of odd and even depth, the tie
-case, several blockings), the default device, and a small render and a
-small gradient on the card against the same on the CPU. Needs a CUDA device and nvcc;
-skips elsewhere. Imports no jax, so it runs on a machine without it:
+case, several blockings, tiny and all-inactive launches), the default
+device, and a small render, a small gradient, the boundary gradient, the
+compaction and the guiding masses on the card against the same on the CPU.
+Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
@@ -166,17 +167,124 @@ def test_k3_matches_plain_exactly(cuda, ray_block, tri_block):
     _assert_exact(intersect.k1_plain(*args), hit)
 
 
-def _grads(device, seed=3):
-    sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=device)
+def _grads(device, seed=3, integ=None, **boundary):
+    sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=device,
+                    **boundary)
     p = params_from_numpy(sc.params(), device=device, requires_grad=True)
-    img = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)(
-        p, threefry.PRNGKey(seed))
+    img = (integ or DirectIntegrator(1, 1)).render_fn(
+        sc, with_boundary=bool(boundary))(p, threefry.PRNGKey(seed))
     loss = torch.mean(img ** 2)
     loss.backward()
     leaves = [x for m in p["meshes"] for x in m.values()] + [
         x for k in ("bsdfs", "emitters", "sensors") for m in p[k]
         for x in m.values()]
     return float(loss), [x.grad.cpu().numpy().ravel() for x in leaves]
+
+
+def _assert_leaves_close(cpu, card):
+    for a, g in zip(cpu, card):
+        assert np.isfinite(g).all()
+        na = np.linalg.norm(a)
+        assert np.linalg.norm(g - a) <= 1e-2 * na
+        if na > 0:
+            assert float(g @ a) / (np.linalg.norm(g) * na) >= 0.999
+
+
+def test_boundary_grad_on_card_matches_cpu(cuda):
+    """value_and_grad through render_fn(with_boundary=True) at 64x64, spp 4,
+    sppe 2, sppse 4 (the secondary pass compacts 16,384 lanes to 4,096):
+    the loss within 1e-5 relative, every leaf finite and within 1e-2
+    relative L2 and cosine 0.999 of the CPU's; each boundary term's image
+    exactly zero on the card."""
+    intersect.reset_launch_counts()
+    card_loss, card = _grads(cuda, sppe=2, sppse=4)
+    assert all(intersect.LAUNCHES[k] > 0 for k in ("closest", "any", "k2"))
+    cpu_loss, cpu = _grads(torch.device("cpu"), sppe=2, sppse=4)
+    _, interior = _grads(cuda)
+    assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
+    _assert_leaves_close(cpu, card)
+    assert max(np.abs(a - b).max() for a, b in zip(card, interior)) > 1e-4
+    sc = cbox_scene(64, 64, spp=4, sppe=2, sppse=4, occluder_subdiv=3)
+    integ = DirectIntegrator(1, 1)
+    with torch.no_grad():
+        flat = sc.build(sc.params())
+        for term in (integ.render_primary_edges,
+                     integ.render_secondary_edges):
+            img = term(sc, flat, 0, threefry.PRNGKey(3))
+            assert img.shape == (4096, 3) and not bool(img.any())
+
+
+def test_guiding_on_card_matches_cpu(cuda):
+    """preprocess_secondary_edges at (6, 3, 3, 4), 2 rounds: the cell
+    masses on the card within rtol 1e-4 (atol 1e-4 of the largest cell; the
+    per-cell sums are atomic adds) of the CPU's; a guided boundary gradient
+    on the card matches the CPU's under the same table."""
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        sc = cbox_scene(64, 64, spp=4, sppse=4, occluder_subdiv=3, device=dev)
+        integ = DirectIntegrator(1, 1)
+        integ.preprocess_secondary_edges(sc, 0, (6, 3, 3, 4), nrounds=2,
+                                         seed=3)
+        out.append((integ, integ.warpper[0].distrb.pmf.cpu().numpy()))
+    (i_card, m_card), (i_cpu, m_cpu) = out
+    assert m_card.shape == (54,) and (m_card > 0).any()
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-4,
+                               atol=1e-4 * m_cpu.max())
+    _, card = _grads(cuda, integ=i_card, sppse=4)
+    _, cpu = _grads(torch.device("cpu"), integ=i_cpu, sppse=4)
+    _assert_leaves_close(cpu, card)
+
+
+def test_compaction_and_table_search_on_card_match_cpu(cuda):
+    """_compact_boundary_lanes (two stable segmented sorts) gives the CPU's
+    indices, weights and liveness exactly, an overflowing segment and tied
+    keys included; discrete_sample_reuse on a 30,720-entry table gives the
+    CPU's idx, pdf and remapped sample on one cmf."""
+    from psdr_tpu_torch.convert import discrete_from_numpy
+    from psdr_tpu_torch.core.distribution import (discrete_init,
+                                                  discrete_sample_reuse)
+    from psdr_tpu_torch.integrator.direct import _compact_boundary_lanes
+    s, ks, segs = 2048, 512, 4
+    rng = np.random.default_rng(12)
+    valid = rng.uniform(size=s * segs) < np.repeat([0.03, 0.6, 0.0, 0.2], s)
+    edge = np.sort(rng.integers(0, 300, s * segs) / 300.0).astype(np.float32)
+    u = (rng.integers(0, 1000, s * segs) / 1000.0).astype(np.float32)
+    res = [_compact_boundary_lanes(*(torch.from_numpy(x).to(d)
+                                     for x in (valid, edge, u)), s, ks)
+           for d in (cuda, "cpu")]
+    for a, b in zip(*res):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    pmf = rng.uniform(0, 1, 30720).astype(np.float32)
+    pmf[rng.uniform(size=30720) < 0.3] = 0.0
+    smp = rng.uniform(size=50000).astype(np.float32)
+    cmf = discrete_init(torch.from_numpy(pmf)).cmf.numpy()
+    res = [discrete_sample_reuse(discrete_from_numpy(pmf, cmf, device=d),
+                                 torch.from_numpy(smp).to(d))
+           for d in (cuda, "cpu")]
+    for a, b in zip(*res):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("n,live", [(1, 1), (7, 0), (300, 0), (300, 5)])
+def test_tiny_and_all_inactive_launches(cuda, n, live):
+    """K1 (both modes) and K2 take launches of a few rays and launches
+    whose lanes are all inactive, as the compacted boundary wavefront sends
+    them, and equal their plain versions."""
+    p0, e1, e2, o, d, _, tmax = triangle_soup(n_tris=700)
+    act = np.zeros(n, bool)
+    act[:live] = True
+    rays = [torch.from_numpy(x[:n].copy()).to(cuda) for x in (o, d, act, tmax)]
+    tris = [torch.from_numpy(x).to(cuda) for x in (p0, e1, e2)]
+    _assert_exact(brute_plain(*tris, *rays),
+                  intersect.ray_intersect_brute(*tris, *rays))
+    topo = t_bvh.build_bvh_topology(p0, e1, e2, leaf_size=4)
+    bvh = t_bvh.refit_bvh(topo, *tris)
+    plain = intersect.k1_plain(bvh, *rays)
+    _assert_exact(plain, intersect.ray_intersect_k1(bvh, *rays))
+    any_hit = intersect.ray_intersect_k1(bvh, *rays, any_hit=True)
+    np.testing.assert_array_equal(plain.valid.cpu().numpy(),
+                                  any_hit.valid.cpu().numpy())
+    assert int(plain.valid.sum()) <= live
 
 
 def test_grad_on_card_matches_cpu(cuda):
@@ -190,9 +298,4 @@ def test_grad_on_card_matches_cpu(cuda):
     assert intersect.LAUNCHES["closest"] > 0 and intersect.LAUNCHES["k2"] > 0
     cpu_loss, cpu = _grads(torch.device("cpu"))
     assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
-    for a, g in zip(cpu, card):
-        assert np.isfinite(g).all()
-        na = np.linalg.norm(a)
-        assert np.linalg.norm(g - a) <= 1e-2 * na
-        if na > 0:
-            assert float(g @ a) / (np.linalg.norm(g) * na) >= 0.999
+    _assert_leaves_close(cpu, card)

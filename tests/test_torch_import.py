@@ -17,7 +17,10 @@ PKG = ROOT / "psdr_tpu_torch"
 
 def test_import_without_jax():
     """Every module of the package imports with jax blocked, core.gather
-    and the kernel modules included."""
+    and the kernel modules included; and, still with jax blocked, the
+    boundary code runs: the edge table, the HyperCube functions, the
+    guiding preprocess and a boundary render with its backward on the CPU
+    at 8x8."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -27,6 +30,31 @@ def test_import_without_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('core.gather', 'accel.intersect', 'accel.bruteforce'):\n"
         "    assert 'psdr_tpu_torch.' + m in sys.modules, m\n"
+        "assert not any(k in ('jax', 'psdr_tpu')"
+        " or k.startswith(('jax.', 'psdr_tpu.'))"
+        " for k, v in sys.modules.items() if v is not None)\n"
+        "import torch\n"
+        "from psdr_tpu_torch import DirectIntegrator\n"
+        "from psdr_tpu_torch.convert import params_from_numpy\n"
+        "from psdr_tpu_torch.core import distribution as D, threefry\n"
+        "from psdr_tpu_torch.shape.mesh import build_edges\n"
+        "from psdr_tpu_torch.testing.scenes import cbox_scene\n"
+        "sc = cbox_scene(8, 8, spp=1, sppe=2, sppse=16, occluder_subdiv=1,"
+        " device='cpu')\n"
+        "assert build_edges(sc.meshes[5].faces).shape == (120, 5)\n"
+        "hc = D.hypercube_set_mass(D.hypercube_init((2, 3, 2),"
+        " device='cpu'), torch.arange(12.0))\n"
+        "w, pdf = D.hypercube_sample_reuse(hc, torch.rand(64, 3))\n"
+        "assert torch.allclose(D.hypercube_pdf(hc, w), pdf)\n"
+        "integ = DirectIntegrator(1, 1)\n"
+        "integ.preprocess_secondary_edges(sc, 0, (2, 2, 2, 4), seed=1)\n"
+        "p = params_from_numpy(sc.params(), device='cpu',"
+        " requires_grad=True)\n"
+        "img = integ.render_fn(sc, with_boundary=True)(p,"
+        " threefry.PRNGKey(1))\n"
+        "img.mean().backward()\n"
+        "g = p['meshes'][5]['vertex_positions'].grad\n"
+        "assert img.shape == (64, 3) and torch.isfinite(g).all()\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n")

@@ -71,19 +71,42 @@ def test_scene_build_matches_jax():
 
 
 def test_unported_options_raise():
-    """What the port leaves out, the boundary terms (sppe/sppse > 0),
-    raises instead of doing something else: in the build, and so in
-    render_fn and renderD."""
-    for opt in ("sppe", "sppse"):
-        ts = t_cbox(width=8, height=8, spp=1, occluder_subdiv=1)
-        ts.opts = ts.opts.__class__(width=8, height=8, spp=1, **{opt: 1})
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            ts.build(ts.params())
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            TDirect(1, 1).render_fn(ts, with_boundary=True)(
-                ts.params(), threefry.PRNGKey(0))
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            TDirect(1, 1).renderD(ts)
+    """What the port still leaves out raises NotImplementedError instead of
+    doing something else: environment maps (in the build, and so in
+    render_fn and renderD), lane sharding (``shard=`` of every term) and
+    the lane-sharded guiding build (``mesh=``). The boundary options
+    (sppe/sppse > 0) build and render."""
+    from psdr_tpu_torch.integrator.direct import _emitter_meta
+
+    ts = t_cbox(width=8, height=8, spp=1, sppe=1, sppse=1, occluder_subdiv=1,
+                **CPU)
+    integ = TDirect(1, 1)
+    flat = ts.build(params_from_numpy(ts.params(), **CPU))
+    key = threefry.PRNGKey(0)
+    assert integ.renderD(ts).shape == (8, 8, 3)
+    for term in (integ.render_interior, integ.render_primary_edges,
+                 integ.render_secondary_edges):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            term(ts, flat, 0, key, shard=(0, 2))
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        integ.radiance_image(ts, flat, 0, key, True, shard=(0, 2))
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        integ.preprocess_secondary_edges(ts, 0, (2, 2, 2, 1), mesh=object())
+
+    class EnvMap:           # stands in for the unported environment emitter
+        kind = "envmap"
+
+        def params(self):
+            return {}
+
+    ts.add_emitter(EnvMap())
+    assert _emitter_meta(ts)[-1] == ("env", -1)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        ts.build(ts.params())
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        integ.render_fn(ts, with_boundary=True)(ts.params(), key)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        integ.renderD(ts)
 
 
 def test_default_device_is_the_card_never_the_cpu():
