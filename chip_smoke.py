@@ -40,7 +40,28 @@ Every phase passes or the script exits nonzero:
    ``value_and_grad`` of mean(img^2) through ``Scene.build`` and
    ``render_fn(with_boundary=False)`` on ``cbox_scene(512, 512, spp=16,
    occluder_subdiv=5)``: one warm-up step, three timed steps, then one
-   profiled step; every leaf finite, K1 (both modes) and K2 launched.
+   profiled step; every leaf finite, K1 (both modes) and K2 launched;
+10. the gradient with the boundary terms on the card against the CPU
+    (64x64, spp 4, sppe 2, sppse 4); 11. the guiding table on the card
+    against the CPU, and a guided step; 12. the boundary step of
+    ``DirectIntegrator(1, 1)`` at ``scripts/bench_renderD.py``'s config
+    (256x256, spp 16, sppe 8, sppse 64), with K1 and K2 at its shapes;
+13. the ``PathTracer`` on the card against the CPU at 64x64:
+    ``PathTracer(3)`` interior (spp 4) and ``PathTracer(max_depth=2,
+    camera_depth=2)`` with sppe 2, sppse 4 (the fused boundary pass), loss
+    and every leaf under phase 10's bounds, boundary images exactly zero;
+14. ``PathTracer(max_depth=3)`` forward at phase 5's config (7 rays a
+    sample: 1 camera + 2 a depth), then K1 and K2 on the later bounces'
+    own rays: the depth-2 bounce (closest) and the depth-2 and depth-3
+    shadow sweeps (any) of the first chunk, and the depth-3 emitter-first
+    sweep (K2);
+15. ``PathTracer(3)`` backward at phase 9's config;
+16. the full boundary step, ``PathTracer(max_depth=2, camera_depth=2)``
+    through ``render_fn(with_boundary=True)`` at phase 12's config, the
+    same step with ``PSDR_TPU_FUSED_BOUNDARY=0`` beside it, no
+    ``indexing_backward`` kernel among the profiled step's top ten, and K1
+    on the direction side's compacted wavefront (the far trace and the
+    anchor trace).
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -75,8 +96,8 @@ BWD = dict(BENCH, spp=16)   # bench.py's backward config
 # scripts/bench_renderD.py's config: the boundary step
 RENDERD = dict(width=256, height=256, spp=16, sppe=8, sppse=64,
                occluder_subdiv=5)
-SMALL_BOUNDARY = dict(width=64, height=64, spp=4, sppe=2, sppse=4,
-                      occluder_subdiv=3)
+SMALL = dict(width=64, height=64, spp=4, occluder_subdiv=3)
+SMALL_BOUNDARY = dict(SMALL, sppe=2, sppse=4)
 GUIDING = dict(reso=(24, 3, 3, 4), nrounds=8, seed=3)
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
@@ -525,9 +546,10 @@ def grad_step(render, base, dev, key):
     return loss.detach(), [x.grad for x in leaves]
 
 
-def grad_phase(dev, phase=8, scene=None):
-    """Phases 8 and 10: the gradient of ``cbox_scene(**scene)`` (default
-    64x64, spp 4, interior only) on the card (twice, to read the spread of
+def grad_phase(dev, phase=8, scene=None, integ=None):
+    """Phases 8, 10 and 13: the gradient of ``cbox_scene(**scene)`` (default
+    64x64, spp 4, interior only) under ``integ`` (default
+    ``DirectIntegrator(1, 1)``) on the card (twice, to read the spread of
     the backward's scatter-adds) against the CPU; with boundary samples in
     ``scene``, through ``render_fn(with_boundary=True)``, and each boundary
     term's image must be exactly zero on both devices. Returns the largest
@@ -536,9 +558,9 @@ def grad_phase(dev, phase=8, scene=None):
     from psdr_tpu_torch.convert import params_from_numpy
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
-    scene = scene or dict(width=64, height=64, spp=4, occluder_subdiv=3)
+    scene = scene or SMALL
     boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
-    integ = DirectIntegrator(1, 1)
+    integ = integ or DirectIntegrator(1, 1)
     out = []
     for d in (dev, dev, torch.device("cpu")):
         sc = cbox_scene(**scene, device=d)
@@ -641,6 +663,17 @@ def guiding_phase(dev):
     return t_card
 
 
+def require_launches(phase, launches):
+    """A render path's run must have launched K1 in both modes and K2, and
+    K3, which is off the render path, not at all."""
+    if launches["closest"] == 0 or launches["any"] == 0 or launches["k2"] == 0:
+        raise AssertionError(f"phase {phase}: K1 (both modes) and K2 must "
+                             f"launch ({launches})")
+    if launches["k3"] != 0:
+        raise AssertionError(f"phase {phase}: K3 is off the render path, yet "
+                             f"it launched ({launches})")
+
+
 def timed_steps(intersect, render, base, dev, first_key=0, n_steps=3):
     """One warm-up step with PRNGKey(first_key), the peak-memory mark and
     the launch counts set to 0, then ``n_steps`` timed steps with the next
@@ -664,7 +697,8 @@ def timed_steps(intersect, render, base, dev, first_key=0, n_steps=3):
 
 def profile_step(fn, label):
     """One profiled run of ``fn``: wall and device-busy ms, idle share, the
-    intersection kernels' device ms and the top kernels, logged."""
+    intersection kernels' device ms and the top kernels, logged. Returns
+    the ten top kernels' names."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -682,19 +716,61 @@ def profile_step(fn, label):
         f"(idle {1 - busy / wall:.3f} of wall), K1 {mine['k1_kernel']:.2f} "
         f"ms, K2 {mine['k2_kernel']:.3f} ms, {sum(e.count for e in kern)} "
         "kernel launches; top kernels:")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d}x  {e.key[:100]}")
+    return [e.key for e in top]
 
 
-def backward_phase(intersect, dev):
-    """Phase 9: the backward at bench.py's config. Returns the launch
-    counts of the three timed steps."""
-    from psdr_tpu_torch import DirectIntegrator
+def forward_phase(intersect, dev, integ, phase, rays_per_sample):
+    """Phases 5 and 14: the forward of ``integ`` at bench.py's config: one
+    warm-up frame, three timed frames (host clock around a synchronize),
+    then one profiled frame. Returns (the launch counts of the three timed
+    frames, the last frame's image mean)."""
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**BENCH, device=dev)
+    render = integ.render_fn(sc, with_boundary=False, detached=True)
+    params = sc.params()
+    img = render(params, threefry.PRNGKey(0))            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect.reset_launch_counts()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        img = render(params, threefry.PRNGKey(i + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(intersect.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    img = img.cpu().numpy()
+    if (img.shape != (BENCH["width"] * BENCH["height"], 3)
+            or not np.isfinite(img).all()):
+        raise AssertionError(f"phase {phase}: image not finite or misshapen")
+    if not img.mean() > 0.0:
+        raise AssertionError(f"phase {phase}: image mean is not positive")
+    require_launches(phase, launches)
+    rays = (BENCH["width"] * BENCH["height"] * BENCH["spp"]
+            * rays_per_sample)
+    dt = float(np.median(times))
+    log(f"  frames {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f}"
+        f" s -> {rays / dt / 1e6:.2f} M rays/s ({rays_per_sample} rays a "
+        f"sample); image mean {img.mean():.6f}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches over 3 frames {launches}")
+    # where the time goes: one profiled frame, device time by kernel
+    profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
+    return launches, float(img.mean())
+
+
+def backward_phase(intersect, dev, integ, phase=9):
+    """Phases 9 and 15: the backward of ``integ`` at bench.py's config.
+    Returns the launch counts of the three timed steps."""
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
     sc = cbox_scene(**BWD, device=dev)
-    render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)
+    render = integ.render_fn(sc, with_boundary=False)
     base = sc.params()
     log(f"  remat: {sc.opts.remat_passes!r} -> "
         f"{sc.opts.resolve_remat(sc.opts.num_pixels * sc.opts.spp)} at "
@@ -704,11 +780,9 @@ def backward_phase(intersect, dev):
     bad = [i for i, g in enumerate(grads)
            if g is None or not bool(torch.isfinite(g).all())]
     if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
-        raise AssertionError(f"phase 9: loss {float(loss)}, leaves without "
-                             f"a finite gradient: {bad}")
-    if launches["closest"] == 0 or launches["any"] == 0 or launches["k2"] == 0:
-        raise AssertionError(f"phase 9: K1 (both modes) and K2 must launch "
-                             f"({launches})")
+        raise AssertionError(f"phase {phase}: loss {float(loss)}, leaves "
+                             f"without a finite gradient: {bad}")
+    require_launches(phase, launches)
     dt = float(np.median(times))
     samples = BWD["width"] * BWD["height"] * BWD["spp"]
     log(f"  steps {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f} "
@@ -748,12 +822,7 @@ def boundary_phase(intersect, dev):
     if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
         raise AssertionError(f"phase 12: loss {float(loss)}, leaves without "
                              f"a finite gradient: {bad}")
-    if launches["closest"] == 0 or launches["any"] == 0 or launches["k2"] == 0:
-        raise AssertionError(f"phase 12: K1 (both modes) and K2 must launch "
-                             f"({launches})")
-    if launches["k3"] != 0:
-        raise AssertionError(f"phase 12: K3 is off the render path, yet it "
-                             f"launched ({launches})")
+    require_launches(12, launches)
     # the interior-only gradient of the last step's key: same loss, another
     # gradient
     nb_loss, nb_grads = grad_step(integ.render_fn(sc, with_boundary=False),
@@ -874,6 +943,153 @@ def boundary_shapes(intersect, sc, dev):
     return k1_shapes, k2_shapes, err
 
 
+def path_forward_shapes(intersect, dev):
+    """K1 and K2 on the later bounces of phase 14's first chunk
+    (``tiled_path_rays``: 2^21 lanes in tile order, spp 64), each compared
+    with its plain version, timed, and counted for its bound: the depth-2
+    bounce (K1 closest), the depth-2 and depth-3 shadow sweeps (K1 any) and
+    the depth-3 emitter-first sweep (K2). Returns ({shape: dict} of K1, the
+    same of K2, {mode: [(max |dt|, valid mismatches), ...]} with K2's under
+    "k2")."""
+    from psdr_tpu_torch.testing.scenes import tiled_path_rays
+    err = {"closest": [], "any": [], "k2": []}
+    sc, flat = bench_scene(dev)
+    compare = comparer(err, (flat.tri.p0, flat.tri.e1, flat.tri.e2))
+    sweeps = tiled_path_rays(sc, flat, N_TIME, BENCH["spp"], 2, depth=3)
+    k1_shapes = {}
+    for name, any_hit in (("depth 2 bounce", False), ("depth 2 shadow", True),
+                          ("depth 3 shadow", True)):
+        label = f"path {name} sweep"
+        k1_shapes[label] = k1_shape(intersect, flat, label, any_hit,
+                                    k1_args(flat, *sweeps[name]), compare)
+    bounce, alive, _ = sweeps["depth 3 bounce"]
+    idxs = flat.em_tri_idx
+    args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
+                                             flat.tri.e2)),
+            bounce.o.contiguous(), bounce.d.contiguous(), alive,
+            torch.full((N_TIME,), float("inf"), device=dev))
+    name = "path depth 3 emitter-first sweep"
+    e, timed = k2_timed(intersect, args, name, f"{N_TIME} bounce rays")
+    err["k2"].append(e)
+    return k1_shapes, {name: timed}, err
+
+
+def path_boundary_phase(intersect, dev):
+    """Phase 16: the full boundary step of ``PathTracer(max_depth=2,
+    camera_depth=2)`` at scripts/bench_renderD.py's config (the fused
+    pass), the same step with ``PSDR_TPU_FUSED_BOUNDARY=0`` beside it, and
+    K1 on the direction side's compacted wavefront. Returns (the launch
+    counts of the three timed fused steps, {shape: dict} of K1 at this
+    path's shapes, {mode: [(max |dt|, valid mismatches), ...]})."""
+    from psdr_tpu_torch import PathTracer
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**RENDERD, device=dev)
+    opts = sc.opts
+    integ = PathTracer(max_depth=2, camera_depth=2)
+    base = sc.params()
+    render = integ.render_fn(sc, with_boundary=True)
+    samples = opts.num_pixels * (opts.spp + opts.sppe + opts.sppse)
+
+    def steps(label):
+        times, loss, grads, launches, peak = timed_steps(intersect, render,
+                                                         base, dev)
+        bad = [i for i, g in enumerate(grads)
+               if g is None or not bool(torch.isfinite(g).all())]
+        if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
+            raise AssertionError(f"phase 16 ({label}): loss {float(loss)}, "
+                                 f"leaves without a finite gradient: {bad}")
+        require_launches(16, launches)
+        dt = float(np.median(times))
+        log(f"  {label}: steps {', '.join(f'{t:.3f}' for t in times)} s; "
+            f"median {dt:.3f} s -> {samples / dt / 1e6:.3f} M grad-samples/s "
+            f"(pixels x (spp + sppe + sppse)); loss {float(loss):.6f}; "
+            f"{len(grads)} leaves, all finite; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}")
+        return loss, grads, launches
+
+    if os.environ.get("PSDR_TPU_FUSED_BOUNDARY", "1") != "1":
+        raise AssertionError("phase 16 needs PSDR_TPU_FUSED_BOUNDARY unset")
+    loss, grads, launches = steps("fused")
+    # the interior-only gradient of the last step's key: same loss (the
+    # boundary terms are zero in the primal), another gradient
+    nb_loss, nb_grads = grad_step(integ.render_fn(sc, with_boundary=False),
+                                  base, dev, threefry.PRNGKey(3))
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(grads, nb_grads)
+           if float(b.norm()) > 0]
+    if (abs(float(nb_loss) - float(loss)) > 1e-6 * float(loss)
+            or not max(rel) > 1e-3):
+        raise AssertionError(
+            f"phase 16: loss {float(loss)} / interior-only {float(nb_loss)}"
+            f"; the boundary terms moved no leaf by more than {max(rel)}")
+    log(f"  the boundary terms move a leaf by up to {max(rel):.3g} relative "
+        f"L2 (median leaf {float(np.median(rel)):.3g})")
+    top = profile_step(lambda: grad_step(render, base, dev,
+                                         threefry.PRNGKey(9)),
+                       "fused boundary step")
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError("phase 16: an indexing_backward kernel is among "
+                             "the step's top ten")
+    os.environ["PSDR_TPU_FUSED_BOUNDARY"] = "0"
+    try:
+        steps("separate passes (PSDR_TPU_FUSED_BOUNDARY=0)")
+    finally:
+        del os.environ["PSDR_TPU_FUSED_BOUNDARY"]
+    k1_shapes, err = path_boundary_shapes(intersect, sc, dev)
+    return launches, k1_shapes, err
+
+
+def path_boundary_shapes(intersect, sc, dev):
+    """The compacted wavefronts of one chunk of phase 16's fused passes, made
+    as ``_boundary_pass`` makes them: the valid lanes of those drawn and the
+    largest compaction weight of the emitter side (salt 2) and the direction
+    side (salt 3), and K1 (closest) on the direction side's far trace and
+    anchor trace, each compared with its plain version, timed and counted.
+    (The emitter side's traces are phase 12's shapes.)"""
+    from psdr_tpu_torch import PathTracer
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.core.sampler import RngStream
+    from psdr_tpu_torch.integrator.direct import (_compact_boundary_lanes,
+                                                  _compact_eligibility)
+    from psdr_tpu_torch.integrator.path import _sample_edge_direction
+    from psdr_tpu_torch.scene.scene import detach_flat
+    opts = sc.opts
+    err = {"closest": [], "any": []}
+    k1_shapes = {}
+    with torch.no_grad():
+        flat = detach_flat(sc.build(sc.params()))
+        compare = comparer(err, (flat.tri.p0, flat.tri.e1, flat.tri.e2))
+        m = min(opts.pass_lanes, opts.num_pixels * opts.sppse)
+        s, ks = _compact_eligibility(m)
+        live_all = torch.ones((m,), dtype=torch.bool, device=dev)
+        for far, salt in (("emitter", 2), ("direction", 3)):
+            rng = RngStream(threefry.PRNGKey(12), salt=salt, device=dev)
+            sample3 = rng.next_3d(m)
+            sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
+            v = PathTracer._prepass_valid(sc, flat, far)(sample3, live_all)
+            idx, weight, live = _compact_boundary_lanes(
+                v, sample3[:, 0], rng.next_1d(m), s, ks)
+            log(f"  {far} side: {int(v.sum())} of {m} lanes valid "
+                f"({float(v.float().mean()):.4f}); segments of {s} keep {ks}: "
+                f"{idx.numel()} lanes, {int(live.sum())} live, largest "
+                f"weight {float(weight.max()):.3f}")
+        # the direction side's wavefront (the loop's last)
+        eds = _sample_edge_direction(flat, sample3[idx])
+        p0, d = eds.p0.contiguous(), eds.d.contiguous()
+        name = "direction-side far trace, compacted"
+        args = k1_args(flat, Ray(p0, d), eds.valid, None)
+        k1_shapes[name] = k1_shape(intersect, flat, name, False, args,
+                                   compare)
+        far_hit = intersect.k1_cuda(*args)
+        name = "direction-side anchor trace, compacted"
+        k1_shapes[name] = k1_shape(
+            intersect, flat, name, False,
+            k1_args(flat, Ray(p0, -d), eds.valid & far_hit.valid, None),
+            compare)
+    return k1_shapes, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -883,7 +1099,7 @@ def main() -> int:
               "visible (set CUDA_VISIBLE_DEVICES to one)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
     from psdr_tpu_torch.accel import bvh as bvh_mod
     from psdr_tpu_torch.accel import intersect
     from psdr_tpu_torch.core import threefry
@@ -932,45 +1148,8 @@ def main() -> int:
     # -- 5. the forward at full width ------------------------------------------
     log("phase 5: DirectIntegrator(1, 1) forward, 512x512, spp 64, "
         f"reuse {os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
-    sc = cbox_scene(**BENCH, device=dev)
-    render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False,
-                                              detached=True)
-    params = sc.params()
-    img = render(params, threefry.PRNGKey(0))            # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    intersect.reset_launch_counts()
-    times = []
-    for i in range(3):
-        t0 = time.perf_counter()
-        img = render(params, threefry.PRNGKey(i + 1))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(intersect.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    img = img.cpu().numpy()
-    if (img.shape != (BENCH["width"] * BENCH["height"], 3)
-            or not np.isfinite(img).all()):
-        raise AssertionError("phase 5: image not finite or misshapen")
-    if not img.mean() > 0.0:
-        raise AssertionError("phase 5: image mean is not positive")
-    if launches["closest"] == 0 or launches["any"] == 0:
-        raise AssertionError(f"phase 5: K1 not launched in both modes "
-                             f"({launches})")
-    if launches["k2"] == 0:
-        raise AssertionError(f"phase 5: K2 not launched ({launches})")
-    if launches["k3"] != 0:
-        raise AssertionError(f"phase 5: K3 is off the render path, yet it "
-                             f"launched ({launches})")
-    rays = BENCH["width"] * BENCH["height"] * BENCH["spp"] * 3
-    dt = float(np.median(times))
-    log(f"  frames {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f}"
-        f" s -> {rays / dt / 1e6:.2f} M rays/s; image mean {img.mean():.6f};"
-        f" peak memory {peak / 2**30:.2f} GiB; launches over 3 frames "
-        f"{launches}")
-
-    # where the time goes: one profiled frame, device time by kernel
-    profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
+    launches, mean_direct = forward_phase(intersect, dev,
+                                          DirectIntegrator(1, 1), 5, 3)
     # the random stream: one chunk's (n, 3) uniform draw in tensor code
     key = threefry.PRNGKey(1)
     rng_ms, _ = time_ms(lambda: threefry.uniform(key, (N_TIME, 3), dev), 5)
@@ -993,7 +1172,7 @@ def main() -> int:
     # -- 9. the backward at bench.py's config ------------------------------------
     log("phase 9: DirectIntegrator(1, 1) backward, 512x512, spp 16, reuse "
         f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
-    bwd = backward_phase(intersect, dev)
+    bwd = backward_phase(intersect, dev, DirectIntegrator(1, 1))
 
     # -- 10. the boundary gradient on the card against the CPU --------------------
     log("phase 10: value_and_grad with the boundary terms on the card vs on "
@@ -1014,9 +1193,41 @@ def main() -> int:
         err[mode] += bnd_err[mode]
     k2_err = k2_err + bnd_err["k2"]
 
+    # -- 13. the PathTracer on the card against the CPU ----------------------------
+    log("phase 13: PathTracer(3) interior (64x64, spp 4) and PathTracer(2, "
+        "camera_depth=2) with the boundary terms (sppe 2, sppse 4, the fused "
+        "pass) on the card vs on the CPU")
+    grad_phase(dev, phase=13, integ=PathTracer(3))
+    grad_phase(dev, phase=13, scene=SMALL_BOUNDARY,
+               integ=PathTracer(max_depth=2, camera_depth=2))
+
+    # -- 14. the PathTracer's forward at full width ---------------------------------
+    log("phase 14: PathTracer(3) forward, 512x512, spp 64, reuse "
+        f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
+    pt_fwd, mean_path = forward_phase(intersect, dev, PathTracer(3), 14, 7)
+    if not mean_path > mean_direct:
+        raise AssertionError(f"phase 14: three bounces in a closed box must "
+                             f"add light ({mean_path} vs {mean_direct})")
+    pt_k1, pt_k2, pt_err = path_forward_shapes(intersect, dev)
+
+    # -- 15. the PathTracer's backward at bench.py's config --------------------------
+    log("phase 15: PathTracer(3) backward, 512x512, spp 16")
+    pt_bwd = backward_phase(intersect, dev, PathTracer(3), phase=15)
+
+    # -- 16. the full boundary step ----------------------------------------------------
+    log(f"phase 16: PathTracer(max_depth=2, camera_depth=2) boundary step, "
+        f"{RENDERD}")
+    pt_bnd, ptb_k1, ptb_err = path_boundary_phase(intersect, dev)
+    shapes.update(pt_k1)
+    shapes.update(ptb_k1)
+    for mode in ("closest", "any"):
+        err[mode] += pt_err[mode] + ptb_err[mode]
+    k2_err = k2_err + pt_err["k2"]
+
     # launches: the backward's three timed steps (the main path), the
     # forward's three timed frames and the boundary step's three timed
-    # steps; K3, off the render path, its entry point's run in phase 7. ms,
+    # steps, and the same three of the PathTracer (phases 15, 14, 16); K3,
+    # off the render path, its entry point's run in phase 7. ms,
     # plain_ms and bound_ms of K1 are the tiled camera chunk's (closest) and
     # the tiled shadow sweep's (any); the other timed shapes stand under
     # "shapes".
@@ -1033,6 +1244,9 @@ def main() -> int:
             "launches": bwd[mode],
             "launches_forward": launches[mode],
             "launches_boundary": bnd[mode],
+            "launches_path_backward": pt_bwd[mode],
+            "launches_path_forward": pt_fwd[mode],
+            "launches_path_boundary": pt_bnd[mode],
             # |t| error of the hits: closest against k1_plain's hit, any
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
@@ -1050,19 +1264,25 @@ def main() -> int:
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
         "launches": bwd["k2"], "launches_forward": launches["k2"],
         "launches_boundary": bnd["k2"],
+        "launches_path_backward": pt_bwd["k2"],
+        "launches_path_forward": pt_fwd["k2"],
+        "launches_path_boundary": pt_bnd["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
         # the median launch of the emitter-first sweep of 2^21 bounce rays
         "ms": k2_ms["ms"], "plain_ms": k2_ms["plain_ms"],
         "bound_ms": k2_ms["bound_ms"], "bound_by": k2_ms["bound_by"],
         "library_ms": None,
-        "shapes": {"emitter-first sweep": k2_ms, **bnd_k2}})
+        "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:232",
         "launches": k3_launches, "launches_forward": launches["k3"],
         "launches_boundary": bnd["k3"],
+        "launches_path_backward": pt_bwd["k3"],
+        "launches_path_forward": pt_fwd["k3"],
+        "launches_path_boundary": pt_bnd["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],

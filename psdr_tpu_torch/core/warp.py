@@ -40,3 +40,15 @@ def square_to_uniform_triangle(sample: torch.Tensor) -> torch.Tensor:
     """Square sample -> barycentric (u, v) uniform over the unit triangle."""
     t = safe_sqrt(1.0 - sample[..., 0])
     return torch.stack([1.0 - t, t * sample[..., 1]], dim=-1)
+
+
+def square_to_uniform_sphere(sample: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on S^2 from (..., 2) in [0,1)^2."""
+    z = 1.0 - 2.0 * sample[..., 1]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * Pi * sample[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf() -> float:
+    return 1.0 / (4.0 * Pi)

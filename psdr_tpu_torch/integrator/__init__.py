@@ -1,4 +1,5 @@
 from .base import Integrator
 from .direct import DirectIntegrator
+from .path import PathTracer
 
-__all__ = ["DirectIntegrator", "Integrator"]
+__all__ = ["DirectIntegrator", "Integrator", "PathTracer"]

@@ -121,6 +121,129 @@ def _emitter_meta(scene: Scene):
     return tuple(meta) if meta else (("area", 0),)
 
 
+def _emitter_segment_valid(scene: Scene, flat: FlatScene):
+    """The detached validity pre-pass of emitter-sampled boundary lanes:
+    ``f(sample3, live) -> (m,) bool``."""
+    flat_det = detach_flat(flat)
+    emeta = _emitter_meta(scene)
+
+    def prepass_valid(sample3, live):
+        return sample_boundary_segment_direct(
+            flat_det, scene.face_offset, emeta, sample3, live).valid
+    return prepass_valid
+
+
+def _boundary_pass(scene: Scene, key: torch.Tensor, salt: int, warp,
+                   prepass_valid, tail) -> torch.Tensor:
+    """One secondary boundary pass over ``num_pixels * sppse`` lanes ->
+    (num_pixels, 3), the frame every edge-sampled estimator shares.
+
+    Per chunk: a stream under ``salt`` draws the (m, 3) samples, sorted by
+    the edge-selecting coordinate (iid lanes: the sort preserves the measure
+    and groups the lanes of one edge into coherent ray blocks; stable, as
+    jnp.argsort) and warped by the guiding table ``warp`` if there is one.
+    ``tail(sample3, rng) -> [(pixel_idx, value), ...]`` is the estimator;
+    each splat is scrubbed, divided by the guiding pdf above ``Epsilon``
+    (1 without a table), weighted, divided by ``sppse`` and summed into the
+    image (each lane finds its own pixel).
+
+    Boundary segments are sparse: few unguided samples pass the silhouette
+    or emitter validity, yet the estimator's traces would run at full
+    width. Where the wavefront factors (``_compact_eligibility``) the cheap
+    detached pre-pass ``prepass_valid(sample3, live) -> (m,) bool`` finds
+    the valid lanes and the tail runs on the compacted wavefront. A segment
+    that holds more than ks valid lanes keeps a uniformly random ks of
+    them, weighted by count / ks (on the value, so that the guiding-pdf
+    gate keeps its own threshold): unbiased still; below that every valid
+    lane is kept once with weight 1 and the pass is exact. The stream's
+    order is part of the contract: the samples, then the compaction keys,
+    then whatever the tail draws."""
+    opts = scene.opts
+    num_pixels = opts.num_pixels
+    dev = scene.device
+    n = num_pixels * opts.sppse
+
+    def eval_tail(sample3_t, pdf0_t, live_t, rng, weight_t=None):
+        img = torch.zeros((num_pixels, 3), device=dev)
+        for pix, value in tail(sample3_t, rng):
+            value = scrub_nonfinite(value)
+            guided = pdf0_t > Epsilon
+            value = torch.where(
+                guided[..., None],
+                value / torch.where(guided, pdf0_t, 1.0)[..., None], value)
+            if weight_t is not None:
+                value = value * weight_t[..., None]
+            if opts.sppse > 1:
+                value = value / opts.sppse
+            img = img + accumulate_image(
+                torch.where(live_t[..., None], value, 0.0),
+                torch.where(live_t, pix, -1), num_pixels)
+        return img
+
+    def run_lanes(lane, key_c):
+        rng = RngStream(key_c, salt=salt, device=dev)
+        m = lane.shape[0]
+        sample3 = rng.next_3d(m)
+        sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
+        if warp is not None:
+            sample3, pdf0 = hypercube_sample_reuse(warp, sample3)
+        else:
+            pdf0 = torch.ones((m,), device=dev)
+        live = lane < n
+        elig = _compact_eligibility(m, guided=warp is not None)
+        if elig is None:
+            return eval_tail(sample3, pdf0, live, rng)
+        s, ks = elig
+        with torch.no_grad():
+            v = prepass_valid(sample3, live)
+        idx, weight, live_c = _compact_boundary_lanes(
+            v & live, sample3[:, 0], rng.next_1d(m), s, ks)
+        return eval_tail(sample3[idx], pdf0[idx], live_c, rng,
+                         weight_t=weight)
+
+    return scan_lane_chunks(run_lanes, n, num_pixels, key, opts.pass_lanes,
+                            dev, remat=opts.resolve_remat(n))
+
+
+def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
+                   eval_value):
+    """Monte-Carlo cell masses of a boundary estimator's guiding hypercube:
+    ``reso`` = (r0, r1, r2, samples per cell); each of ``nrounds`` rounds
+    puts every cell's samples through ``eval_value(flat_det, sample3, rng)
+    -> (n, 3)`` magnitudes and adds the per-cell sums of their largest
+    channel. The rounds are a loop without a graph and the per-cell sum an
+    ``index_add_`` (atomic adds on the card). ``mesh`` (the JAX package's
+    lane-sharded build) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("lane sharding waits for slice 5")
+    if nrounds <= 0:
+        raise ValueError("nrounds must be positive")
+    reso = tuple(int(r) for r in reso)
+    dev = scene.device
+    hc = hypercube_init(reso[:3], device=dev)
+    num_cells = hc.num_cells
+    spp_cell = reso[3]
+    n = num_cells * spp_cell
+
+    with torch.no_grad():
+        flat = detach_flat(scene.flat)
+        idx = torch.arange(n, device=dev) // spp_cell
+        base = hc.cells[idx].float()
+        mass = torch.zeros((num_cells,), device=dev)
+        keys = threefry.split(threefry.PRNGKey(seed), nrounds)
+        for r in range(nrounds):
+            rng = RngStream(keys[r], device=dev)
+            sample3 = (base + rng.next_3d(n)) * hc.unit
+            value0 = scrub_nonfinite(eval_value(flat, sample3, rng))
+            if spp_cell > 1:
+                value0 = value0 / spp_cell
+            mass = mass + torch.zeros_like(mass).index_add_(
+                0, idx, value0.amax(dim=-1))
+        if nrounds > 1:
+            mass = mass / nrounds
+    return hypercube_set_mass(hc, mass)
+
+
 class DirectIntegrator(Integrator):
     def __init__(self, bsdf_samples: int = 1, light_samples: int = 1,
                  hide_emitters: bool = False):
@@ -328,70 +451,14 @@ class DirectIntegrator(Integrator):
         zero in the primal."""
         if shard is not None:
             raise NotImplementedError("lane sharding waits for slice 5")
-        opts = scene.opts
-        num_pixels = opts.num_pixels
-        dev = scene.device
-        n = num_pixels * opts.sppse
-        warp = self.warpper.get(sensor_id)
-        flat_det = detach_flat(flat)
-        emeta = _emitter_meta(scene)
+        def tail(sample3_t, rng):
+            # the emitter-first trace, the opposite closest hit, the camera
+            # any-hit, the BSDF and the AD term
+            return [self.eval_secondary_edge(scene, flat, sensor_id,
+                                             sample3_t, ad=True)]
 
-        def eval_tail(sample3_t, pdf0_t, live_t, weight_t=None):
-            pix, value = self.eval_secondary_edge(scene, flat, sensor_id,
-                                                  sample3_t, ad=True)
-            value = scrub_nonfinite(value)
-            guided = pdf0_t > Epsilon
-            value = torch.where(
-                guided[..., None],
-                value / torch.where(guided, pdf0_t, 1.0)[..., None], value)
-            if weight_t is not None:
-                # the overflow weight count / ks, on the value, so that the
-                # guiding-pdf gate above keeps its own threshold
-                value = value * weight_t[..., None]
-            if opts.sppse > 1:
-                value = value / opts.sppse
-            return accumulate_image(
-                torch.where(live_t[..., None], value, 0.0),
-                torch.where(live_t, pix, -1), num_pixels)
-
-        def run_lanes(lane, key_c):
-            rng = RngStream(key_c, salt=2, device=dev)
-            m = lane.shape[0]
-            sample3 = rng.next_3d(m)
-            # iid lanes: sorting by the edge-selecting coordinate preserves
-            # the measure and groups the lanes of one edge into coherent ray
-            # blocks (each lane finds its own pixel). Stable, as jnp.argsort.
-            sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
-            if warp is not None:
-                sample3, pdf0 = hypercube_sample_reuse(warp, sample3)
-            else:
-                pdf0 = torch.ones((m,), device=dev)
-            live = lane < n
-
-            # Boundary segments are sparse: few unguided samples pass the
-            # silhouette / emitter validity, yet the estimator's traces
-            # would run at full width. A cheap detached sampling pre-pass
-            # finds the valid lanes, and the whole tail (emitter-first
-            # trace, opposite closest hit, camera any-hit, BSDF, AD term)
-            # runs on the compacted wavefront. A segment that holds more
-            # than ks valid lanes keeps a uniformly random ks of them,
-            # weighted by count / ks: unbiased still; below that every valid
-            # lane is kept once with weight 1 and the pass is exact.
-            elig = _compact_eligibility(m, guided=warp is not None)
-            if elig is None:
-                return eval_tail(sample3, pdf0, live)
-            s, ks = elig
-            with torch.no_grad():
-                bss_v = sample_boundary_segment_direct(
-                    flat_det, scene.face_offset, emeta, sample3, live).valid
-            idx, weight, live_c = _compact_boundary_lanes(
-                bss_v & live, sample3[:, 0], rng.next_1d(m), s, ks)
-            return eval_tail(sample3[idx], pdf0[idx], live_c,
-                             weight_t=weight)
-
-        return scan_lane_chunks(run_lanes, n, num_pixels, key,
-                                opts.pass_lanes, dev,
-                                remat=opts.resolve_remat(n))
+        return _boundary_pass(scene, key, 2, self.warpper.get(sensor_id),
+                              _emitter_segment_valid(scene, flat), tail)
 
     def eval_secondary_edge(self, scene: Scene, flat: FlatScene,
                             sensor_id: int, sample3: torch.Tensor, ad: bool):
@@ -510,39 +577,11 @@ class DirectIntegrator(Integrator):
                                    reso, nrounds: int = 1, seed: int = 0,
                                    mesh=None) -> None:
         """Build the secondary-edge guiding hypercube of ``sensor_id`` into
-        ``self.warpper``: ``reso`` = (r0, r1, r2, samples per cell); each of
-        ``nrounds`` rounds evaluates every cell's samples through
-        ``eval_secondary_edge(ad=False)`` and adds the per-cell sums. The
-        rounds are a loop and the per-cell sum an ``index_add_`` (atomic
-        adds on the card). ``mesh`` (the JAX package's lane-sharded build)
-        is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
-        if nrounds <= 0:
-            raise ValueError("nrounds must be positive")
-        reso = tuple(int(r) for r in reso)
-        dev = scene.device
-        hc = hypercube_init(reso[:3], device=dev)
-        num_cells = hc.num_cells
-        spp_cell = reso[3]
-        n = num_cells * spp_cell
+        ``self.warpper`` from ``eval_secondary_edge(ad=False)``
+        (``_guiding_table``)."""
+        def eval_value(flat, sample3, rng):
+            return self.eval_secondary_edge(scene, flat, sensor_id, sample3,
+                                            ad=False)[1]
 
-        with torch.no_grad():
-            flat = detach_flat(scene.flat)
-            idx = torch.arange(n, device=dev) // spp_cell
-            base = hc.cells[idx].float()
-            mass = torch.zeros((num_cells,), device=dev)
-            keys = threefry.split(threefry.PRNGKey(seed), nrounds)
-            for r in range(nrounds):
-                rng = RngStream(keys[r], device=dev)
-                sample3 = (base + rng.next_3d(n)) * hc.unit
-                _, value0 = self.eval_secondary_edge(scene, flat, sensor_id,
-                                                     sample3, ad=False)
-                value0 = scrub_nonfinite(value0)
-                if spp_cell > 1:
-                    value0 = value0 / spp_cell
-                mass = mass + torch.zeros_like(mass).index_add_(
-                    0, idx, value0.amax(dim=-1))
-            if nrounds > 1:
-                mass = mass / nrounds
-        self.warpper[sensor_id] = hypercube_set_mass(hc, mass)
+        self.warpper[sensor_id] = _guiding_table(scene, reso, nrounds, seed,
+                                                 mesh, eval_value)

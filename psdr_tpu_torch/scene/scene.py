@@ -591,6 +591,30 @@ def emitter_position_pdf(flat: FlatScene, emitter_meta, ref_p: torch.Tensor,
     return torch.where(active, pdf, 0.0)
 
 
+def sec_edge_rows(flat: FlatScene, edge_idx: torch.Tensor,
+                  with_ends: bool = True):
+    """The sampled edges' rows of ``flat.sec_edge`` -> (SecondaryEdgeInfo,
+    ok), ``ok`` where the edge is valid and has a positive pmf. Two packed
+    row gathers: the endpoint and edge vector, which carry the gradient
+    (left out, as None, without ``with_ends``), and the columns that are
+    read detached. The lanes are sorted by edge, so equal indices come in
+    long runs: gather_rows (backward: index_add_), not table[idx]."""
+    se = flat.sec_edge
+    p0 = e1 = None
+    if with_ends:
+        ends = gather_rows(torch.cat([se.p0, se.e1], dim=1), edge_idx)
+        p0, e1 = ends[:, 0:3], ends[:, 3:6]
+    rest = gather_rows(torch.cat(
+        [se.n0, se.n1, se.p2, se.valid.float()[:, None],
+         se.is_boundary.float()[:, None], flat.sec_distrb.pmf[:, None]],
+        dim=1).detach(), edge_idx)
+    info = SecondaryEdgeInfo(
+        p0=p0, e1=e1, n0=rest[:, 0:3], n1=rest[:, 3:6],
+        p2=rest[:, 6:9], valid=rest[:, 9] > 0.5,
+        is_boundary=rest[:, 10] > 0.5)
+    return info, info.valid & (rest[:, 11] > 0.0)
+
+
 def sample_boundary_segment_direct(flat: FlatScene, face_offsets,
                                    emitter_meta, sample3: torch.Tensor,
                                    active: torch.Tensor) -> BoundarySegSample:
@@ -598,21 +622,7 @@ def sample_boundary_segment_direct(flat: FlatScene, face_offsets,
     integral. Only ``p0`` carries a gradient."""
     edge_idx, pdf0, s1 = discrete_sample_reuse(flat.sec_distrb,
                                                sample3[..., 0])
-    se = flat.sec_edge
-    # two packed row gathers: the endpoint and edge vector, which carry
-    # the gradient, and the columns that are read detached. The lanes are
-    # sorted by edge, so equal indices come in long runs: gather_rows
-    # (backward: index_add_), not table[idx]
-    ends = gather_rows(torch.cat([se.p0, se.e1], dim=1), edge_idx)
-    rest = gather_rows(torch.cat(
-        [se.n0, se.n1, se.p2, se.valid.float()[:, None],
-         se.is_boundary.float()[:, None], flat.sec_distrb.pmf[:, None]],
-        dim=1).detach(), edge_idx)
-    info = SecondaryEdgeInfo(
-        p0=ends[:, 0:3], e1=ends[:, 3:6], n0=rest[:, 0:3], n1=rest[:, 3:6],
-        p2=rest[:, 6:9], valid=rest[:, 9] > 0.5,
-        is_boundary=rest[:, 10] > 0.5)
-    ok = info.valid & (rest[:, 11] > 0.0)
+    info, ok = sec_edge_rows(flat, edge_idx)
 
     p0 = info.p0 + info.e1 * s1[..., None]           # differentiable
     e1_det = info.e1.detach()

@@ -5,14 +5,17 @@ scenes.
 materials, light and camera as ``tests/scenes.py`` (numpy throughout, so
 both packages get identical inputs); ``floor_light_scene`` is
 ``tests/test_gradients.py::_floor_light_scene``, a floor under a light
-outside the view, whose image is smooth in the light's position. At
+outside the view, whose image is smooth in the light's position;
+``gi_shadow_scene`` and ``hidden_shadow_scene`` are the validation scenes
+of the indirect and the camera-side boundary estimators. At
 ``occluder_subdiv=5`` ``cbox_scene`` is the scene ``bench.py`` measures:
 20,492 triangles. ``triangle_soup`` is the random soup of
 ``tests/test_bvh.py`` that the intersection tests share;
 ``coincident_case`` puts two coincident triangles into different leaves
-(the tie rule's case); ``scene_rays`` and ``tiled_camera_rays`` make the
-rays the render path sends through a built scene: camera rays, the bounce
-and shadow rays from their hits.
+(the tie rule's case); ``scene_rays``, ``tiled_camera_rays`` and
+``tiled_path_rays`` make the rays the render path sends through a built
+scene: camera rays, the bounce and shadow rays from their hits, and a path
+tracer's later bounces.
 """
 from __future__ import annotations
 
@@ -132,6 +135,84 @@ def floor_light_scene(width=16, height=16, spp=16, device="cuda") -> Scene:
     return sc
 
 
+def gi_shadow_scene(width=24, height=24, spp=32, sppe=2, sppse=32,
+                    device="cuda") -> Scene:
+    """``tests/test_indirect_boundary.py::_gi_shadow_scene``: an area light
+    facing UP lights a white ceiling panel, and the camera sees a floor lit
+    only by the ceiling's reflection. A blocker quad between the two casts
+    a shadow whose motion neither the interior nor the direct boundary
+    estimator captures: the far side of the blocker's silhouette segments
+    is the bright, non-emissive ceiling. Sliding the blocker (mesh 3) in
+    its plane has no interior derivative at all."""
+    sc = Scene(device=device)
+    white = sc.add_bsdf(Diffuse([0.9, 0.9, 0.9]), "white")
+    grey = sc.add_bsdf(Diffuse([0.6, 0.6, 0.6]), "grey")
+    black = sc.add_bsdf(Diffuse([0.0, 0.0, 0.0]), "black")
+
+    def quad(size, bsdf, transform, edges=False):
+        q = primitives.make_quad(size=size, bsdf_id=bsdf, enable_edges=edges,
+                                 use_face_normals=True)
+        q.set_transform(np.asarray(transform))
+        return sc.add_mesh(q)
+
+    quad(3.0, grey, xf.rotate([1, 0, 0], -90.0))           # floor, +y normal
+    quad(3.0, white,
+         xf.translate([0, 2.0, 0]) @ xf.rotate([1, 0, 0], 90.0))  # ceiling
+    # a small light above the floor facing up: it lights the ceiling only
+    li = quad(0.3, black,
+              xf.translate([1.2, 0.4, 1.2]) @ xf.rotate([1, 0, 0], -90.0))
+    sc.add_emitter(AreaLight([60.0, 60.0, 60.0], mesh_index=li))
+    # the blocker, horizontal, with edges
+    quad(0.5, grey, xf.translate([0, 0.35, 0]) @ xf.rotate([1, 0, 0], -90.0),
+         edges=True)
+
+    cam = PerspectiveCamera(fov_x=45.0)
+    cam.set_transform(np.asarray(
+        xf.look_at([0, 1.4, 2.8], [0, 0.0, 0], [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
+                            sppse=sppse)
+    return sc
+
+
+def hidden_shadow_scene(width=20, height=20, spp=32, sppse=48,
+                        device="cuda") -> Scene:
+    """``tests/test_camera_indirect_boundary.py::_hidden_shadow_scene``: a
+    light above a floor, a blocker (mesh 2) casting a direct shadow on it,
+    and a camera that sees only a white panel facing the floor, so the
+    shadow reaches the image through one diffuse bounce off the panel: the
+    case of a sensor subpath of length 2 (``PathTracer(camera_depth=2)``)."""
+    sc = Scene(device=device)
+    white = sc.add_bsdf(Diffuse([0.9, 0.9, 0.9]), "white")
+    grey = sc.add_bsdf(Diffuse([0.8, 0.8, 0.8]), "grey")
+    black = sc.add_bsdf(Diffuse([0.0, 0.0, 0.0]), "black")
+
+    def quad(size, bsdf, transform, edges=False):
+        q = primitives.make_quad(size=size, bsdf_id=bsdf, enable_edges=edges,
+                                 use_face_normals=True)
+        q.set_transform(np.asarray(transform))
+        return sc.add_mesh(q)
+
+    quad(2.0, grey, xf.rotate([1, 0, 0], -90.0))    # floor: shadow receiver
+    li = quad(0.6, black,
+              xf.translate([0.0, 2.2, 0.0]) @ xf.rotate([1, 0, 0], 90.0))
+    sc.add_emitter(AreaLight([40.0, 40.0, 40.0], mesh_index=li))
+    quad(0.7, grey,
+         xf.translate([0.0, 0.3, 0.0]) @ xf.rotate([1, 0, 0], -90.0),
+         edges=True)                                # the moving silhouette
+    # a vertical panel facing the camera: the downward light grazes it, so
+    # its radiance is the floor's bounce; it fills the whole frustum
+    quad(1.6, white, xf.translate([0.0, 1.0, -1.8]))
+
+    cam = PerspectiveCamera(fov_x=25.0)
+    cam.set_transform(np.asarray(
+        xf.look_at([0.0, 1.0, 1.2], [0.0, 1.0, -1.8], [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=0,
+                            sppse=sppse)
+    return sc
+
+
 def triangle_soup(n_tris=2048, n_rays=600):
     """Random triangles and rays (``tests/test_bvh.py:192-197``) with mixed
     ``active`` and ``tmax``: numpy (p0, e1, e2, ray_o, ray_d, active,
@@ -242,17 +323,53 @@ def tiled_camera_rays(scene, flat, n, spp, seed):
     return _sweeps(scene, flat, cam, u[:, 2:4], u[:, 4:6])
 
 
+def tiled_path_rays(scene, flat, n, spp, seed, depth=3):
+    """The sweeps of a path tracer's later bounces over the first n lanes of
+    the render path's wavefront (``tiled_camera_rays``'s pixels): for each
+    depth k = 2..depth the cosine-bounce rays and the light-sample shadow
+    rays that leave the hits of depth k - 1's bounce rays, which are no
+    longer coherent within a pixel. A lane lives on while its bounce ray
+    hits a surface with a BSDF. ``{"depth k bounce" | "depth k shadow":
+    (Ray, active, tmax or None)}``."""
+    dev = flat.tri.p0.device
+    w, h = scene.opts.width, scene.opts.height
+    pix = np.repeat(tiled_pixel_order(w, h)[:n // spp], spp)
+    u = np.random.default_rng(seed).uniform(size=(n, 2 + 4 * depth))
+    xy = (np.stack([pix % w, pix // w], axis=-1) + u[:, 0:2]) / [w, h]
+    u = torch.as_tensor(u.astype(np.float32), device=dev)
+    ray = sample_primary_ray(flat.sensors[0],
+                             torch.as_tensor(xy.astype(np.float32),
+                                             device=dev))
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    out = {}
+    for k in range(1, depth + 1):
+        its = ray_intersect(flat, ray, alive)
+        alive = its.valid & (its.bsdf_id >= 0)
+        bounce, shadow = _vertex_sweeps(scene, flat, its, alive,
+                                        u[:, 4 * k - 2:4 * k],
+                                        u[:, 4 * k:4 * k + 2])
+        if k > 1:
+            out[f"depth {k} bounce"], out[f"depth {k} shadow"] = bounce, shadow
+        ray = bounce[0]
+    return out
+
+
 def _sweeps(scene, flat, cam, u_bounce, u_light):
     active = torch.ones((cam.o.shape[0],), dtype=torch.bool,
                         device=cam.o.device)
     its = ray_intersect(flat, cam, active)
-    hit = its.valid
+    return ((cam, active, None),
+            *_vertex_sweeps(scene, flat, its, its.valid, u_bounce, u_light))
+
+
+def _vertex_sweeps(scene, flat, its, alive, u_bounce, u_light):
+    """The cosine-bounce and the light-sample shadow sweep that leave the
+    hits ``its`` on the lanes ``alive``: two (Ray, active, tmax or None)."""
     bounce = Ray(its.p, to_world(its.sh_frame,
                                  square_to_cosine_hemisphere(u_bounce)))
     ps = sample_emitter_position(flat, scene.face_offset,
-                                 _emitter_meta(scene), its.p, u_light, hit)
+                                 _emitter_meta(scene), its.p, u_light, alive)
     wo = ps.p - its.p
     dist = torch.sqrt(torch.clamp((wo * wo).sum(-1), min=1e-20))
     shadow = Ray(its.p, wo / dist[:, None])
-    return (cam, active, None), (bounce, hit, None), \
-        (shadow, hit, dist - ShadowEpsilon)
+    return (bounce, alive, None), (shadow, alive, dist - ShadowEpsilon)

@@ -2,7 +2,8 @@
 versions on the same CUDA tensors (trees of odd and even depth, the tie
 case, several blockings, tiny and all-inactive launches), the default
 device, and a small render, a small gradient, the boundary gradient, the
-compaction and the guiding masses on the card against the same on the CPU.
+compaction, the guiding masses and the PathTracer's gradients on the card
+against the same on the CPU.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from psdr_tpu_torch import DirectIntegrator
+from psdr_tpu_torch import DirectIntegrator, PathTracer
 from psdr_tpu_torch.accel import bvh as t_bvh
 from psdr_tpu_torch.accel import intersect
 from psdr_tpu_torch.accel.bruteforce import brute_plain
@@ -299,3 +300,28 @@ def test_grad_on_card_matches_cpu(cuda):
     cpu_loss, cpu = _grads(torch.device("cpu"))
     assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
     _assert_leaves_close(cpu, card)
+
+
+@pytest.mark.parametrize("max_depth,camera_depth,boundary", [
+    (3, 1, {}), (2, 2, dict(sppe=2, sppse=4))])
+def test_path_tracer_grad_on_card_matches_cpu(cuda, max_depth, camera_depth,
+                                              boundary):
+    """value_and_grad of mean(img^2) under the PathTracer at 64x64, spp 4:
+    PathTracer(3) interior, and PathTracer(2, camera_depth=2) with sppe 2,
+    sppse 4 (the fused boundary pass, compacted): the loss within 1e-5
+    relative, every leaf finite and within 1e-2 relative L2 and cosine
+    0.999 of the CPU's; K1 in both modes and K2 launched; the secondary
+    boundary image exactly zero on the card."""
+    integ = PathTracer(max_depth, camera_depth=camera_depth)
+    intersect.reset_launch_counts()
+    card_loss, card = _grads(cuda, integ=integ, **boundary)
+    assert all(intersect.LAUNCHES[k] > 0 for k in ("closest", "any", "k2"))
+    cpu_loss, cpu = _grads(torch.device("cpu"), integ=integ, **boundary)
+    assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
+    _assert_leaves_close(cpu, card)
+    if boundary:
+        sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, **boundary)
+        with torch.no_grad():
+            img = integ.render_secondary_edges(sc, sc.build(sc.params()), 0,
+                                               threefry.PRNGKey(3))
+        assert img.shape == (4096, 3) and not bool(img.any())
