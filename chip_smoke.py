@@ -61,7 +61,34 @@ Every phase passes or the script exits nonzero:
     same step with ``PSDR_TPU_FUSED_BOUNDARY=0`` beside it, no
     ``indexing_backward`` kernel among the profiled step's top ten, and K1
     on the direction side's compacted wavefront (the far trace and the
-    anchor trace).
+    anchor trace);
+17. the materials and lights on the card against the CPU at 64x64, spp 4:
+    ``env_scene`` with a rough-conductor sphere (render, then
+    ``value_and_grad`` per leaf under ``PathTracer(2)``, interior and with
+    sppe 2, sppse 4) and ``textured_quad_scene`` (render and gradient),
+    every leaf finite, the roughness, ``eta``, ``k``, texels, and the
+    map's radiance, scale and ``to_world`` among them; and the six AOVs of
+    ``FieldExtractionIntegrator`` on the bench scene at 128x128;
+18. ``env_bench_scene`` (a rough-conductor sphere of 20,480 faces, a
+    textured ground, a sphere with authored normals, an area light and a
+    512 x 1024 environment map on its frozen, divided importance grid)
+    forward at 512x512, spp 64: ``DirectIntegrator(1, 1)`` and
+    ``PathTracer(3)``;
+19. the same scene's backward at spp 16 under ``PathTracer(3)``, every leaf
+    finite, no ``indexing_backward`` kernel among the profiled step's top
+    ten; the same step profiled with the masked lanes' texel reads spread
+    (as shipped) and piled on texel 0; and the bilinear lookup's forward and
+    backward (four row gathers, four ``index_add_``) timed alone on one
+    2^21-lane chunk for the ground texture and for the sky;
+20. K1 and K2 at that scene's shapes (``tiled_material_rays``): K1 closest
+    on the camera rays of the chunk that ends at the middle of the frame
+    and on its BSDF-sampled bounce rays,
+    K1 any on its shadow rays toward the sky, K2 on the emitter-first
+    sweep over 2 + 12 faces; each against its plain version, timed and
+    counted. A lane on which K1 and ``k1_plain`` differ must equal K1's
+    walk in tensor code (``k1_walk_plain``): the known rule for grazing
+    rays whose computed t is off by more than the cull margin; the count
+    is printed.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -98,6 +125,16 @@ RENDERD = dict(width=256, height=256, spp=16, sppe=8, sppse=64,
                occluder_subdiv=5)
 SMALL = dict(width=64, height=64, spp=4, occluder_subdiv=3)
 SMALL_BOUNDARY = dict(SMALL, sppe=2, sppse=4)
+# the materials and lights: the small card-vs-CPU scenes, the AOVs' bench
+# scene, and env_bench_scene at the forward's and the backward's spp
+ENV_SMALL = dict(width=64, height=64, spp=4)
+ENV_SMALL_BOUNDARY = dict(ENV_SMALL, sppe=2, sppse=4)
+AOV = dict(width=128, height=128, spp=1, occluder_subdiv=5)
+ENV_BENCH = dict(width=512, height=512, spp=64)
+ENV_BWD = dict(ENV_BENCH, spp=16)
+# a rough conductor's silhouette lanes divide by a cosine that is itself a
+# rounded difference: two tiers, as tests/test_torch_envmap.py
+ROUGH_IMG_TIERS = ((1e-4, 0.97), (2e-3, 0.99))
 GUIDING = dict(reso=(24, 3, 3, 4), nrounds=8, seed=3)
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
@@ -546,24 +583,26 @@ def grad_step(render, base, dev, key):
     return loss.detach(), [x.grad for x in leaves]
 
 
-def grad_phase(dev, phase=8, scene=None, integ=None):
-    """Phases 8, 10 and 13: the gradient of ``cbox_scene(**scene)`` (default
-    64x64, spp 4, interior only) under ``integ`` (default
-    ``DirectIntegrator(1, 1)``) on the card (twice, to read the spread of
-    the backward's scatter-adds) against the CPU; with boundary samples in
-    ``scene``, through ``render_fn(with_boundary=True)``, and each boundary
-    term's image must be exactly zero on both devices. Returns the largest
-    relative L2 difference of a leaf, card against CPU."""
+def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
+    """Phases 8, 10, 13 and 17: the gradient of ``make_scene(**scene,
+    device=...)`` (default ``cbox_scene`` at 64x64, spp 4, interior only)
+    under ``integ`` (default ``DirectIntegrator(1, 1)``) on the card
+    (twice, to read the spread of the backward's scatter-adds) against the
+    CPU; with boundary samples in ``scene``, through
+    ``render_fn(with_boundary=True)``, and each boundary term's image must
+    be exactly zero on both devices. Returns the largest relative L2
+    difference of a leaf, card against CPU."""
     from psdr_tpu_torch import DirectIntegrator
     from psdr_tpu_torch.convert import params_from_numpy
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
     scene = scene or SMALL
+    make_scene = make_scene or cbox_scene
     boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
     integ = integ or DirectIntegrator(1, 1)
     out = []
     for d in (dev, dev, torch.device("cpu")):
-        sc = cbox_scene(**scene, device=d)
+        sc = make_scene(**scene, device=d)
         render = integ.render_fn(sc, with_boundary=boundary)
         loss, g = grad_step(render, sc.params(), d, threefry.PRNGKey(7))
         out.append((float(loss), [x.cpu().numpy().ravel() for x in g]))
@@ -697,8 +736,9 @@ def timed_steps(intersect, render, base, dev, first_key=0, n_steps=3):
 
 def profile_step(fn, label):
     """One profiled run of ``fn``: wall and device-busy ms, idle share, the
-    intersection kernels' device ms and the top kernels, logged. Returns
-    the ten top kernels' names."""
+    intersection kernels' and the ``index_add_`` kernels' device ms and the
+    top kernels, logged. Returns (the ten top kernels' names, device-busy
+    ms, the ``index_add_`` kernels' ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -712,25 +752,30 @@ def profile_step(fn, label):
     mine = {name: sum(e.self_device_time_total for e in kern
                       if name in e.key) / 1e3
             for name in ("k1_kernel", "k2_kernel", "k3_kernel")}
+    adds = [e for e in kern if "indexFunc" in e.key or "index_add" in e.key]
+    adds_ms = sum(e.self_device_time_total for e in adds) / 1e3
     log(f"  profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle {1 - busy / wall:.3f} of wall), K1 {mine['k1_kernel']:.2f} "
-        f"ms, K2 {mine['k2_kernel']:.3f} ms, {sum(e.count for e in kern)} "
-        "kernel launches; top kernels:")
+        f"ms, K2 {mine['k2_kernel']:.3f} ms, index_add kernels "
+        f"{adds_ms:.2f} ms in {sum(e.count for e in adds)} launches, "
+        f"{sum(e.count for e in kern)} kernel launches; top kernels:")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d}x  {e.key[:100]}")
-    return [e.key for e in top]
+    return [e.key for e in top], busy, adds_ms
 
 
-def forward_phase(intersect, dev, integ, phase, rays_per_sample):
-    """Phases 5 and 14: the forward of ``integ`` at bench.py's config: one
-    warm-up frame, three timed frames (host clock around a synchronize),
-    then one profiled frame. Returns (the launch counts of the three timed
-    frames, the last frame's image mean)."""
+def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None):
+    """Phases 5, 14 and 18: the forward of ``integ`` on ``sc`` (default:
+    the bench scene at bench.py's config): one warm-up frame, three timed
+    frames (host clock around a synchronize), then one profiled frame.
+    Returns (the launch counts of the three timed frames, the last frame's
+    image mean)."""
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
-    sc = cbox_scene(**BENCH, device=dev)
+    sc = sc or cbox_scene(**BENCH, device=dev)
+    opts = sc.opts
     render = integ.render_fn(sc, with_boundary=False, detached=True)
     params = sc.params()
     img = render(params, threefry.PRNGKey(0))            # warm-up
@@ -746,14 +791,12 @@ def forward_phase(intersect, dev, integ, phase, rays_per_sample):
     launches = dict(intersect.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     img = img.cpu().numpy()
-    if (img.shape != (BENCH["width"] * BENCH["height"], 3)
-            or not np.isfinite(img).all()):
+    if (img.shape != (opts.num_pixels, 3) or not np.isfinite(img).all()):
         raise AssertionError(f"phase {phase}: image not finite or misshapen")
     if not img.mean() > 0.0:
         raise AssertionError(f"phase {phase}: image mean is not positive")
     require_launches(phase, launches)
-    rays = (BENCH["width"] * BENCH["height"] * BENCH["spp"]
-            * rays_per_sample)
+    rays = opts.num_pixels * opts.spp * rays_per_sample
     dt = float(np.median(times))
     log(f"  frames {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f}"
         f" s -> {rays / dt / 1e6:.2f} M rays/s ({rays_per_sample} rays a "
@@ -764,12 +807,13 @@ def forward_phase(intersect, dev, integ, phase, rays_per_sample):
     return launches, float(img.mean())
 
 
-def backward_phase(intersect, dev, integ, phase=9):
-    """Phases 9 and 15: the backward of ``integ`` at bench.py's config.
-    Returns the launch counts of the three timed steps."""
+def backward_phase(intersect, dev, integ, phase=9, sc=None):
+    """Phases 9, 15 and 19: the backward of ``integ`` on ``sc`` (default:
+    the bench scene at bench.py's config). Returns (the launch counts of
+    the three timed steps, the profiled step's ten top kernels)."""
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
-    sc = cbox_scene(**BWD, device=dev)
+    sc = sc or cbox_scene(**BWD, device=dev)
     render = integ.render_fn(sc, with_boundary=False)
     base = sc.params()
     log(f"  remat: {sc.opts.remat_passes!r} -> "
@@ -784,14 +828,14 @@ def backward_phase(intersect, dev, integ, phase=9):
                              f"without a finite gradient: {bad}")
     require_launches(phase, launches)
     dt = float(np.median(times))
-    samples = BWD["width"] * BWD["height"] * BWD["spp"]
+    samples = sc.opts.num_pixels * sc.opts.spp
     log(f"  steps {', '.join(f'{t:.3f}' for t in times)} s; median {dt:.3f} "
         f"s -> {samples / dt / 1e6:.3f} M grad-samples/s; loss "
         f"{float(loss):.6f}; {len(grads)} leaves, all finite; peak memory "
         f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}")
-    profile_step(lambda: grad_step(render, base, dev, threefry.PRNGKey(9)),
-                 "step")
-    return launches
+    top, _, _ = profile_step(lambda: grad_step(render, base, dev,
+                                               threefry.PRNGKey(9)), "step")
+    return launches, top
 
 
 def boundary_phase(intersect, dev):
@@ -1024,9 +1068,9 @@ def path_boundary_phase(intersect, dev):
             f"; the boundary terms moved no leaf by more than {max(rel)}")
     log(f"  the boundary terms move a leaf by up to {max(rel):.3g} relative "
         f"L2 (median leaf {float(np.median(rel)):.3g})")
-    top = profile_step(lambda: grad_step(render, base, dev,
-                                         threefry.PRNGKey(9)),
-                       "fused boundary step")
+    top, _, _ = profile_step(lambda: grad_step(render, base, dev,
+                                               threefry.PRNGKey(9)),
+                             "fused boundary step")
     if any("indexing_backward" in k for k in top):
         raise AssertionError("phase 16: an indexing_backward kernel is among "
                              "the step's top ten")
@@ -1090,6 +1134,227 @@ def path_boundary_shapes(intersect, sc, dev):
     return k1_shapes, err
 
 
+def render_match(dev, phase, label, make_scene, scene, integ, tiers):
+    """renderC of ``make_scene(**scene)`` under ``integ`` on the card
+    against the CPU, same key: for each (rtol, share) of ``tiers`` at least
+    ``share`` of the pixels within rtol (atol IMG_ATOL), the image means
+    within IMG_MEAN_REL."""
+    imgs = [integ.renderC(make_scene(**scene, device=d), seed=7).cpu()
+            .numpy().reshape(-1, 3) for d in (dev, torch.device("cpu"))]
+    mean_rel = abs(imgs[0].mean() - imgs[1].mean()) / abs(imgs[1].mean())
+    shares = [(rtol, share, float(np.isclose(
+        imgs[0], imgs[1], rtol=rtol, atol=IMG_ATOL).all(axis=-1).mean()))
+        for rtol, share in tiers]
+    log(f"  {label}: " + ", ".join(
+        f"{got:.6f} of pixels within rtol {rtol} (bound {share})"
+        for rtol, share, got in shares)
+        + f"; image means {imgs[0].mean():.6f} / {imgs[1].mean():.6f}, "
+        f"relative difference {mean_rel:.3g}")
+    if (not np.isfinite(imgs[0]).all() or mean_rel >= IMG_MEAN_REL
+            or any(got < share for _, share, got in shares)):
+        raise AssertionError(f"phase {phase}: card and CPU renders of "
+                             f"{label} disagree")
+
+
+def material_phase(dev):
+    """Phase 17: the materials and lights on the card against the CPU, and
+    the six AOVs on the bench scene."""
+    from psdr_tpu_torch import (DirectIntegrator, FieldExtractionIntegrator,
+                                PathTracer, RoughConductor)
+    from psdr_tpu_torch.testing.scenes import (cbox_scene, env_scene,
+                                               textured_quad_scene)
+
+    def rough_env(**kw):
+        return env_scene(RoughConductor(alpha_u=0.3, alpha_v=0.2), **kw)
+
+    def textured(**kw):
+        tex = np.random.default_rng(10).uniform(
+            0.1, 0.9, (8, 8, 3)).astype(np.float32)
+        return textured_quad_scene(tex, **kw)
+
+    render_match(dev, 17, "env_scene, rough conductor, DirectIntegrator(1, 1)",
+                 rough_env, ENV_SMALL, DirectIntegrator(1, 1),
+                 ROUGH_IMG_TIERS)
+    render_match(dev, 17, "textured quad, DirectIntegrator(1, 1)", textured,
+                 ENV_SMALL, DirectIntegrator(1, 1),
+                 ((IMG_RTOL, IMG_CLOSE_FRAC),))
+    log("  env_scene, rough conductor, PathTracer(2): interior gradient")
+    grad_phase(dev, phase=17, scene=ENV_SMALL, integ=PathTracer(2),
+               make_scene=rough_env)
+    log("  the same with the boundary terms (sppe 2, sppse 4)")
+    grad_phase(dev, phase=17, scene=ENV_SMALL_BOUNDARY, integ=PathTracer(2),
+               make_scene=rough_env)
+    log("  textured quad, DirectIntegrator(1, 1): interior gradient")
+    grad_phase(dev, phase=17, scene=ENV_SMALL, make_scene=textured)
+    for field in ("silhouette", "position", "depth", "geoNormal", "shNormal",
+                  "uv"):
+        a, b = (FieldExtractionIntegrator(field).renderC(
+            cbox_scene(**AOV, device=d), seed=7).cpu().numpy().reshape(-1, 3)
+            for d in (dev, torch.device("cpu")))
+        close = np.isclose(a, b, rtol=1e-5, atol=1e-5).all(axis=-1).mean()
+        log(f"  AOV {field}: {close:.6f} of {a.shape[0]} pixels within rtol "
+            f"1e-5, atol 1e-5; mean |value| {np.abs(a).mean():.6f}")
+        if not np.isfinite(a).all() or close < 0.999:
+            raise AssertionError(f"phase 17: AOV {field} differs between the "
+                                 "card and the CPU")
+        if field == "silhouette" and not (a == b).all():
+            raise AssertionError("phase 17: the silhouette AOV must be equal")
+
+
+def texel_backward_ms(dev, shape, label):
+    """The bilinear lookup alone on one 2^21-lane chunk of uniform uv into
+    a ``shape`` image: forward (four row gathers) and backward (four
+    ``index_add_`` into the texels), CUDA events over 5 runs."""
+    from psdr_tpu_torch.core.bitmap import Bitmap, eval_bitmap
+    g = torch.Generator(device=dev).manual_seed(5)
+    data = torch.rand(shape, device=dev, generator=g, requires_grad=True)
+    uv = torch.rand((N_TIME, 2), device=dev, generator=g)
+
+    def fwd():
+        return eval_bitmap(Bitmap(data), uv)
+
+    def both():
+        data.grad = None
+        fwd().sum().backward()
+
+    f_ms, _ = time_ms(fwd, 5)
+    b_ms, _ = time_ms(both, 5)
+    if not bool(torch.isfinite(data.grad).all()):
+        raise AssertionError(f"phase 19: {label} texel gradient not finite")
+    log(f"  eval_bitmap, {N_TIME} lanes into {label} {tuple(shape)}: forward "
+        f"{f_ms:.3f} ms, forward + backward {b_ms:.3f} ms")
+    return b_ms - f_ms
+
+
+def masked_texel_reads(dev, sc):
+    """Phase 19: one profiled ``PathTracer(3)`` step on ``sc`` as it is,
+    where the lanes a material's mask discards read texels spread over the
+    image (``eval_bitmap``'s ``active``), and one with that argument
+    ignored, where the lanes of meshes without uv all read texel 0 and the
+    backward piles their zero cotangents' atomic adds onto four rows. The
+    loss must not move; the ``index_add_`` kernels' time must not be longer
+    spread than piled."""
+    from psdr_tpu_torch import PathTracer
+    from psdr_tpu_torch.bsdf import diffuse, roughconductor
+    from psdr_tpu_torch.core import bitmap, threefry
+    render = PathTracer(3).render_fn(sc, with_boundary=False)
+    base = sc.params()
+
+    def step(label):
+        out = {}
+
+        def fn():
+            out["loss"] = float(grad_step(render, base, dev,
+                                          threefry.PRNGKey(9))[0])
+        _, busy, adds = profile_step(fn, label)
+        return out["loss"], busy, adds
+
+    spread = step("step, masked lanes' texel reads spread")
+    mods = (diffuse, roughconductor)
+    try:
+        for m in mods:
+            m.eval_bitmap = (lambda bm, uv, flip_v=False, active=None:
+                             bitmap.eval_bitmap(bm, uv, flip_v))
+        piled = step("step, masked lanes' texel reads piled on texel 0")
+    finally:
+        for m in mods:
+            m.eval_bitmap = bitmap.eval_bitmap
+    log(f"  index_add kernels: {spread[2]:.2f} ms spread, {piled[2]:.2f} ms "
+        f"piled; device busy {spread[1]:.1f} / {piled[1]:.1f} ms; loss "
+        f"{spread[0]:.8f} / {piled[0]:.8f}")
+    if abs(spread[0] - piled[0]) > 1e-6 * abs(piled[0]) or spread[2] > piled[2]:
+        raise AssertionError("phase 19: spreading the masked lanes' texel "
+                             "reads moved the loss or lengthened the "
+                             "index_add kernels")
+
+
+def tolerant(intersect, err, tris, tally):
+    """``comparer``'s twin for rays that may be badly conditioned: lanes on
+    which K1 and ``k1_plain`` differ are counted into ``tally[label]``, and
+    on those lanes K1 must equal its own walk in tensor code
+    (``k1_walk_plain``), which differs from ``k1_plain`` only where a hit's
+    computed t is off by more than the cull margin."""
+    def compare(label, args, hk, hp, any_hit):
+        mode = "any" if any_hit else "closest"
+        fields = ("valid",) if any_hit else ("valid", "tri_id", "t", "uv")
+        bad = torch.zeros_like(hk.valid)
+        for f in fields:
+            a, b = getattr(hk, f), getattr(hp, f)
+            d = a != b
+            bad |= d if d.ndim == 1 else d.any(dim=-1)
+        n_bad = int(bad.sum())
+        tally[label] = tally.get(label, 0) + n_bad
+        if n_bad:
+            bvh, *rays = args
+            sub = [x[bad].contiguous() for x in rays]
+            hw = intersect.k1_walk_plain(bvh, *sub, any_hit=any_hit)
+            for f in fields:
+                if not torch.equal(getattr(hw, f), getattr(hk, f)[bad]):
+                    raise AssertionError(
+                        f"{label}: K1 differs from k1_plain on {n_bad} lanes "
+                        f"and from its own walk in tensor code ({f})")
+            log(f"  {label} {mode}: K1 and k1_plain differ on {n_bad} of "
+                f"{bad.numel()} lanes; there K1 equals its walk in tensor "
+                "code (the cull-margin rule)")
+            keep = ~bad
+            hk = type(hk)(*(getattr(hk, f)[keep] for f in hk._fields))
+            hp = type(hp)(*(getattr(hp, f)[keep] for f in hp._fields))
+            args = (bvh, *(x[keep].contiguous() for x in rays))
+        e, _ = (check_any_hits(f"{label} {mode}", args, tris, hk, hp)
+                if any_hit else exact(f"{label} {mode}", hk, hp))
+        err[mode].append((e, 0))
+    return compare
+
+
+def env_shapes(intersect, sc, dev):
+    """Phase 20: K1 and K2 at ``env_bench_scene``'s shapes, the 2^21-lane
+    chunk in tile order that ends at the middle of the frame (the sphere,
+    the ground and some sky): the camera rays (K1 closest; its tests a
+    ray stand beside the bench scene's, for the tree that now holds the 12
+    bounding faces), the BSDF-sampled bounce rays (K1 closest), the shadow
+    rays toward the sky (K1 any) and the emitter-first sweep over 2 + 12
+    faces (K2). Returns ({shape: dict} of K1, the same of K2, {mode: [(max
+    |dt|, valid mismatches), ...]} with K2's under "k2", {label: lanes on
+    which K1 and k1_plain differ})."""
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import (tiled_camera_rays,
+                                               tiled_material_rays)
+    err = {"closest": [], "any": [], "k2": []}
+    tally = {}
+    with torch.no_grad():
+        sc.prepare_accel()
+        flat = detach_flat(sc.build(sc.params()))
+        log(f"  env bench scene: {flat.tri.p0.shape[0]} tris, "
+            f"{flat.accel.num_leaves} leaves, {flat.em_tri_idx.numel()} "
+            f"emitter-first faces, importance grid "
+            f"{flat.envmap.cell_distrb.resolution}")
+        compare = tolerant(intersect, err,
+                           (flat.tri.p0, flat.tri.e1, flat.tri.e2), tally)
+        # the chunk in the middle of the frame: the first sees only sky
+        chunk = max(0, sc.opts.num_pixels * sc.opts.spp // N_TIME // 2 - 1)
+        cam = tiled_camera_rays(sc, flat, N_TIME, sc.opts.spp, 2,
+                                chunk=chunk)[0]
+        sweeps = tiled_material_rays(sc, flat, N_TIME, sc.opts.spp, 2,
+                                     chunk=chunk)
+        k1_shapes = {}
+        for name, any_hit, rays in (
+                ("env camera chunk", False, cam),
+                ("env BSDF bounce sweep", False, sweeps["bounce"]),
+                ("env sky shadow sweep", True, sweeps["sky shadow"])):
+            k1_shapes[name] = k1_shape(intersect, flat, name, any_hit,
+                                       k1_args(flat, *rays), compare)
+        bounce, alive, _ = sweeps["bounce"]
+        idxs = flat.em_tri_idx
+        args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
+                                                 flat.tri.e2)),
+                bounce.o.contiguous(), bounce.d.contiguous(), alive,
+                torch.full((N_TIME,), float("inf"), device=dev))
+        name = "env emitter-first sweep"
+        e, timed = k2_timed(intersect, args, name, f"{N_TIME} bounce rays")
+        err["k2"].append(e)
+    return k1_shapes, {name: timed}, err, tally
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1103,7 +1368,7 @@ def main() -> int:
     from psdr_tpu_torch.accel import bvh as bvh_mod
     from psdr_tpu_torch.accel import intersect
     from psdr_tpu_torch.core import threefry
-    from psdr_tpu_torch.testing.scenes import cbox_scene
+    from psdr_tpu_torch.testing.scenes import cbox_scene, env_bench_scene
 
     # -- 1. the card --------------------------------------------------------
     card = card_line()
@@ -1132,18 +1397,8 @@ def main() -> int:
 
     # -- 4. the port on the card against the port on the CPU ------------------
     log("phase 4: renderC on the card vs on the CPU (64x64, spp 4)")
-    imgs = []
-    for d in (dev, torch.device("cpu")):
-        s = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=d)
-        imgs.append(DirectIntegrator(1, 1).renderC(s, seed=7).cpu().numpy())
-    close = np.isclose(imgs[0], imgs[1], rtol=IMG_RTOL,
-                       atol=IMG_ATOL).all(axis=-1)
-    mean_rel = abs(imgs[0].mean() - imgs[1].mean()) / abs(imgs[1].mean())
-    log(f"  {close.mean():.6f} of pixels close (rtol {IMG_RTOL}, atol "
-        f"{IMG_ATOL}), image means {imgs[0].mean():.6f} / "
-        f"{imgs[1].mean():.6f}, relative difference {mean_rel:.3g}")
-    if close.mean() < IMG_CLOSE_FRAC or mean_rel >= IMG_MEAN_REL:
-        raise AssertionError("phase 4: card and CPU renders disagree")
+    render_match(dev, 4, "cbox, DirectIntegrator(1, 1)", cbox_scene, SMALL,
+                 DirectIntegrator(1, 1), ((IMG_RTOL, IMG_CLOSE_FRAC),))
 
     # -- 5. the forward at full width ------------------------------------------
     log("phase 5: DirectIntegrator(1, 1) forward, 512x512, spp 64, "
@@ -1172,7 +1427,7 @@ def main() -> int:
     # -- 9. the backward at bench.py's config ------------------------------------
     log("phase 9: DirectIntegrator(1, 1) backward, 512x512, spp 16, reuse "
         f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
-    bwd = backward_phase(intersect, dev, DirectIntegrator(1, 1))
+    bwd, _ = backward_phase(intersect, dev, DirectIntegrator(1, 1))
 
     # -- 10. the boundary gradient on the card against the CPU --------------------
     log("phase 10: value_and_grad with the boundary terms on the card vs on "
@@ -1212,7 +1467,7 @@ def main() -> int:
 
     # -- 15. the PathTracer's backward at bench.py's config --------------------------
     log("phase 15: PathTracer(3) backward, 512x512, spp 16")
-    pt_bwd = backward_phase(intersect, dev, PathTracer(3), phase=15)
+    pt_bwd, _ = backward_phase(intersect, dev, PathTracer(3), phase=15)
 
     # -- 16. the full boundary step ----------------------------------------------------
     log(f"phase 16: PathTracer(max_depth=2, camera_depth=2) boundary step, "
@@ -1224,9 +1479,45 @@ def main() -> int:
         err[mode] += pt_err[mode] + ptb_err[mode]
     k2_err = k2_err + pt_err["k2"]
 
+    # -- 17. the materials and lights on the card against the CPU ------------------
+    log("phase 17: rough conductor under an environment map, image texture "
+        "and AOVs on the card vs on the CPU")
+    material_phase(dev)
+
+    # -- 18. env_bench_scene forward ---------------------------------------------------
+    log(f"phase 18: env_bench_scene forward, {ENV_BENCH}")
+    env_sc = env_bench_scene(**ENV_BENCH, device=dev)
+    env_fwd, _ = forward_phase(intersect, dev, DirectIntegrator(1, 1), 18, 3,
+                               sc=env_sc)
+    log("  PathTracer(3):")
+    env_pt_fwd, _ = forward_phase(intersect, dev, PathTracer(3), 18, 7,
+                                  sc=env_sc)
+
+    # -- 19. env_bench_scene backward ---------------------------------------------------
+    log(f"phase 19: env_bench_scene PathTracer(3) backward, {ENV_BWD}")
+    env_bwd_sc = env_bench_scene(**ENV_BWD, device=dev)
+    env_bwd, top = backward_phase(intersect, dev, PathTracer(3), phase=19,
+                                  sc=env_bwd_sc)
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError("phase 19: an indexing_backward kernel is among "
+                             "the step's top ten")
+    masked_texel_reads(dev, env_bwd_sc)
+    texel_backward_ms(dev, (256, 256, 3), "the ground texture")
+    texel_backward_ms(dev, (512, 1024, 3), "the sky")
+
+    # -- 20. K1 and K2 at env_bench_scene's shapes -----------------------------------
+    log("phase 20: K1 and K2 at env_bench_scene's shapes")
+    env_k1, env_k2, env_err, env_tally = env_shapes(intersect, env_sc, dev)
+    shapes.update(env_k1)
+    for mode in ("closest", "any"):
+        err[mode] += env_err[mode]
+    k2_err = k2_err + env_err["k2"]
+    log(f"  lanes on which K1 and k1_plain differ: {env_tally}")
+
     # launches: the backward's three timed steps (the main path), the
     # forward's three timed frames and the boundary step's three timed
-    # steps, and the same three of the PathTracer (phases 15, 14, 16); K3,
+    # steps, the same three of the PathTracer (phases 15, 14, 16), and
+    # env_bench_scene's two forwards and its backward (phases 18, 19); K3,
     # off the render path, its entry point's run in phase 7. ms,
     # plain_ms and bound_ms of K1 are the tiled camera chunk's (closest) and
     # the tiled shadow sweep's (any); the other timed shapes stand under
@@ -1247,10 +1538,18 @@ def main() -> int:
             "launches_path_backward": pt_bwd[mode],
             "launches_path_forward": pt_fwd[mode],
             "launches_path_boundary": pt_bnd[mode],
+            "launches_env_forward": env_fwd[mode],
+            "launches_env_path_forward": env_pt_fwd[mode],
+            "launches_env_path_backward": env_bwd[mode],
             # |t| error of the hits: closest against k1_plain's hit, any
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
             "valid_mismatches": sum(n for _, n in err[mode]),
+            # phase 20's lanes on which K1 equals its walk in tensor code
+            # and not k1_plain (the cull-margin rule), by shape
+            "lanes_unlike_k1_plain": {
+                k: v for k, v in env_tally.items()
+                if shapes[k.split(" ", 1)[1]]["any_hit"] == (mode == "any")},
             "ms": mine[main]["ms"],
             "plain_ms": mine[main]["plain_ms"],
             "bound_ms": mine[main]["bound_ms"],
@@ -1267,13 +1566,17 @@ def main() -> int:
         "launches_path_backward": pt_bwd["k2"],
         "launches_path_forward": pt_fwd["k2"],
         "launches_path_boundary": pt_bnd["k2"],
+        "launches_env_forward": env_fwd["k2"],
+        "launches_env_path_forward": env_pt_fwd["k2"],
+        "launches_env_path_backward": env_bwd["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
         # the median launch of the emitter-first sweep of 2^21 bounce rays
         "ms": k2_ms["ms"], "plain_ms": k2_ms["plain_ms"],
         "bound_ms": k2_ms["bound_ms"], "bound_by": k2_ms["bound_by"],
         "library_ms": None,
-        "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2}})
+        "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2,
+                   **env_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
@@ -1283,6 +1586,9 @@ def main() -> int:
         "launches_path_backward": pt_bwd["k3"],
         "launches_path_forward": pt_fwd["k3"],
         "launches_path_boundary": pt_bnd["k3"],
+        "launches_env_forward": env_fwd["k3"],
+        "launches_env_path_forward": env_pt_fwd["k3"],
+        "launches_env_path_backward": env_bwd["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],

@@ -3,9 +3,10 @@
 Imports torch and never jax. The JAX package ``psdr_tpu`` stays the
 reference each ported module is tested against. Ported so far: the forward
 render and the gradients (interior and boundary terms, guiding) of
-``DirectIntegrator`` and ``PathTracer`` on area-lit diffuse scenes, with
-the intersection kernels (``accel/intersect.py``, ``csrc/*.cu``) written by
-hand for Hopper.
+``DirectIntegrator`` and ``PathTracer``, the AOV integrator, diffuse and
+rough-conductor materials, image textures, authored vertex normals, area
+lights and the environment map, with the intersection kernels
+(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper.
 """
 __version__ = "0.1.0"
 
@@ -13,7 +14,8 @@ from .core.records import RenderOptions
 from .scene import Scene
 from .shape import Mesh
 from .shape import primitives
-from .bsdf import Diffuse
-from .emitter import AreaLight
+from .bsdf import Diffuse, RoughConductor
+from .emitter import AreaLight, EnvironmentMap
 from .sensor import PerspectiveCamera
-from .integrator import DirectIntegrator, PathTracer
+from .integrator import (DirectIntegrator, FieldExtractionIntegrator,
+                         PathTracer)

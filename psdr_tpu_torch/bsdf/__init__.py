@@ -1,30 +1,33 @@
 """BSDF models and the integer-tagged dispatch: per-lane ``bsdf_id``
 selects among the scene's static BSDF list; each model runs on all lanes
-and results blend by the id mask. Counterpart of
-``psdr_tpu/bsdf/__init__.py``; ``roughconductor`` waits for slice 4."""
+and results blend by the id mask (a hit on the environment map's bounding
+mesh has ``bsdf_id`` -1 and matches none). Counterpart of
+``psdr_tpu/bsdf/__init__.py``."""
 from __future__ import annotations
 
 import torch
 
 from ..core.records import BSDFSample, Intersection
 from .diffuse import Diffuse, eval_diffuse, pdf_diffuse, sample_diffuse
+from .roughconductor import (RoughConductor, eval_roughconductor,
+                             pdf_roughconductor, sample_roughconductor)
 
-_EVAL = {"diffuse": eval_diffuse}
-_SAMPLE = {"diffuse": sample_diffuse}
-_PDF = {"diffuse": pdf_diffuse}
+_EVAL = {"diffuse": eval_diffuse, "roughconductor": eval_roughconductor}
+_SAMPLE = {"diffuse": sample_diffuse,
+           "roughconductor": sample_roughconductor}
+_PDF = {"diffuse": pdf_diffuse, "roughconductor": pdf_roughconductor}
 
 # A kind is "reflective one-sided" when eval/pdf are exactly zero whenever
 # wi or wo is at or below the shading horizon. The NEE side gate may skip
 # the shadow trace on below-horizon lanes only when every scene BSDF has
 # this property; kinds missing here report False.
-_REFLECTIVE_ONE_SIDED = {"diffuse": True}
+_REFLECTIVE_ONE_SIDED = {"diffuse": True, "roughconductor": True}
 
 
 def check_kinds(kinds) -> None:
     for k in kinds:
         if k not in _EVAL:
-            raise NotImplementedError(
-                f"BSDF kind {k!r} waits for slice 4 (materials)")
+            raise NotImplementedError(f"BSDF kind {k!r} is not ported")
 
 
 def all_reflective_one_sided(kinds) -> bool:
@@ -71,5 +74,5 @@ def sample_bsdf(kinds, params_list, its: Intersection, sample3: torch.Tensor,
     return out
 
 
-__all__ = ["Diffuse", "all_reflective_one_sided", "check_kinds",
-           "eval_bsdf", "pdf_bsdf", "sample_bsdf"]
+__all__ = ["Diffuse", "RoughConductor", "all_reflective_one_sided",
+           "check_kinds", "eval_bsdf", "pdf_bsdf", "sample_bsdf"]

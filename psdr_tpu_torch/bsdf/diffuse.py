@@ -34,9 +34,9 @@ def eval_diffuse(params: dict, its: Intersection, wo: torch.Tensor,
                  active: torch.Tensor) -> torch.Tensor:
     cti = cos_theta(its.wi)
     cto = cos_theta(wo)
-    active = active & (cti > 0.0) & (cto > 0.0)
-    value = (eval_bitmap(Bitmap(params["reflectance"]), its.uv)
+    value = (eval_bitmap(Bitmap(params["reflectance"]), its.uv, active=active)
              * (InvPi * cto)[..., None])
+    active = active & (cti > 0.0) & (cto > 0.0)
     return torch.where(active[..., None], value, torch.zeros_like(value))
 
 

@@ -12,7 +12,10 @@ Sampling tables are state, not parameters: ``discrete_from_numpy`` and
 from the other package's arrays. Given its ``cmf`` too, the table is that
 cmf bit for bit (two cumulative sums of one pmf may round apart in the last
 place, and a sample that falls between the two values would pick another
-entry); without it the cmf is summed here.
+entry); without it the cmf is summed here. ``envmap_state_from_numpy``
+hands a scene the other package's environment-map table
+(``FlatScene.envmap.cell_distrb.distrb``), which every later build then
+samples.
 """
 from __future__ import annotations
 
@@ -49,3 +52,13 @@ def hypercube_from_numpy(resolution, pmf, cmf=None,
     ``distrb.pmf``) and optionally its ``distrb.cmf``."""
     d = discrete_from_numpy(pmf, cmf, device)
     return hypercube_init(resolution, d.pmf)._replace(distrb=d)
+
+
+def envmap_state_from_numpy(scene, pmf, cmf=None) -> None:
+    """Make ``scene``'s environment map sample the importance table
+    ``pmf`` / ``cmf`` (the other package's
+    ``flat.envmap.cell_distrb.distrb``) in every build from now on, on the
+    scene's device. The grid must be the one ``configure_envmap`` chooses
+    here; ``Scene.build`` checks the cell count."""
+    scene.envmap_distrb = discrete_from_numpy(pmf, cmf, scene.device)
+    scene._flat_cache = None

@@ -1,8 +1,9 @@
 """Discrete and hypercube sampling distributions. Counterpart of the
 ``Discrete`` and ``HyperCube`` parts of ``psdr_tpu/core/distribution.py``;
 the alias table and the hierarchical 2D warp (and with them the ``alias``
-and ``hier`` fields and branches of ``HyperCube``) wait for slice 4, the
-environment map, their only user."""
+and ``hier`` fields and branches of ``HyperCube``), opt-ins of the
+environment map, are not ported (ROADMAP item 15). The environment map's
+frozen table is a ``HyperCube`` whose ``cells`` placeholder is empty."""
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple

@@ -6,7 +6,8 @@ from typing import NamedTuple
 
 import torch
 
-from .math import dot, sqr
+from .constants import Epsilon
+from .math import dot, safe_sqrt, sqr
 
 
 class Frame(NamedTuple):
@@ -44,3 +45,37 @@ def to_world(f: Frame, v: torch.Tensor) -> torch.Tensor:
 
 def cos_theta(v: torch.Tensor) -> torch.Tensor:
     return v[..., 2]
+
+
+def cos_theta_2(v: torch.Tensor) -> torch.Tensor:
+    return sqr(v[..., 2])
+
+
+def sin_theta_2(v: torch.Tensor) -> torch.Tensor:
+    return sqr(v[..., 0]) + sqr(v[..., 1])
+
+
+def sin_theta(v: torch.Tensor) -> torch.Tensor:
+    return safe_sqrt(sin_theta_2(v))
+
+
+def tan_theta(v: torch.Tensor) -> torch.Tensor:
+    return safe_sqrt(1.0 - sqr(v[..., 2])) / v[..., 2]
+
+
+def tan_theta_2(v: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - sqr(v[..., 2]), min=0.0) / sqr(v[..., 2])
+
+
+def sin_phi(v: torch.Tensor) -> torch.Tensor:
+    s2 = sin_theta_2(v)
+    inv = torch.rsqrt(torch.clamp(s2, min=1e-20))
+    return torch.where(torch.abs(s2) <= 4.0 * Epsilon, 0.0,
+                       torch.clamp(v[..., 1] * inv, -1.0, 1.0))
+
+
+def cos_phi(v: torch.Tensor) -> torch.Tensor:
+    s2 = sin_theta_2(v)
+    inv = torch.rsqrt(torch.clamp(s2, min=1e-20))
+    return torch.where(torch.abs(s2) <= 4.0 * Epsilon, 1.0,
+                       torch.clamp(v[..., 0] * inv, -1.0, 1.0))

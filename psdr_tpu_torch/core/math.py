@@ -90,14 +90,29 @@ def safe_acos(x: torch.Tensor) -> torch.Tensor:
     return _SafeAcos.apply(x)
 
 
+def rcp(x):
+    return 1.0 / x
+
+
 def sqr(x):
     return x * x
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
 
 
 def sign_eps(x: torch.Tensor, eps: float) -> torch.Tensor:
     """Ternary sign with a dead zone: +1 if x > eps, -1 if x < -eps, else 0
     (int32)."""
     return (x > eps).to(torch.int32) - (x < -eps).to(torch.int32)
+
+
+def sphdir(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Spherical angles -> unit direction."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([cp * st, sp * st, ct], dim=-1)
 
 
 def bilinear(p0, e1, e2, st):
@@ -123,6 +138,57 @@ def ray_intersect_triangle(p0, e1, e2, ray_o, ray_d):
     v = f * dot(ray_d, q)
     t = f * dot(e2, q)
     return torch.stack([u, v], dim=-1), t
+
+
+def ray_intersect_box(ray_o, ray_d, lower, upper):
+    """Slab test. Returns (active, mint, maxt)."""
+    inv_d = 1.0 / ray_d
+    t1 = (lower - ray_o) * inv_d
+    t2 = (upper - ray_o) * inv_d
+    mint = torch.minimum(t1, t2).amax(dim=-1)
+    maxt = torch.maximum(t1, t2).amin(dim=-1)
+    return maxt >= mint, mint, maxt
+
+
+def ray_intersect_scene_aabb(ray_o, ray_d, lower, upper):
+    """Intersect a ray (origin inside) with the scene AABB from within.
+    Returns (t, n, G): n is the inward-facing axis normal of the exit face
+    and G = cos / t^2 converts the direction pdf to an area pdf."""
+    t1 = (lower - ray_o) / ray_d
+    t2 = (upper - ray_o) / ray_d
+    t2p = torch.maximum(t1, t2)
+    t, idx = torch.min(t2p, dim=-1)
+    axis = torch.nn.functional.one_hot(idx, 3).to(ray_d.dtype)
+    n = -torch.sign(ray_d) * axis
+    G = dot(n, -ray_d) / sqr(t)
+    return t, n, G
+
+
+def fresnel_conductor(eta_r: torch.Tensor, eta_i: torch.Tensor,
+                      cos_theta_i: torch.Tensor) -> torch.Tensor:
+    """Unpolarized conductor Fresnel with complex IOR eta_r + i*eta_i.
+    eta_r/eta_i shape (..., C); cos_theta_i shape (...)."""
+    c = cos_theta_i[..., None]
+    cos2 = sqr(c)
+    sin2 = 1.0 - cos2
+    sin4 = sqr(sin2)
+    temp_1 = sqr(eta_r) - sqr(eta_i) - sin2
+    a_2_pb_2 = safe_sqrt(sqr(temp_1) + 4.0 * sqr(eta_i * eta_r))
+    a = safe_sqrt(0.5 * (a_2_pb_2 + temp_1))
+    term_1 = a_2_pb_2 + cos2
+    term_2 = 2.0 * c * a
+    r_s = (term_1 - term_2) / (term_1 + term_2)
+    term_3 = a_2_pb_2 * cos2 + sin4
+    term_4 = term_2 * sin2
+    r_p = r_s * (term_3 - term_4) / (term_3 + term_4)
+    return 0.5 * (r_s + r_p)
+
+
+def mis_weight(pdf1: torch.Tensor, pdf2: torch.Tensor) -> torch.Tensor:
+    """Power-2 MIS heuristic."""
+    w1 = sqr(pdf1)
+    w2 = sqr(pdf2)
+    return w1 / (w1 + w2)
 
 
 def scrub_nonfinite(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,9 @@ class Ray(NamedTuple):
     def at(self, t: torch.Tensor) -> torch.Tensor:
         return self.o + self.d * t[..., None]
 
+    def reversed(self) -> "Ray":
+        return Ray(self.o, -self.d)
+
 
 class Intersection(NamedTuple):
     """Surface interaction. ``J`` is the reparameterization Jacobian (1 in

@@ -20,8 +20,10 @@ class RngStream:
 
     The interior renderer attaches the lane structure that downstream
     samplers use: ``vis_spp`` (lanes per pixel, for NEE visibility reuse)
-    and ``ld`` (sample index + per-pixel scramble words of the (0,2)-
-    sequence for the first NEE and BSDF samples)."""
+    ``ld`` (sample index + per-pixel scramble words of the (0,2)-sequence
+    for the first NEE and BSDF samples) and ``strata`` (sample index, spp,
+    the (a, b) jitter grid and the per-pixel NEE and BSDF rotations of the
+    stratified sampler)."""
 
     def __init__(self, key: torch.Tensor, salt: int | None = None,
                  device=None):
@@ -30,6 +32,7 @@ class RngStream:
         self._i = 0
         self.vis_spp: int | None = None
         self.ld: tuple | None = None
+        self.strata: tuple | None = None
 
     def _subkey(self) -> torch.Tensor:
         k = threefry.fold_in(self.key, self._i)

@@ -1,3 +1,4 @@
 from .area import AreaLight
+from .envmap import EnvironmentMap
 
-__all__ = ["AreaLight"]
+__all__ = ["AreaLight", "EnvironmentMap"]

@@ -1,5 +1,5 @@
 """One-sided constant-radiance area light attached to a mesh. Counterpart
-of ``psdr_tpu/emitter/area.py``; the environment map waits for slice 4."""
+of ``psdr_tpu/emitter/area.py``."""
 from __future__ import annotations
 
 import numpy as np

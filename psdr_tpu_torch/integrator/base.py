@@ -8,8 +8,8 @@ own key from ``split``. Under ``RenderOptions.resolve_remat`` each chunk is
 checkpointed: the backward re-runs the chunk's forward (same key, so the
 same uniforms and the same hits) instead of keeping its intermediates. The
 boundary terms are zero in the primal (``x - x.detach()``) and carry only a
-gradient. Lane sharding waits for a later slice and raises
-``NotImplementedError``.
+gradient. Lane sharding is not ported and raises ``NotImplementedError``
+(ROADMAP item 18).
 """
 from __future__ import annotations
 
@@ -159,7 +159,8 @@ class Integrator:
     def render_interior(self, scene: Scene, flat: FlatScene, sensor_id: int,
                         key: torch.Tensor, shard=None) -> torch.Tensor:
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
         opts = scene.opts
         num_pixels = opts.num_pixels
         spp = opts.spp
@@ -170,10 +171,17 @@ class Integrator:
         chunk = min(opts.pass_lanes, n)
         pix_order_np = tiled_pixel_order(opts.width, opts.height)
         pix_order = torch.as_tensor(pix_order_np, device=dev).long()
-        if opts.sampler not in ("sobol", "independent"):
-            raise NotImplementedError(
-                f"sampler={opts.sampler!r} is not ported yet")
+        if opts.sampler not in ("sobol", "stratified", "independent"):
+            raise ValueError(f"unknown sampler {opts.sampler!r}")
+        # stratify the subpixel jitter over an a x b grid when spp
+        # factorizes: lower primary-visibility variance at the same cost
+        a = int(np.sqrt(spp))
+        while a > 1 and spp % a:
+            a -= 1
         use_sobol = opts.sampler == "sobol" and spp > 1
+        strat = ((a, spp // a)
+                 if (opts.stratify_primary and opts.sampler == "stratified"
+                     and a > 1) else None)
         # pixel-aligned chunks: each pixel's spp lanes are adjacent, which
         # the NEE visibility reuse and the per-chunk reduction rely on
         aligned = chunk % spp == 0
@@ -207,6 +215,23 @@ class Integrator:
                                           for k in range(2, 6))
             else:
                 jitter = rng.next_2d(m)
+            if strat is not None:
+                sa, sb = strat
+                s_idx = lane % spp
+                cell = torch.stack([(s_idx % sa).float(),
+                                    (s_idx // sa).float()], dim=-1)
+                jitter = (cell + jitter) / torch.tensor(
+                    [sa, sb], dtype=torch.float32, device=dev)
+                # per-pixel rotations of the stratum index for the NEE and
+                # the BSDF sample, independent hashes of the pixel, so that
+                # subpixel and light strata decorrelate across pixels
+                # ("padded" stratified sampling); the (sa, sb) grid rides
+                # along so _stratify2 shares this factorization
+                w = threefry.randint(rng._subkey(), (2,), 0,
+                                     np.iinfo(np.int32).max).tolist()
+                rng.strata = (s_idx, spp, (sa, sb),
+                              _pix_hash(idx, w[0]) % spp,
+                              _pix_hash(idx, w[1]) % spp)
             ray = sample_primary_ray(flat.sensors[sensor_id],
                                      (base + jitter) / film)
             if prior_rows_c is None:
@@ -265,7 +290,8 @@ class Integrator:
         edge point times its normal velocity ``x_dot_n``, the only factor
         that carries a gradient."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
         opts = scene.opts
         num_pixels = opts.num_pixels
         dev = scene.device

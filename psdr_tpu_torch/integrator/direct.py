@@ -35,6 +35,7 @@ from ..core.math import (bilinear, cross, dot, norm, normalize,
                          squared_norm)
 from ..core.records import Ray, detach_tree
 from ..core.sampler import RngStream, ld_2d
+from ..emitter.envmap import envmap_eval_direction
 from ..scene.scene import (FlatScene, Scene, detach_flat,
                            emitter_position_pdf, ray_intersect,
                            ray_intersect_emitter_first,
@@ -46,15 +47,29 @@ from .base import Integrator, accumulate_image, scan_lane_chunks
 
 
 def _stratify2(u2: torch.Tensor, rng: RngStream, which: int) -> torch.Tensor:
-    """With the (0,2)-sequence attached by the interior render, REPLACE u2
-    by the pixel's scrambled point (``which`` 0: NEE pair, 1: BSDF pair);
-    otherwise return u2."""
-    if rng.ld is None:
+    """Improve a uniform 2D sample with the pixel's sample-index structure
+    where the interior render attached it (``which`` 0: the NEE pair, 1:
+    the BSDF pair, so the consumers decorrelate):
+
+    * ``rng.ld`` (sampler="sobol"): REPLACE u2 by the pixel's scrambled
+      (0,2)-sequence point;
+    * ``rng.strata`` (sampler="stratified"): warp u2 onto the spp strata
+      under a per-pixel rotation; strata = (s_idx, spp, (a, b), rot_nee,
+      rot_bsdf). Marginally still uniform.
+
+    Otherwise (the boundary estimators' streams) return u2."""
+    if rng.ld is not None:
+        s_idx, nee_x, nee_y, bsdf_x, bsdf_y = rng.ld
+        if which == 0:
+            return ld_2d(s_idx, nee_x, nee_y)
+        return ld_2d(s_idx, bsdf_x, bsdf_y)
+    if rng.strata is None:
         return u2
-    s_idx, nee_x, nee_y, bsdf_x, bsdf_y = rng.ld
-    if which == 0:
-        return ld_2d(s_idx, nee_x, nee_y)
-    return ld_2d(s_idx, bsdf_x, bsdf_y)
+    s_idx, spp, (a, b), rot_nee, rot_bsdf = rng.strata
+    s = (s_idx + (rot_nee if which == 0 else rot_bsdf)) % spp
+    cell = torch.stack([(s % a).float(), (s // a).float()], dim=-1)
+    return (cell + u2) / torch.tensor([a, b], dtype=torch.float32,
+                                      device=u2.device)
 
 
 def _mdiv(a, b, mask):
@@ -119,6 +134,21 @@ def _emitter_meta(scene: Scene):
     meta = [("area", e.mesh_index) if e.kind == "area" else ("env", -1)
             for e in scene.emitters]
     return tuple(meta) if meta else (("area", 0),)
+
+
+def _sampled_radiance(flat: FlatScene, ps, wo, active):
+    """Radiance of a light sample ``ps`` seen along ``wo``: its area
+    light's, or the environment map's where the sample's ``emitter`` is
+    -1."""
+    le = torch.where((ps.emitter >= 0)[..., None],
+                     select_rows(flat.emitter_radiance,
+                                 torch.clamp(ps.emitter, min=0)), 0.0)
+    if flat.envmap is not None:
+        is_env = ps.emitter < 0
+        le = torch.where(is_env[..., None],
+                         envmap_eval_direction(flat.envmap, wo,
+                                               active & is_env), le)
+    return le
 
 
 def _emitter_segment_valid(scene: Scene, flat: FlatScene):
@@ -215,7 +245,8 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
     ``index_add_`` (atomic adds on the card). ``mesh`` (the JAX package's
     lane-sharded build) is not ported."""
     if mesh is not None:
-        raise NotImplementedError("lane sharding waits for slice 5")
+        raise NotImplementedError(
+            "lane sharding is not ported (ROADMAP item 18)")
     if nrounds <= 0:
         raise ValueError("nrounds must be positive")
     reso = tuple(int(r) for r in reso)
@@ -270,6 +301,9 @@ class DirectIntegrator(Integrator):
 
         result = (torch.zeros((n, 3), device=dev) if self.hide_emitters
                   else scene_le(flat, its, active))
+        if flat.envmap is not None:
+            # no reflectance on hits of the env bounding mesh
+            active = active & (its.bsdf_id >= 0)
 
         for k in range(self.bsdf_samples):
             u3 = rng.next_3d(n)
@@ -326,7 +360,8 @@ class DirectIntegrator(Integrator):
             # one-sided, contributes zero whether occluded or not, so it
             # need not trace. Exact.
             cos_val = dot(ps.n, -wo)
-            side_ok = (ps.emitter < 0) | (cos_val > 0.0)
+            is_env = ps.emitter < 0
+            side_ok = is_env | (cos_val > 0.0)
             if all_reflective_one_sided(kinds):
                 side_ok = (side_ok
                            & (to_local(its.sh_frame, wo).detach()[..., 2] > 0.0)
@@ -335,15 +370,13 @@ class DirectIntegrator(Integrator):
 
             vis = self._nee_visibility(flat, rng, its.p, wo, dist, active1, n)
             if vis is None:
-                occluded = ray_test(flat, Ray(its.p, wo), dist, active1)
+                occluded = ray_test(flat, Ray(its.p, wo), dist, active1,
+                                    sort_rays=flat.envmap is not None)
                 active1 = active1 & ~occluded
             else:
                 active1 = active1 & (vis != 0.0)
 
-            le = torch.where((ps.emitter >= 0)[..., None],
-                             select_rows(flat.emitter_radiance,
-                                         torch.clamp(ps.emitter, min=0)),
-                             0.0)
+            le = _sampled_radiance(flat, ps, wo, active1)
 
             G_val = _mdiv(torch.abs(cos_val), dist_sqr, active1)
             wo_local = to_local(its.sh_frame, wo)
@@ -396,6 +429,10 @@ class DirectIntegrator(Integrator):
         spp = rng.vis_spp
         if (mode not in ("bern", "edge") or not spp or spp <= 1 or n % spp
                 or light_samples != 1):
+            return None
+        if flat.envmap is not None and mode != "edge":
+            # bern needs V_i ~ V_ref, which envmap NEE (per-stratum
+            # directions spread over the sphere) lacks
             return None
         if mode == "bern" and q <= 0.0:
             return None
@@ -450,7 +487,8 @@ class DirectIntegrator(Integrator):
         """The secondary-edge (shadow) boundary term -> (num_pixels, 3),
         zero in the primal."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
         def tail(sample3_t, rng):
             # the emitter-first trace, the opposite closest hit, the camera
             # any-hit, the BSDF and the AD term

@@ -20,8 +20,7 @@ estimators. Counterpart of ``psdr_tpu/integrator/path.py``.
 
 The depth loop is a Python loop (``scan_depths`` is taken for the JAX
 package's call sites and changes nothing: every depth draws from
-``fold_in(depth_base, depth)``). Scenes with an environment map are refused
-by ``Scene.build``, so ``Li`` has no such branch.
+``fold_in(depth_base, depth)``).
 """
 from __future__ import annotations
 
@@ -37,7 +36,6 @@ from ..core import threefry
 from ..core.constants import EdgeEpsilon, Epsilon, ShadowEpsilon
 from ..core.distribution import discrete_sample_reuse, hypercube_set_mass
 from ..core.frame import to_local, to_world
-from ..core.gather import select_rows
 from ..core.math import (bilinear, cross, dot, norm, normalize,
                          ray_intersect_triangle, sign_eps, sqr, squared_norm)
 from ..core.records import Ray, detach_tree
@@ -53,7 +51,7 @@ from ..sensor.perspective import sample_direct, sample_primary_ray
 from .base import Integrator
 from .direct import (DirectIntegrator, _boundary_pass, _emitter_meta,
                      _emitter_segment_valid, _guiding_table, _mdiv,
-                     _stratify2)
+                     _sampled_radiance, _stratify2)
 
 
 def _silhouette(info, ok, d):
@@ -191,6 +189,8 @@ class PathTracer(Integrator):
         result = (torch.zeros((n, 3), device=dev) if self.hide_emitters
                   else scene_le(flat, its, active))
         beta = torch.ones((n, 3), device=dev)  # path throughput
+        if flat.envmap is not None:
+            active = active & (its.bsdf_id >= 0)
 
         # every draw of a depth folds (depth, draw id) from one subkey
         depth_base = rng._subkey()
@@ -199,12 +199,14 @@ class PathTracer(Integrator):
             its, beta, active, result = state
             # --- NEE via an occlusion test ---
             if first and rng.ld is not None:
-                # the first bounce's samples ride the pixel's rotated spp
-                # strata; the uniform draw they replace has a key of its
+                # the first bounce's samples ride the pixel's scrambled
+                # sequence; the uniform draw they replace has a key of its
                 # own, so leaving it out moves no other draw
                 u2 = _stratify2(None, rng, which=0)
             else:
                 u2 = threefry.uniform(threefry.fold_in(kd, 0), (n, 2), dev)
+                if first:
+                    u2 = _stratify2(u2, rng, which=0)
             ps = sample_emitter_position(flat, offsets, emeta, its.p, u2,
                                          active)
             active_l = active & ps.valid
@@ -229,15 +231,13 @@ class PathTracer(Integrator):
                 vis = DirectIntegrator._nee_visibility_impl(
                     flat, rng, its.p, wo, dist, active_l, n, light_samples=1)
             if vis is None:
-                occluded = ray_test(flat, Ray(its.p, wo), dist, active_l)
+                occluded = ray_test(flat, Ray(its.p, wo), dist, active_l,
+                                    sort_rays=flat.envmap is not None)
                 active_l = active_l & ~occluded
             else:
                 active_l = active_l & (vis != 0.0)
 
-            le = torch.where((ps.emitter >= 0)[..., None],
-                             select_rows(flat.emitter_radiance,
-                                         torch.clamp(ps.emitter, min=0)),
-                             0.0)
+            le = _sampled_radiance(flat, ps, wo, active_l)
 
             G_l = _mdiv(torch.abs(cos_l), dist_sqr, active_l)
             wo_local = to_local(its.sh_frame, wo)
@@ -323,7 +323,8 @@ class PathTracer(Integrator):
         replaced on the instance (a test seam) or under
         ``PSDR_TPU_FUSED_BOUNDARY=0`` (read at call time)."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
         fused = (self.camera_depth > 1
                  and "render_camera_edges" not in self.__dict__
                  and "render_indirect_edges" not in self.__dict__
@@ -377,7 +378,8 @@ class PathTracer(Integrator):
         integrand's support keeps both terms unbiased, and the floor only
         dilutes the s = 1 guiding slightly."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
         warp = (self.warpper if far == "emitter" else self.ind_warpper).get(
             sensor_id)
         if warp is not None:
@@ -398,7 +400,8 @@ class PathTracer(Integrator):
         bounce (sensor subpath length 2..camera_depth); each walk depth
         splats its own camera connection. Unguided."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
 
         def tail(sample3_t, rng):
             return self.eval_secondary_edge_camera(scene, flat, sensor_id,
@@ -561,7 +564,8 @@ class PathTracer(Integrator):
                               shard=None) -> torch.Tensor:
         """The direction-sampled (indirect) secondary boundary term."""
         if shard is not None:
-            raise NotImplementedError("lane sharding waits for slice 5")
+            raise NotImplementedError(
+                "lane sharding is not ported (ROADMAP item 18)")
 
         def tail(sample3_t, rng):
             return [self.eval_secondary_edge_indirect(scene, flat, sensor_id,

@@ -6,8 +6,9 @@ boundary terms and their gradients. Every tensor of a build is made on
 ``Scene.device``; gradients reach the params leaves through the build, the
 differentiable hit recompute of ``ray_intersect`` and the edge tables
 (``sec_edge``, each sensor's ``edges``, built when ``sppe`` or ``sppse`` is
-positive), while every hit query stays detached. Left for a later slice:
-environment maps (slice 4). ``ray_test`` takes the JAX package's
+positive), while every hit query stays detached. An environment map adds
+its 12-face bounding mesh (``bsdf_id`` -1) to the face tables, so
+environment hits look like surface hits. ``ray_test`` takes the JAX package's
 ``sort_rays``/``sparse`` flags and ignores them: they ordered and compacted
 lanes for the TPU kernel's block cull and change no result.
 """
@@ -25,6 +26,7 @@ from ..bsdf import check_kinds
 from ..core.constants import EdgeEpsilon, Epsilon, ShadowEpsilon
 from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.frame import make_frame, to_local
+from ..core.frame import to_world as frame_to_world
 from ..core.gather import gather_rows, select_rows
 from ..core.math import (bilinear, dot, norm, normalize,
                          ray_intersect_triangle, rgb2luminance, safe_sqrt,
@@ -32,6 +34,9 @@ from ..core.math import (bilinear, dot, norm, normalize,
 from ..core.records import (BoundarySegSample, Intersection, PositionSample,
                             Ray, RenderOptions, detach_tree)
 from ..emitter.area import AreaLight
+from ..emitter.envmap import (EnvironmentMap, EnvmapState, configure_envmap,
+                              envmap_eval_direction, envmap_position_pdf,
+                              envmap_sample_position)
 from ..sensor.perspective import (PerspectiveCamera, PrimaryEdgeInfo,
                                   build_primary_edges, configure_sensor,
                                   finalize_primary_edges)
@@ -40,6 +45,13 @@ from ..shape.mesh import (Mesh, SecondaryEdgeInfo, TriangleInfo,
                           sample_position)
 
 BVH_LEAF_SIZE = 4   # triangles per BVH leaf
+
+# the environment map's bounding mesh: 12 faces over the 8 corners of the
+# (enlarged) scene box, corner i taking upper[j] where bit j of i is set
+_BOUND_FACES = [
+    [0, 1, 3], [0, 3, 2], [1, 5, 7], [1, 7, 3], [2, 3, 7], [2, 7, 6],
+    [0, 5, 1], [0, 4, 5], [0, 2, 6], [0, 6, 4], [4, 7, 5], [4, 6, 7],
+]
 
 
 class FlatScene(NamedTuple):
@@ -72,6 +84,7 @@ class FlatScene(NamedTuple):
     # (E,) int64 global face ids of all emitter geometry, or None when
     # absent or too large: enables the emitter-first bounce query
     em_tri_idx: Optional[torch.Tensor] = None
+    envmap: Optional[EnvmapState] = None
     # set by detach_flat(): every tensor is detached, so ray_intersect
     # returns the hit query's own (t, uv) with no recompute
     detached: bool = False
@@ -100,6 +113,9 @@ class Scene:
         self.accel_min_faces = 512
         self._bvh_topo: BVHTopology | None = None
         self.face_offset = [0]
+        # optional Discrete that replaces the environment map's importance
+        # table in every build (``convert.envmap_state_from_numpy``)
+        self.envmap_distrb = None
 
     def to(self, device) -> "Scene":
         self.device = torch.device(device)
@@ -118,6 +134,7 @@ class Scene:
     # -- construction --------------------------------------------------------
     def add_bsdf(self, bsdf, bsdf_id: str = "") -> int:
         self.bsdfs.append(bsdf)
+        self._flat_cache = None
         key = f"BSDF[id={bsdf_id}]" if bsdf_id else f"BSDF[{len(self.bsdfs)-1}]"
         if bsdf_id:
             bsdf.id = bsdf_id
@@ -126,11 +143,13 @@ class Scene:
 
     def add_mesh(self, mesh: Mesh) -> int:
         self.meshes.append(mesh)
+        self._flat_cache = None
         self.param_map[f"Mesh[{len(self.meshes)-1}]"] = mesh
         return len(self.meshes) - 1
 
     def add_emitter(self, emitter) -> int:
         self.emitters.append(emitter)
+        self._flat_cache = None
         self.param_map[f"Emitter[{len(self.emitters)-1}]"] = emitter
         if isinstance(emitter, AreaLight):
             self.meshes[emitter.mesh_index].emitter_id = len(self.emitters) - 1
@@ -138,8 +157,16 @@ class Scene:
 
     def add_sensor(self, sensor: PerspectiveCamera) -> int:
         self.sensors.append(sensor)
+        self._flat_cache = None
         self.param_map[f"Sensor[{len(self.sensors)-1}]"] = sensor
         return len(self.sensors) - 1
+
+    @property
+    def envmap_index(self) -> int:
+        for i, e in enumerate(self.emitters):
+            if isinstance(e, EnvironmentMap):
+                return i
+        return -1
 
     # -- parameters -----------------------------------------------------------
     def params(self) -> dict:
@@ -193,10 +220,9 @@ class Scene:
         if not self.meshes or not self.sensors:
             raise ValueError("a scene needs meshes and a sensor")
         for em in self.emitters:
-            if getattr(em, "kind", None) != "area":
+            if not isinstance(em, (AreaLight, EnvironmentMap)):
                 raise NotImplementedError(
-                    "emitters other than area lights (environment maps) "
-                    "wait for slice 4")
+                    f"emitter {type(em).__name__} is not ported")
         check_kinds(self.bsdf_kinds)
         dev = self.device
         with_edges = self.opts.sppse > 0 or self.opts.sppe > 0
@@ -214,6 +240,12 @@ class Scene:
             vp = mesh.world_positions(mp)
             info, _ = compute_triangle_info(
                 vp, torch.as_tensor(mesh.faces, device=dev), mesh.num_vertices)
+            if mesh.use_vertex_normals:
+                # authored normals override the recomputed area-weighted
+                # shading normals; geometric normals and edge silhouettes
+                # stay position-derived
+                n0, n1, n2 = mesh.world_shading_normals(mp)
+                info = info._replace(n0=n0, n1=n1, n2=n2)
             world_vps.append(vp)
             tri_infos.append(info)
             face_offset.append(face_offset[-1] + mesh.num_faces)
@@ -229,7 +261,38 @@ class Scene:
         lower = torch.stack(lows).amin(dim=0)
         upper = torch.stack(highs).amax(dim=0)
 
-        tri = TriangleInfo(*(torch.cat(xs) for xs in zip(*tri_infos)))
+        # envmap + bounding mesh over the enlarged scene box
+        env_idx = self.envmap_index
+        envmap = None
+        if env_idx >= 0:
+            margin = torch.min((upper - lower) * 0.05)
+            lower = lower - margin
+            upper = upper + margin
+            # the host radiance snapshot lets configure_envmap freeze a
+            # large importance table once; unbiased even when the snapshot
+            # lags optimized radiance params, because the stored pdf always
+            # equals what the frozen table samples
+            envmap = configure_envmap(
+                params["emitters"][env_idx], lower, upper,
+                host_radiance=self.emitters[env_idx].radiance.data)
+            if self.envmap_distrb is not None:
+                d = self.envmap_distrb
+                if d.size != envmap.cell_distrb.num_cells:
+                    raise ValueError(
+                        f"envmap_distrb has {d.size} cells, the importance "
+                        f"grid {envmap.cell_distrb.num_cells}")
+                envmap = envmap._replace(
+                    cell_distrb=envmap.cell_distrb._replace(distrb=d))
+            bits = torch.tensor([[bool(i & (1 << j)) for j in range(3)]
+                                 for i in range(8)], device=dev)
+            corners = torch.where(bits, upper, lower)
+            bound_info, _ = compute_triangle_info(
+                corners, torch.tensor(_BOUND_FACES, device=dev), 8)
+            tri_infos_all = tri_infos + [bound_info]
+        else:
+            tri_infos_all = tri_infos
+
+        tri = TriangleInfo(*(torch.cat(xs) for xs in zip(*tri_infos_all)))
         uv0_l, uv1_l, uv2_l, fmask_l, mid_l, bid_l, eid_l = ([] for _ in range(7))
         for i, mesh in enumerate(self.meshes):
             nf = mesh.num_faces
@@ -246,6 +309,13 @@ class Scene:
             mid_l.append(full(nf, i, torch.int32))
             bid_l.append(full(nf, mesh.bsdf_id, torch.int32))
             eid_l.append(full(nf, mesh.emitter_id, torch.int32))
+        if envmap is not None:
+            z = torch.zeros((12, 2), device=dev)
+            uv0_l.append(z); uv1_l.append(z); uv2_l.append(z)
+            fmask_l.append(full(12, True, torch.bool))
+            mid_l.append(full(12, len(self.meshes), torch.int32))
+            bid_l.append(full(12, -1, torch.int32))
+            eid_l.append(full(12, env_idx, torch.int32))
 
         # secondary-edge arrays, masked not compacted
         sec_list = [compute_sec_edge_info(vp, info, mesh.edge_table(dev))
@@ -267,6 +337,13 @@ class Scene:
         # emitters: radiance, 1/area, sampling weight = area x luminance
         rads, inv_areas, weights, face_distrbs = [], [], [], []
         for i, em in enumerate(self.emitters):
+            if isinstance(em, EnvironmentMap):
+                # its radiance is the bitmap's; sampling weight 1
+                rads.append(torch.zeros((3,), device=dev))
+                inv_areas.append(torch.zeros((), device=dev))
+                weights.append(torch.ones((), device=dev))
+                face_distrbs.append(discrete_init(torch.ones(1, device=dev)))
+                continue
             fa = tri_infos[em.mesh_index].face_area
             total_area = torch.sum(fa)
             rad = params["emitters"][i]["radiance"]
@@ -310,6 +387,8 @@ class Scene:
         em_rows = [np.arange(face_offset[i], face_offset[i + 1])
                    for i, mesh in enumerate(self.meshes)
                    if mesh.emitter_id >= 0]
+        if envmap is not None:
+            em_rows.append(np.arange(face_offset[-1], face_offset[-1] + 12))
         em_tri_idx = None
         if em_rows:
             em_cat = np.concatenate(em_rows)
@@ -340,7 +419,7 @@ class Scene:
             emitter_face_distrb=tuple(face_distrbs),
             sensors=tuple(sensor_states), bsdfs=tuple(params["bsdfs"]),
             lower=lower, upper=upper, accel=accel, face_table=face_table,
-            em_tri_idx=em_tri_idx)
+            em_tri_idx=em_tri_idx, envmap=envmap)
 
     def __repr__(self):
         return ("Scene[\n  # Sensors\n  " + "\n  ".join(map(repr, self.sensors))
@@ -533,15 +612,23 @@ def scene_le(flat: FlatScene, its: Intersection,
     active = active & its.is_emitter()
     eid = torch.clamp(its.emitter_id, min=0)
     front = its.wi[..., 2] > 0.0
-    return torch.where((active & front)[..., None],
-                       select_rows(flat.emitter_radiance, eid), 0.0)
+    le = torch.where((active & front)[..., None],
+                     select_rows(flat.emitter_radiance, eid), 0.0)
+    if flat.envmap is not None:
+        wi_world = frame_to_world(its.sh_frame, its.wi)
+        env_mask = active & (its.bsdf_id < 0)
+        le = torch.where(env_mask[..., None],
+                         envmap_eval_direction(flat.envmap, -wi_world,
+                                               env_mask), le)
+    return le
 
 
 def sample_emitter_position(flat: FlatScene, face_offsets, emitter_meta,
                             ref_p: torch.Tensor, sample2: torch.Tensor,
                             active: torch.Tensor) -> PositionSample:
     """Pick an emitter proportional to its weight, then sample its surface.
-    ``emitter_meta``: static list of ('area', mesh_index)."""
+    ``emitter_meta``: static list of ('area', mesh_index) / ('env', -1); an
+    environment sample's ``emitter`` is -1."""
     n = ref_p.shape[0]
     dev = ref_p.device
     if len(emitter_meta) == 1:
@@ -561,13 +648,14 @@ def sample_emitter_position(flat: FlatScene, face_offsets, emitter_meta,
                          emitter=torch.full((n,), -1, dtype=torch.int32,
                                             device=dev))
     for i, (kind, mesh_index) in enumerate(emitter_meta):
-        if kind != "area":
-            raise NotImplementedError("environment maps wait for slice 4")
         mask = active & (idx == i)
-        lo, hi = face_offsets[mesh_index], face_offsets[mesh_index + 1]
-        tri_slice = TriangleInfo(*(a[lo:hi] for a in flat.tri))
-        ps = sample_position(tri_slice, flat.emitter_face_distrb[i],
-                             flat.emitter_inv_area[i], s2)
+        if kind == "area":
+            lo, hi = face_offsets[mesh_index], face_offsets[mesh_index + 1]
+            tri_slice = TriangleInfo(*(a[lo:hi] for a in flat.tri))
+            ps = sample_position(tri_slice, flat.emitter_face_distrb[i],
+                                 flat.emitter_inv_area[i], s2)
+        else:
+            ps = envmap_sample_position(flat.envmap, ref_p, s2, mask)
         m3 = mask[..., None]
         out = PositionSample(
             valid=torch.where(mask, ps.valid, out.valid),
@@ -575,7 +663,8 @@ def sample_emitter_position(flat: FlatScene, face_offsets, emitter_meta,
             p=torch.where(m3, ps.p, out.p),
             n=torch.where(m3, ps.n, out.n),
             J=torch.where(mask, ps.J, out.J),
-            emitter=torch.where(mask, i, out.emitter))
+            emitter=torch.where(mask, i if kind == "area" else -1,
+                                out.emitter))
     return out._replace(pdf=out.pdf * sel_pdf, valid=out.valid & active)
 
 
@@ -586,9 +675,15 @@ def emitter_position_pdf(flat: FlatScene, emitter_meta, ref_p: torch.Tensor,
     with the normalized sampling weights."""
     active = active & its.is_emitter()
     eid = torch.clamp(its.emitter_id, min=0)
-    pdf = (select_rows(flat.emitter_weight, eid)
-           * select_rows(flat.emitter_inv_area, eid))
-    return torch.where(active, pdf, 0.0)
+    env_w = select_rows(flat.emitter_weight, eid)
+    pdf = torch.where(active,
+                      env_w * select_rows(flat.emitter_inv_area, eid), 0.0)
+    if flat.envmap is not None:
+        env_mask = active & (its.bsdf_id < 0)
+        env_pdf = envmap_position_pdf(flat.envmap, ref_p, its.p, its.n,
+                                      env_mask)
+        pdf = torch.where(env_mask, env_w * env_pdf, pdf)
+    return pdf
 
 
 def sec_edge_rows(flat: FlatScene, edge_idx: torch.Tensor,

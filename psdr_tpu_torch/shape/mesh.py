@@ -1,7 +1,9 @@
 """Triangle meshes: host-side topology (the edge-adjacency table included)
 and the world-space geometry build. Counterpart of
-``psdr_tpu/shape/mesh.py``. OBJ loading, authored vertex normals and the 1D
-vertex offset wait for later slices (IO: slice 4)."""
+``psdr_tpu/shape/mesh.py``. Authored vertex normals (``normals`` and
+``normal_idx``, as an OBJ's vn channels) override the area-weighted shading
+normals with ``use_vertex_normals``. OBJ loading (ROADMAP item 16) and the
+1D vertex offset (item 17) are not ported."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -103,20 +105,33 @@ class Mesh:
                  use_face_normals: bool = False,
                  enable_edges: bool = True,
                  enable_vertex_offset: bool = False,
+                 normals: Optional[np.ndarray] = None,
+                 normal_idx: Optional[np.ndarray] = None,
                  use_vertex_normals: bool = False,
                  bsdf_id: int = -1, emitter_id: int = -1,
                  mesh_id: str = ""):
         if enable_vertex_offset:
-            raise NotImplementedError("the 1D vertex offset waits for slice 5")
-        if use_vertex_normals:
-            raise NotImplementedError("authored vertex normals wait for "
-                                      "slice 4")
+            raise NotImplementedError(
+                "the 1D vertex offset is not ported (ROADMAP item 17)")
         self.vertices = np.ascontiguousarray(vertices, np.float32)
         self.faces = np.ascontiguousarray(faces, np.int32)
         self.uv = None if uv is None else np.ascontiguousarray(uv, np.float32)
         self.uv_idx = (None if uv_idx is None
                        else np.ascontiguousarray(uv_idx, np.int32))
         self.use_face_normals = bool(use_face_normals)
+        # authored normals: (Nn, 3) rows and per-corner (F, 3) indices into
+        # them. All or nothing: every face corner must name a normal
+        self.normals = (None if normals is None
+                        else np.ascontiguousarray(normals, np.float32))
+        self.normal_idx = (None if normal_idx is None
+                           else np.ascontiguousarray(normal_idx, np.int32))
+        self.use_vertex_normals = bool(use_vertex_normals)
+        if self.use_vertex_normals and (
+                self.normals is None or self.normal_idx is None
+                or (self.normal_idx < 0).any()):
+            raise ValueError(
+                "use_vertex_normals=True requires authored normals on every "
+                "face corner (normals and normal_idx)")
         # silhouette edges feed the boundary terms only
         self.enable_edges = bool(enable_edges)
         self.bsdf_id = int(bsdf_id)
@@ -156,6 +171,19 @@ class Mesh:
     def world_positions(self, params: dict) -> torch.Tensor:
         return xform.transform_pos(params["to_world"],
                                    params["vertex_positions"])
+
+    def world_shading_normals(self, params: dict):
+        """Per-corner world-space shading normals from the authored
+        normals: rows transform by the inverse transpose of ``to_world``'s
+        linear part (differentiable in ``to_world``; the raw normals are
+        authored data, not a function of the positions)."""
+        m = params["to_world"]
+        n = torch.as_tensor(self.normals, device=m.device) @ torch.linalg.inv(
+            m[:3, :3])
+        n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                            min=1e-20)
+        ni = torch.as_tensor(self.normal_idx, device=m.device).long()
+        return n[ni[:, 0]], n[ni[:, 1]], n[ni[:, 2]]
 
     def __repr__(self):
         return (f"Mesh[nv={self.num_vertices}, nf={self.num_faces}"

@@ -7,7 +7,12 @@ both packages get identical inputs); ``floor_light_scene`` is
 ``tests/test_gradients.py::_floor_light_scene``, a floor under a light
 outside the view, whose image is smooth in the light's position;
 ``gi_shadow_scene`` and ``hidden_shadow_scene`` are the validation scenes
-of the indirect and the camera-side boundary estimators. At
+of the indirect and the camera-side boundary estimators; ``env_scene``
+(an icosphere under the gradient sky of ``tests/test_envmap.py``) and
+``textured_quad_scene`` (``tests/test_texture.py``) are the small scenes of
+the materials and lights, and ``env_bench_scene`` their full-width scene: a
+rough-conductor sphere, a textured ground, a sphere with authored normals,
+an area light and a 512 x 1024 environment map. At
 ``occluder_subdiv=5`` ``cbox_scene`` is the scene ``bench.py`` measures:
 20,492 triangles. ``triangle_soup`` is the random soup of
 ``tests/test_bvh.py`` that the intersection tests share;
@@ -15,15 +20,18 @@ of the indirect and the camera-side boundary estimators. At
 (the tie rule's case); ``scene_rays``, ``tiled_camera_rays`` and
 ``tiled_path_rays`` make the rays the render path sends through a built
 scene: camera rays, the bounce and shadow rays from their hits, and a path
-tracer's later bounces.
+tracer's later bounces; ``tiled_material_rays`` makes the BSDF-sampled
+bounce rays and the shadow rays toward environment-map samples.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import (AreaLight, Diffuse, PerspectiveCamera, RenderOptions,
-                Scene)
+from .. import (AreaLight, Diffuse, EnvironmentMap, PerspectiveCamera,
+                RenderOptions, RoughConductor, Scene)
+from ..bsdf import sample_bsdf
+from ..core.bitmap import from_array
 from ..accel.bvh import build_bvh_topology
 from ..core import transform as xf
 from ..core.constants import ShadowEpsilon
@@ -213,6 +221,154 @@ def hidden_shadow_scene(width=20, height=20, spp=32, sppse=48,
     return sc
 
 
+def gradient_sky(h=16, w=32) -> np.ndarray:
+    """``tests/test_envmap.py::_gradient_sky``: a bright band near the
+    horizon on +x, dark elsewhere; azimuthally non-uniform, so a rotation
+    has a visible derivative. (h, w, 3) float32."""
+    theta = np.linspace(0, np.pi, h, dtype=np.float32)[:, None]
+    phi = np.linspace(0, 2 * np.pi, w, endpoint=False,
+                      dtype=np.float32)[None, :]
+    val = (np.exp(-((theta - 1.3) ** 2) * 8.0)
+           * (1.0 + 0.9 * np.cos(phi))) + 0.05
+    return np.repeat(val.astype(np.float32)[..., None], 3, axis=-1)
+
+
+def env_scene(bsdf=None, width=24, height=24, spp=8, sppe=0, sppse=0,
+              device="cuda") -> Scene:
+    """``tests/test_envmap.py::_env_scene``: a subdiv-2 icosphere of
+    material ``bsdf`` (default ``Diffuse([0.7, 0.7, 0.7])``) under the
+    16 x 32 gradient sky, no other light."""
+    sc = Scene(device=device)
+    b = sc.add_bsdf(Diffuse([0.7, 0.7, 0.7]) if bsdf is None else bsdf, "mat")
+    sc.add_mesh(primitives.make_icosphere(subdiv=2, radius=1.0, bsdf_id=b))
+    sc.add_emitter(EnvironmentMap(gradient_sky(), scale=1.0))
+    cam = PerspectiveCamera(fov_x=40.0)
+    cam.set_transform(np.asarray(xf.look_at([0, 0, 5], [0, 0, 0], [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
+                            sppse=sppse)
+    return sc
+
+
+def textured_quad_scene(tex, width=32, height=32, spp=8,
+                        device="cuda") -> Scene:
+    """``tests/test_texture.py::_textured_quad_scene``: a quad whose
+    reflectance is the image ``tex`` (H, W, 3), under an area light."""
+    sc = Scene(device=device)
+    mat = sc.add_bsdf(Diffuse(from_array(tex)), "tex")
+    sc.add_mesh(primitives.make_quad(size=1.0, bsdf_id=mat,
+                                     enable_edges=False,
+                                     use_face_normals=True))
+    light = primitives.make_quad(size=0.5, bsdf_id=-1, enable_edges=False,
+                                 use_face_normals=True)
+    light.set_transform(np.asarray(
+        xf.translate([0, 0, 3.0]) @ xf.rotate([1, 0, 0], 180.0)))
+    li = sc.add_mesh(light)
+    sc.add_emitter(AreaLight([12.0, 12.0, 12.0], mesh_index=li))
+    cam = PerspectiveCamera(fov_x=45.0)
+    cam.set_transform(np.asarray(xf.look_at([0, 0, 2.5], [0, 0, 0],
+                                            [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp)
+    return sc
+
+
+def sun_sky(h=512, w=1024, seed=7) -> np.ndarray:
+    """A smooth sky (bright toward the zenith and the horizon haze, a dim
+    ground half, low-frequency seeded variation in azimuth) with a sun disk
+    a few texels wide at 40 degrees of elevation. (h, w, 3) float32."""
+    rng = np.random.default_rng(seed)
+    theta = (np.arange(h, dtype=np.float64)[:, None] + 0.5) * (np.pi / h)
+    phi = (np.arange(w, dtype=np.float64)[None, :] + 0.5) * (2 * np.pi / w)
+    up = np.cos(theta)
+    sky = np.where(up > 0, 0.25 + 0.5 * up + 0.3 * np.exp(-8.0 * up),
+                   0.08 + 0.05 * np.exp(8.0 * up))
+    amp = rng.uniform(0.02, 0.08, 4)
+    phase = rng.uniform(0, 2 * np.pi, 4)
+    wave = sum(a * np.cos((k + 1) * phi + p)
+               for k, (a, p) in enumerate(zip(amp, phase)))
+    base = sky * (1.0 + wave)
+    tint = np.array([0.75, 0.9, 1.15])
+    img = base[..., None] * tint
+    # the sun: a disk of ~1.2 degrees radius (about 3.5 texels)
+    t0, p0 = np.deg2rad(50.0), np.deg2rad(60.0)
+    cosang = (np.sin(theta) * np.sin(t0) * np.cos(phi - p0)
+              + np.cos(theta) * np.cos(t0))
+    sun = np.clip((cosang - np.cos(np.deg2rad(1.2))) * 4e4, 0.0, 1.0)
+    img = img + sun[..., None] * np.array([900.0, 820.0, 700.0])
+    return img.astype(np.float32)
+
+
+def checker_texture(n=256, seed=11) -> np.ndarray:
+    """A 16 x 16 checker whose two colours drift with seeded low-frequency
+    noise. (n, n, 3) float32 in (0, 1)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    check = ((x // (n // 16)) + (y // (n // 16))) % 2
+    coarse = rng.uniform(0.0, 1.0, (9, 9, 3))
+    fy, fx = y / (n - 1) * 8, x / (n - 1) * 8
+    iy, ix = np.minimum(fy.astype(int), 7), np.minimum(fx.astype(int), 7)
+    ty, tx = (fy - iy)[..., None], (fx - ix)[..., None]
+    noise = ((1 - ty) * ((1 - tx) * coarse[iy, ix] + tx * coarse[iy, ix + 1])
+             + ty * ((1 - tx) * coarse[iy + 1, ix]
+                     + tx * coarse[iy + 1, ix + 1]))
+    tex = np.where(check[..., None] == 1, 0.55 + 0.35 * noise,
+                   0.15 + 0.2 * noise)
+    return tex.astype(np.float32)
+
+
+def env_bench_scene(width=512, height=512, spp=64, sppe=0, sppse=0,
+                    sphere_subdiv=5, small_subdiv=3, env_size=(512, 1024),
+                    tex_size=256, device="cuda") -> Scene:
+    """The full-width scene of the materials and lights: a 20,480-face
+    icosphere (radius 1) of ``RoughConductor(alpha_u=0.2, alpha_v=0.3)``; a
+    6 x 6 ground quad at y = -1 whose reflectance is a 256 x 256 image; a
+    1,280-face icosphere (radius 0.4) beside it, diffuse, with authored
+    vertex normals (the normalized positions); one area-light quad above;
+    and a 512 x 1024 environment map (``sun_sky``), whose importance table
+    is the frozen cmf on the divided 511 x 255 grid. 21,776 faces with the
+    bounding mesh; the emitter-first sweep sees 2 + 12 faces. The size
+    arguments shrink it for CPU rehearsals."""
+    sc = Scene(device=device)
+    metal = sc.add_bsdf(RoughConductor(alpha_u=0.2, alpha_v=0.3), "metal")
+    ground = sc.add_bsdf(Diffuse(from_array(checker_texture(tex_size))),
+                         "ground")
+    clay = sc.add_bsdf(Diffuse([0.75, 0.55, 0.4]), "clay")
+    black = sc.add_bsdf(Diffuse([0.0, 0.0, 0.0]), "black")
+
+    sc.add_mesh(primitives.make_icosphere(subdiv=sphere_subdiv, radius=1.0,
+                                          bsdf_id=metal))
+    floor = primitives.make_quad(size=3.0, bsdf_id=ground,
+                                 enable_edges=False, use_face_normals=True)
+    floor.set_transform(np.asarray(
+        xf.translate([0.0, -1.0, 0.0]) @ xf.rotate([1, 0, 0], -90.0)))
+    sc.add_mesh(floor)
+
+    ball = primitives.make_icosphere(subdiv=small_subdiv, radius=0.4)
+    nrm = ball.vertices / np.linalg.norm(ball.vertices, axis=1, keepdims=True)
+    small = type(ball)(ball.vertices, ball.faces, normals=nrm,
+                       normal_idx=ball.faces.copy(), use_vertex_normals=True,
+                       bsdf_id=clay)
+    small.set_transform(np.asarray(xf.translate([1.6, -0.6, 0.6])))
+    sc.add_mesh(small)
+
+    light = primitives.make_quad(size=0.35, bsdf_id=black, enable_edges=False,
+                                 use_face_normals=True)
+    light.set_transform(np.asarray(
+        xf.translate([0.0, 3.0, 0.0]) @ xf.rotate([1, 0, 0], 90.0)))
+    li = sc.add_mesh(light)
+    sc.add_emitter(AreaLight([4.0, 4.0, 4.0], mesh_index=li))
+    sc.add_emitter(EnvironmentMap(sun_sky(*env_size), scale=1.0))
+
+    cam = PerspectiveCamera(fov_x=40.0, near=0.1, far=100.0)
+    cam.set_transform(np.asarray(xf.look_at([0, 1.5, 6.0], [0, 0, 0],
+                                            [0, 1, 0])))
+    sc.add_sensor(cam)
+    sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
+                            sppse=sppse)
+    return sc
+
+
 def triangle_soup(n_tris=2048, n_rays=600):
     """Random triangles and rays (``tests/test_bvh.py:192-197``) with mixed
     ``active`` and ``tmax``: numpy (p0, e1, e2, ray_o, ray_d, active,
@@ -306,14 +462,16 @@ def scene_rays(scene, flat, n, seed):
                    u[:, 2:4], u[:, 4:6])
 
 
-def tiled_camera_rays(scene, flat, n, spp, seed):
-    """The sweeps of the first n lanes of the render path's wavefront: the
-    first n / spp pixels in 32x32-tile order, spp uniformly jittered
-    samples each (numpy seed), as ``render_interior`` lays them out, and
-    the bounce and shadow rays from their hits. As ``scene_rays``."""
+def tiled_camera_rays(scene, flat, n, spp, seed, chunk=0):
+    """The sweeps of n lanes of the render path's wavefront, its
+    ``chunk``-th run of n (default: the first): n / spp pixels in
+    32x32-tile order, spp uniformly jittered samples each (numpy seed), as
+    ``render_interior`` lays them out, and the bounce and shadow rays from
+    their hits. As ``scene_rays``."""
     dev = flat.tri.p0.device
     w, h = scene.opts.width, scene.opts.height
-    pix = np.repeat(tiled_pixel_order(w, h)[:n // spp], spp)
+    first = chunk * (n // spp)
+    pix = np.repeat(tiled_pixel_order(w, h)[first:first + n // spp], spp)
     u = np.random.default_rng(seed).uniform(size=(n, 6))
     xy = (np.stack([pix % w, pix // w], axis=-1) + u[:, 0:2]) / [w, h]
     u = torch.as_tensor(u.astype(np.float32), device=dev)
@@ -352,6 +510,40 @@ def tiled_path_rays(scene, flat, n, spp, seed, depth=3):
             out[f"depth {k} bounce"], out[f"depth {k} shadow"] = bounce, shadow
         ray = bounce[0]
     return out
+
+
+def tiled_material_rays(scene, flat, n, spp, seed, chunk=0):
+    """Two sweeps that the materials and the environment map add, over the
+    ``chunk``-th run of n lanes of the render path's wavefront
+    (``tiled_camera_rays``'s pixels): ``"bounce"``, the BSDF-sampled
+    continuation rays that leave the camera hits (closest hit; on a rough
+    conductor they cluster about the mirror direction), and ``"sky
+    shadow"``, the shadow rays toward the light samples that fell on the
+    environment map, whose ``tmax`` reaches the scene box. ``{name: (Ray, active, tmax or None)}``."""
+    dev = flat.tri.p0.device
+    w, h = scene.opts.width, scene.opts.height
+    first = chunk * (n // spp)
+    pix = np.repeat(tiled_pixel_order(w, h)[first:first + n // spp], spp)
+    u = np.random.default_rng(seed).uniform(size=(n, 7))
+    xy = (np.stack([pix % w, pix // w], axis=-1) + u[:, 0:2]) / [w, h]
+    u = torch.as_tensor(u.astype(np.float32), device=dev)
+    cam = sample_primary_ray(flat.sensors[0],
+                             torch.as_tensor(xy.astype(np.float32),
+                                             device=dev))
+    its = ray_intersect(flat, cam, torch.ones((n,), dtype=torch.bool,
+                                              device=dev))
+    alive = its.valid & (its.bsdf_id >= 0)
+    bs = sample_bsdf(scene.bsdf_kinds, flat.bsdfs, its, u[:, 2:5], alive)
+    bounce = Ray(its.p, to_world(its.sh_frame, bs.wo))
+    ps = sample_emitter_position(flat, scene.face_offset,
+                                 _emitter_meta(scene), its.p, u[:, 5:7],
+                                 alive)
+    wo = ps.p - its.p
+    dist = torch.sqrt(torch.clamp((wo * wo).sum(-1), min=1e-20))
+    shadow = Ray(its.p, wo / dist[:, None])
+    return {"bounce": (bounce, alive & bs.valid, None),
+            "sky shadow": (shadow, alive & ps.valid & (ps.emitter < 0),
+                           dist - ShadowEpsilon)}
 
 
 def _sweeps(scene, flat, cam, u_bounce, u_light):

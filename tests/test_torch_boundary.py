@@ -712,7 +712,7 @@ def test_guiding_mass_and_guided_gradient_match_jax():
     _, _, unguided = _port_grad(ts, js.params(), seed=5)
     assert max(np.abs(a - b).max() for a, b in zip(unguided, t_grads)) > 1e-5
 
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         ti.preprocess_secondary_edges(ts, 0, (4, 4, 4, 2), mesh=object())
     with pytest.raises(ValueError):
         ti.preprocess_secondary_edges(ts, 0, (4, 4, 4, 2), nrounds=0)

@@ -2,8 +2,9 @@
 versions on the same CUDA tensors (trees of odd and even depth, the tie
 case, several blockings, tiny and all-inactive launches), the default
 device, and a small render, a small gradient, the boundary gradient, the
-compaction, the guiding masses and the PathTracer's gradients on the card
-against the same on the CPU.
+compaction, the guiding masses, the PathTracer's gradients and the
+gradient of a rough conductor under an environment map on the card against
+the same on the CPU.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from psdr_tpu_torch import DirectIntegrator, PathTracer
+from psdr_tpu_torch import DirectIntegrator, PathTracer, RoughConductor
 from psdr_tpu_torch.accel import bvh as t_bvh
 from psdr_tpu_torch.accel import intersect
 from psdr_tpu_torch.accel.bruteforce import brute_plain
@@ -20,6 +21,7 @@ from psdr_tpu_torch.convert import params_from_numpy
 from psdr_tpu_torch.core import threefry
 from psdr_tpu_torch.scene.scene import Scene
 from psdr_tpu_torch.testing.scenes import (cbox_scene, coincident_case,
+                                           env_bench_scene, env_scene,
                                            grazing_case, triangle_soup)
 
 pytestmark = pytest.mark.gpu
@@ -325,3 +327,93 @@ def test_path_tracer_grad_on_card_matches_cpu(cuda, max_depth, camera_depth,
             img = integ.render_secondary_edges(sc, sc.build(sc.params()), 0,
                                                threefry.PRNGKey(3))
         assert img.shape == (4096, 3) and not bool(img.any())
+
+
+def test_k2_exact_at_14_faces_of_an_envmap_scene(cuda):
+    """K2 on the emitter-first face list of a scene with an area light and
+    an environment map (2 + 12 faces, the bounding box's spanning the whole
+    scene), rays from inside the box in every direction, a third with a
+    ``tmax`` short of the box: equal to brute_plain bit for bit; every ray
+    without a ``tmax`` hits the box."""
+    sc = env_bench_scene(32, 32, 4, sphere_subdiv=2, small_subdiv=1,
+                         env_size=(34, 66), tex_size=16)
+    flat = sc.flat
+    idx = flat.em_tri_idx
+    assert idx.shape == (14,)
+    tris = [x[idx].contiguous() for x in (flat.tri.p0, flat.tri.e1,
+                                          flat.tri.e2)]
+    rng = np.random.default_rng(13)
+    n = 1 << 16
+    o = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)   # inside the box
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    act = rng.uniform(size=n) > 0.1
+    tmax = np.where(rng.uniform(size=n) > 0.33, np.inf,
+                    rng.uniform(0.2, 3.0, n)).astype(np.float32)
+    rays = [torch.from_numpy(x).to(cuda) for x in (o, d, act, tmax)]
+    before = intersect.LAUNCHES["k2"]
+    hit = intersect.ray_intersect_brute(*tris, *rays)
+    torch.cuda.synchronize()
+    assert intersect.LAUNCHES["k2"] == before + 1
+    _assert_exact(brute_plain(*tris, *rays), hit)
+    free = act & np.isinf(tmax)
+    assert hit.valid.cpu().numpy()[free].all()
+
+
+def _env_grads(device, integ, **kw):
+    sc = env_scene(RoughConductor(alpha_u=0.3, alpha_v=0.2), device=device,
+                   **kw)
+    p = params_from_numpy(sc.params(), device=device, requires_grad=True)
+    img = integ.render_fn(sc, with_boundary=bool(kw.get("sppse")))(
+        p, threefry.PRNGKey(3))
+    loss = torch.mean(img ** 2)
+    loss.backward()
+    leaves = [x for k in ("meshes", "bsdfs", "emitters", "sensors")
+              for m in p[k] for x in m.values()]
+    return float(loss), [x.grad.cpu().numpy().ravel() for x in leaves]
+
+
+@pytest.mark.parametrize("boundary", [{}, dict(sppe=2, sppse=4)])
+def test_envmap_roughconductor_grad_on_card_matches_cpu(cuda, boundary):
+    """value_and_grad of mean(img^2) under PathTracer(2) on env_scene with
+    a rough-conductor sphere, 64 x 64 at spp 4, interior and with the
+    boundary terms: the loss within 1e-5 relative, every leaf (roughness,
+    eta, k, the map's texels, scale and rotation among them) finite and
+    within 1e-2 relative L2 and cosine 0.999 of the CPU's; K2 ran on the
+    12 bounding faces."""
+    kw = dict(width=64, height=64, spp=4, **boundary)
+    intersect.reset_launch_counts()
+    card_loss, card = _env_grads(cuda, PathTracer(2), **kw)
+    assert intersect.LAUNCHES["k2"] > 0
+    cpu_loss, cpu = _env_grads(torch.device("cpu"), PathTracer(2), **kw)
+    assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
+    _assert_leaves_close(cpu, card)
+
+
+@pytest.mark.parametrize("frozen", ["1", "0"])
+def test_envmap_importance_grid_on_card_matches_cpu(cuda, frozen, monkeypatch):
+    """configure_envmap on a 260 x 520 sky (above 2^18 fine cells: the
+    divided 259 x 129 grid), frozen on the host and, with
+    ``PSDR_TPU_ENV_FROZEN=0``, max-pooled on the device: the card's table
+    equals the CPU's (the frozen one bit for bit), and no cell is empty."""
+    from psdr_tpu_torch.emitter.envmap import configure_envmap
+    monkeypatch.setenv("PSDR_TPU_ENV_FROZEN", frozen)
+    monkeypatch.delenv("PSDR_TPU_ENV_RESO_DIV", raising=False)
+    rad = np.random.default_rng(14).uniform(0.05, 1.0, (260, 520, 3)).astype(
+        np.float32)
+    rad[90:92, 100:102] = 400.0
+    tables = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {"radiance": torch.from_numpy(rad).to(dev),
+             "scale": torch.tensor(1.0, device=dev),
+             "to_world": torch.eye(4, device=dev)}
+        st = configure_envmap(p, torch.zeros(3, device=dev),
+                              torch.ones(3, device=dev), host_radiance=rad)
+        assert st.cell_distrb.resolution == (259, 129)
+        tables.append(st.cell_distrb.distrb.pmf.cpu().numpy())
+    card, cpu = tables
+    assert (card > 0).all()
+    if frozen == "1":
+        np.testing.assert_array_equal(card, cpu)
+    else:
+        np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-7)

@@ -20,7 +20,8 @@ def test_import_without_jax():
     and the kernel modules included; and, still with jax blocked, the
     boundary code runs: the edge table, the HyperCube functions, the
     guiding preprocess and a boundary render with its backward on the CPU
-    at 8x8."""
+    at 8x8; and the materials and lights: a rough conductor under an
+    environment map, a textured quad and an AOV."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -28,7 +29,9 @@ def test_import_without_jax():
         "for m in pkgutil.walk_packages(psdr_tpu_torch.__path__,"
         " 'psdr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('core.gather', 'accel.intersect', 'accel.bruteforce'):\n"
+        "for m in ('core.gather', 'accel.intersect', 'accel.bruteforce',"
+        " 'bsdf.ggx', 'bsdf.roughconductor', 'emitter.envmap',"
+        " 'integrator.field', 'core.bitmap'):\n"
         "    assert 'psdr_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
@@ -55,6 +58,22 @@ def test_import_without_jax():
         "img.mean().backward()\n"
         "g = p['meshes'][5]['vertex_positions'].grad\n"
         "assert img.shape == (64, 3) and torch.isfinite(g).all()\n"
+        "import numpy as np\n"
+        "from psdr_tpu_torch import (FieldExtractionIntegrator, PathTracer,"
+        " RoughConductor)\n"
+        "from psdr_tpu_torch.testing.scenes import (env_scene,"
+        " textured_quad_scene)\n"
+        "sc = env_scene(RoughConductor(0.3, 0.2), 8, 8, spp=2, device='cpu')\n"
+        "p = params_from_numpy(sc.params(), device='cpu',"
+        " requires_grad=True)\n"
+        "PathTracer(2).render_fn(sc, with_boundary=False)(p,"
+        " threefry.PRNGKey(1)).mean().backward()\n"
+        "assert torch.isfinite(p['bsdfs'][0]['alpha_u'].grad).all()\n"
+        "assert torch.isfinite(p['emitters'][0]['to_world'].grad).all()\n"
+        "sc = textured_quad_scene(np.full((4, 4, 3), 0.5, np.float32), 8, 8,"
+        " spp=1, device='cpu')\n"
+        "assert FieldExtractionIntegrator('uv').renderC(sc).shape"
+        " == (8, 8, 3)\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n")
@@ -64,8 +83,13 @@ def test_import_without_jax():
 
 
 def test_no_jax_import_lines():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|psdr_tpu)\b", re.M)
-    hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    """No module of the package, nor chip_smoke.py, names jax or the JAX
+    package in an import statement or an ``import_module`` call."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|psdr_tpu)\b"
+                     r"|import_module\(\s*['\"](jax|psdr_tpu)\b", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    hits = [str(p) for p in files if pat.search(p.read_text())]
     assert not hits
 
 

@@ -55,6 +55,50 @@ def test_render_matches_jax(reuse, q, monkeypatch):
     assert abs(t_img.mean() - j_img.mean()) / j_img.mean() < 1e-4
 
 
+@pytest.mark.parametrize("stratify_primary", [True, False])
+@pytest.mark.parametrize("integ", ["direct", "path"])
+def test_stratified_sampler_matches_jax(integ, stratify_primary):
+    """sampler="stratified" (spp 4: a 2 x 2 jitter grid and the per-pixel
+    rotated strata of the first NEE and BSDF samples), and the same
+    sampler with ``stratify_primary`` off (plain uniform draws): per pixel
+    against the JAX package under the same key, for DirectIntegrator(1, 1)
+    and PathTracer(2). Same tolerances as the sobol cases; the two
+    settings give different images."""
+    import dataclasses
+    from psdr_tpu import PathTracer as JPath
+    from psdr_tpu_torch import PathTracer as TPath
+    js, ts = j_cbox(**SCENE), t_cbox(**SCENE, **CPU)
+    imgs = {}
+    for strat in (stratify_primary, not stratify_primary):
+        kw = dict(sampler="stratified", stratify_primary=strat)
+        js.opts = dataclasses.replace(js.opts, **kw)
+        ts.opts = dataclasses.replace(ts.opts, **kw)
+        ti = TDirect(1, 1) if integ == "direct" else TPath(2)
+        imgs[strat] = ti.render_fn(ts, with_boundary=False, detached=True)(
+            params_from_numpy(js.params(), **CPU),
+            threefry.PRNGKey(3)).numpy()
+        if strat != stratify_primary:
+            break
+        ji = JDirect(1, 1) if integ == "direct" else JPath(2)
+        j_img = np.asarray(jax.jit(ji.render_fn(
+            js, with_boundary=False, detached=True))(
+                js.params(), jax.random.PRNGKey(3)))
+    t_img = imgs[stratify_primary]
+    assert np.isfinite(t_img).all() and t_img.mean() > 0.0
+    close = np.isclose(t_img, j_img, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(t_img.mean() - j_img.mean()) / j_img.mean() < 1e-4
+    assert not np.allclose(imgs[True], imgs[False])
+
+
+def test_unknown_sampler_is_refused():
+    import dataclasses
+    ts = t_cbox(8, 8, spp=1, **CPU)
+    ts.opts = dataclasses.replace(ts.opts, sampler="halton")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        TDirect(1, 1).renderC(ts)
+
+
 def test_scene_build_matches_jax():
     """The flat scene: face table (F, 32), emitter faces, emitter tables."""
     js, ts = j_cbox(**SCENE), t_cbox(**SCENE, **CPU)
@@ -72,10 +116,11 @@ def test_scene_build_matches_jax():
 
 def test_unported_options_raise():
     """What the port still leaves out raises NotImplementedError instead of
-    doing something else: environment maps (in the build, and so in
-    render_fn and renderD), lane sharding (``shard=`` of every term) and
-    the lane-sharded guiding build (``mesh=``). The boundary options
-    (sppe/sppse > 0) build and render."""
+    doing something else, and names its place in ROADMAP.md's queue: lane
+    sharding (``shard=`` of every term), the lane-sharded guiding build
+    (``mesh=``), the 1D vertex offset, an emitter or a BSDF of an unknown
+    kind (in the build, and so in render_fn and renderD). The boundary
+    options (sppe/sppse > 0) build and render."""
     from psdr_tpu_torch.integrator.direct import _emitter_meta
 
     ts = t_cbox(width=8, height=8, spp=1, sppe=1, sppse=1, occluder_subdiv=1,
@@ -86,26 +131,30 @@ def test_unported_options_raise():
     assert integ.renderD(ts).shape == (8, 8, 3)
     for term in (integ.render_interior, integ.render_primary_edges,
                  integ.render_secondary_edges):
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
             term(ts, flat, 0, key, shard=(0, 2))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         integ.radiance_image(ts, flat, 0, key, True, shard=(0, 2))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         integ.preprocess_secondary_edges(ts, 0, (2, 2, 2, 1), mesh=object())
 
-    class EnvMap:           # stands in for the unported environment emitter
-        kind = "envmap"
+    from psdr_tpu_torch.shape import primitives
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        primitives.make_quad(enable_vertex_offset=True)
+
+    class PointLight:       # stands in for an emitter kind of no package
+        kind = "point"
 
         def params(self):
             return {}
 
-    ts.add_emitter(EnvMap())
+    ts.add_emitter(PointLight())
     assert _emitter_meta(ts)[-1] == ("env", -1)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="PointLight is not ported"):
         ts.build(ts.params())
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="PointLight is not ported"):
         integ.render_fn(ts, with_boundary=True)(ts.params(), key)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="PointLight is not ported"):
         integ.renderD(ts)
 
 
