@@ -88,7 +88,40 @@ Every phase passes or the script exits nonzero:
     counted. A lane on which K1 and ``k1_plain`` differ must equal K1's
     walk in tensor code (``k1_walk_plain``): the known rule for grazing
     rays whose computed t is off by more than the cull margin; the count
-    is printed.
+    is printed;
+21. the loader on the card: the bench scene with a 256 x 256 texture on its
+    floor written as files (``testing.scenes.write_scene``: the meshes
+    through ``Mesh.dump``, the texture through ``core.exr.write_exr``, the
+    XML) and loaded with ``Scene.load_file`` on the card: its params equal
+    the written ones, ``renderC`` at 64x64, spp 4 matches the CPU's load
+    under phase 4's gates, and the forward at phase 5's config launches K1
+    and K2 as phase 5 did;
+22. the main path of this slice, the trainer at full width: the same scene
+    loaded at ``examples/flagship_recovery.py``'s config (256x256, spp 16,
+    sppe 4, sppse 32, one view), a target rendered at the true shape, the
+    occluder started from the flagship's deformation, and
+    ``opt.Optimizer`` on its ``vertex_positions`` (lr 1e-2) through
+    ``render_fn(with_boundary=True)``: one warm-up step and five timed
+    steps, each with a finite loss and finite gradients, only the selected
+    leaf moved and K1 (both modes) and K2 launched; before them, the
+    derivative of the loss along the line to the true shape by the
+    gradient against a central difference with the same keys; one
+    profiled step without an ``indexing_backward`` kernel in its top ten;
+    then K1 and K2 on one step's own inputs (every distinct launch) on the
+    refit tree, each against its plain version, timed and counted for its
+    bound; ``refit_quality`` timed, one accel rebuild forced, one step on
+    the new tree, and K1 and K2 again on a step's inputs there;
+23. the trainer and the harness on the card against the CPU at 32x32 (spp
+    8, sppe 2, sppse 8): one optimizer step (loss, every selected leaf's
+    gradient under phase 10's bounds, the Adam update equal given equal
+    gradients), a save / load round trip, ``run_ad`` and ``run_fd`` of a
+    sphere translation (each within 1e-4 relative L2 plus the card's
+    spread; with their AD-vs-FD error), and the gradient of the 1D vertex
+    offset;
+24. the environment map's opt-in tables (``PSDR_TPU_ENV_ALIAS=1``,
+    ``PSDR_TPU_ENV_HIER=1``) on a 100 x 200 sky (a 398 x 198 grid): render
+    and gradient on the card against the CPU; then ``env_bench_scene``'s
+    forward (phase 18's config) under each, beside the frozen cmf's.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -105,6 +138,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -136,6 +170,28 @@ ENV_BWD = dict(ENV_BENCH, spp=16)
 # rounded difference: two tiers, as tests/test_torch_envmap.py
 ROUGH_IMG_TIERS = ((1e-4, 0.97), (2e-3, 0.99))
 GUIDING = dict(reso=(24, 3, 3, 4), nrounds=8, seed=3)
+# the trainer: examples/flagship_recovery.py's full config, one view, on
+# the bench scene loaded from files; the occluder is mesh 5
+TRAIN = dict(width=256, height=256, spp=16, sppe=4, sppse=32,
+             occluder_subdiv=5)
+OCCLUDER = 5
+TRAIN_STEPS = 5
+# phase 22's check that the gradient leads toward the truth: keys, the
+# step of the central difference along the line to the truth, and the bound
+# on |gradient - difference| / |difference| (read 0.035 on these keys at
+# full width, 0.026 to 0.053 key by key, PERF.md)
+DESCENT_KEYS = (100, 101, 102, 103)
+DESCENT_EPS = 0.1
+DESCENT_REL = 0.1
+TEX_SIZE = 256          # the floor texture written as EXR (phases 21, 22)
+SMALL_TRAIN = dict(width=32, height=32, spp=8, sppe=2, sppse=8)
+ENV_SKY = (100, 200)    # a 398 x 198 importance grid: above 2^15 cells
+# phase 24's card-vs-CPU scenes under the opt-in tables
+ENV_OPT_SMALL = dict(width=32, height=32, spp=4)
+ENV_OPT_BOUNDARY = dict(width=32, height=32, spp=2, sppe=2, sppse=8)
+# card against CPU derivative images of run_ad and run_fd, relative L2,
+# plus the card's own run-to-run spread (read 6.3e-7 and 3.2e-7, PERF.md)
+HARNESS_REL_L2 = 1e-4
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
 GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
@@ -155,7 +211,14 @@ LANE_BYTES = 1 + 16         # every lane: active read; t, tri_id, uv written
 ACTIVE_BYTES = 28           # an active lane besides: o, d, tmax read
 
 
+T_START = time.time()
+
+
 def log(*args):
+    """Print and flush; a phase's heading carries the seconds since the
+    start."""
+    if args and str(args[0]).startswith("phase "):
+        args = (*args, f"[{time.time() - T_START:.0f} s]")
     print(*args, flush=True)
 
 
@@ -327,7 +390,7 @@ def k1_phase(intersect, bvh_mod, dev):
             ("tiled shadow sweep", True, t_shd),
             ("random camera rays", False, r_cam),
             ("random shadow rays", True, r_shd)):
-        shapes[name] = k1_shape(intersect, flat, name, any_hit,
+        shapes[name] = k1_shape(intersect, name, any_hit,
                                 k1_args(flat, *rays), compare)
     return err, shapes
 
@@ -345,7 +408,7 @@ def comparer(err, tris):
     return compare
 
 
-def k1_shape(intersect, flat, name, any_hit, args, compare):
+def k1_shape(intersect, name, any_hit, args, compare):
     """K1 timed on the rays ``args`` (kernel, plain once, kernel), its slab
     and triangle tests counted once by the counting instantiation for the
     bound, and the timed result compared with the plain version's through
@@ -362,7 +425,7 @@ def k1_shape(intersect, flat, name, any_hit, args, compare):
     n_box, *n_tri = (int(c) for c in counts.cpu())
     flops = n_box * K1_SLAB_FLOPS + sum(
         c * f for c, f in zip(n_tri, MT_FLOPS))
-    b_ms, b_by = bound(ray_bytes(args[3]) + tree_bytes(flat.accel), flops)
+    b_ms, b_by = bound(ray_bytes(args[3]) + tree_bytes(args[0]), flops)
     ms = min(k1, k2)
     per_ray = " + ".join(f"{c / n:.1f}" for c in n_tri)
     log(f"  {n} rays, {name} ({'any' if any_hit else 'closest'}, "
@@ -771,7 +834,7 @@ def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None):
     the bench scene at bench.py's config): one warm-up frame, three timed
     frames (host clock around a synchronize), then one profiled frame.
     Returns (the launch counts of the three timed frames, the last frame's
-    image mean)."""
+    image mean, the median frame seconds)."""
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
     sc = sc or cbox_scene(**BENCH, device=dev)
@@ -804,7 +867,7 @@ def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None):
         f"{peak / 2**30:.2f} GiB; launches over 3 frames {launches}")
     # where the time goes: one profiled frame, device time by kernel
     profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
-    return launches, float(img.mean())
+    return launches, float(img.mean()), dt
 
 
 def backward_phase(intersect, dev, integ, phase=9, sc=None):
@@ -941,7 +1004,7 @@ def boundary_shapes(intersect, sc, dev):
                    torch.cat([pes.ray_n.d, pes.ray_p.d]))
         name = "primary-edge -/+ camera sweep"
         k1_shapes[name] = k1_shape(
-            intersect, flat, name, False,
+            intersect, name, False,
             k1_args(flat, rays, torch.cat([valid, valid]), None), compare)
         # one secondary-edge chunk, compacted
         m = min(opts.pass_lanes, opts.num_pixels * opts.sppse)
@@ -978,11 +1041,11 @@ def boundary_shapes(intersect, sc, dev):
         tmax = torch.where(valid_e, hit_e.t, 0.0) - ShadowEpsilon
         name = "secondary-edge occlusion sweep, compacted"
         k1_shapes[name] = k1_shape(
-            intersect, flat, name, True,
+            intersect, name, True,
             k1_args(flat, Ray(p0, direction), valid_e, tmax), compare)
         name = "secondary-edge opposite closest hit, compacted"
         k1_shapes[name] = k1_shape(
-            intersect, flat, name, False,
+            intersect, name, False,
             k1_args(flat, Ray(p0, -direction), valid_e, None), compare)
     return k1_shapes, k2_shapes, err
 
@@ -1004,7 +1067,7 @@ def path_forward_shapes(intersect, dev):
     for name, any_hit in (("depth 2 bounce", False), ("depth 2 shadow", True),
                           ("depth 3 shadow", True)):
         label = f"path {name} sweep"
-        k1_shapes[label] = k1_shape(intersect, flat, label, any_hit,
+        k1_shapes[label] = k1_shape(intersect, label, any_hit,
                                     k1_args(flat, *sweeps[name]), compare)
     bounce, alive, _ = sweeps["depth 3 bounce"]
     idxs = flat.em_tri_idx
@@ -1123,12 +1186,12 @@ def path_boundary_shapes(intersect, sc, dev):
         p0, d = eds.p0.contiguous(), eds.d.contiguous()
         name = "direction-side far trace, compacted"
         args = k1_args(flat, Ray(p0, d), eds.valid, None)
-        k1_shapes[name] = k1_shape(intersect, flat, name, False, args,
+        k1_shapes[name] = k1_shape(intersect, name, False, args,
                                    compare)
         far_hit = intersect.k1_cuda(*args)
         name = "direction-side anchor trace, compacted"
         k1_shapes[name] = k1_shape(
-            intersect, flat, name, False,
+            intersect, name, False,
             k1_args(flat, Ray(p0, -d), eds.valid & far_hit.valid, None),
             compare)
     return k1_shapes, err
@@ -1341,7 +1404,7 @@ def env_shapes(intersect, sc, dev):
                 ("env camera chunk", False, cam),
                 ("env BSDF bounce sweep", False, sweeps["bounce"]),
                 ("env sky shadow sweep", True, sweeps["sky shadow"])):
-            k1_shapes[name] = k1_shape(intersect, flat, name, any_hit,
+            k1_shapes[name] = k1_shape(intersect, name, any_hit,
                                        k1_args(flat, *rays), compare)
         bounce, alive, _ = sweeps["bounce"]
         idxs = flat.em_tri_idx
@@ -1353,6 +1416,511 @@ def env_shapes(intersect, sc, dev):
         e, timed = k2_timed(intersect, args, name, f"{N_TIME} bounce rays")
         err["k2"].append(e)
     return k1_shapes, {name: timed}, err, tally
+
+
+def textured_cbox(cfg, device):
+    """The bench scene (``cbox_scene(**cfg)``) with a TEX_SIZE^2 checker
+    texture on its floor, on ``device``."""
+    from psdr_tpu_torch import Diffuse
+    from psdr_tpu_torch.core.bitmap import from_array
+    from psdr_tpu_torch.testing.scenes import cbox_scene, checker_texture
+    sc = cbox_scene(**cfg, device=device)
+    sc.meshes[0].bsdf_id = sc.add_bsdf(
+        Diffuse(from_array(checker_texture(TEX_SIZE))), "floor")
+    return sc
+
+
+def leaf_list(tree):
+    """((group, index, name), leaf) in the params tree's order."""
+    from psdr_tpu_torch.opt import leaf_items
+    return list(leaf_items(tree))
+
+
+def host(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32))
+
+
+def loader_phase(intersect, dev, tmp, fwd_launches):
+    """Phase 21: the bench scene written as files into the new directory
+    ``tmp`` and loaded on the card: params, the card-vs-CPU render, and the
+    forward at phase 5's config, whose launch counts must equal phase 5's
+    (``fwd_launches``). Returns those counts and the
+    median frame seconds."""
+    import dataclasses
+
+    from psdr_tpu_torch import DirectIntegrator, load_file, load_integrator
+    from psdr_tpu_torch.testing.scenes import write_scene
+    os.makedirs(tmp)
+    written = textured_cbox(BENCH, "cpu")
+    t0 = time.perf_counter()
+    path = write_scene(written, tmp, name="bench.xml")
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = load_file(path, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    sizes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    log(f"  wrote {len(os.listdir(tmp))} files ({sizes / 2**20:.1f} MiB) in "
+        f"{t_write:.2f} s; load_file on the card (parse, {len(sc.meshes)} "
+        f"meshes, BVH topology, first build) {t_load:.2f} s; "
+        f"{sum(m.num_faces for m in sc.meshes)} faces, integrator "
+        f"{type(load_integrator(sc)).__name__}")
+    if sc.flat.tri.p0.device.type != dev.type or sc.flat.accel is None:
+        raise AssertionError("phase 21: the loaded scene is not on the card "
+                             "or has no BVH")
+    worst = 0.0
+    for (p, a), (q, b) in zip(leaf_list(written.params()),
+                              leaf_list(sc.params())):
+        a, b = host(a), host(b)
+        if p != q or a.shape != b.shape:
+            raise AssertionError(f"phase 21: leaf {p} / {q} differs in shape")
+        if p[2] == "vertex_positions":      # written with %.6e
+            ok = np.allclose(b, a, rtol=6e-7, atol=1e-7)
+            worst = max(worst, float(np.abs(b - a).max()))
+        else:
+            ok = np.array_equal(a, b)
+        if not ok:
+            raise AssertionError(f"phase 21: loaded leaf {p} differs")
+    log(f"  every params leaf equals the written scene's (vertices within "
+        f"%.6e's rounding: largest |difference| {worst:.3g}); "
+        f"{len(leaf_list(sc.params()))} leaves")
+
+    def small(**kw):
+        s_ = load_file(path, device=kw["device"])
+        s_.opts = dataclasses.replace(s_.opts, **{k: v for k, v in SMALL.items()
+                                                  if k != "occluder_subdiv"})
+        return s_
+
+    render_match(dev, 21, "the loaded scene, DirectIntegrator(1, 1), 64x64 "
+                 "spp 4", small, {}, DirectIntegrator(1, 1),
+                 ((IMG_RTOL, IMG_CLOSE_FRAC),))
+    launches, _, dt = forward_phase(intersect, dev, DirectIntegrator(1, 1),
+                                    21, 3, sc=sc)
+    if launches != fwd_launches:
+        raise AssertionError(f"phase 21: launches {launches}, phase 5 "
+                             f"{fwd_launches}")
+    log(f"  launches equal phase 5's: {launches}")
+    return launches, dt
+
+
+def capture_queries(intersect, fn):
+    """Run ``fn()`` with the inputs of its K1 and K2 launches recorded, one
+    record a distinct (mode, caller, rays, active rays): a checkpointed
+    pass's recompute repeats its launches. The caller names the render
+    term, the estimator and, after a slash, the scene query that launched
+    the kernel. Returns
+    (fn's result, [(mode, caller, kernel args)]), mode "closest", "any" or
+    "k2"; K1's args are (bvh, ray_o, ray_d, active, tmax), K2's (p0, e1,
+    e2, ray_o, ray_d, active, tmax)."""
+    k1, k2 = intersect.k1_cuda, intersect.k2_cuda
+    seen = {}
+
+    def caller():
+        query = estimator = None
+        f = sys._getframe(2)
+        while f is not None:
+            mod, name = f.f_globals.get("__name__", ""), f.f_code.co_name
+            if mod == "psdr_tpu_torch.scene.scene":
+                if estimator is None:
+                    query = name
+            elif (mod.startswith("psdr_tpu_torch.")
+                  and not mod.startswith("psdr_tpu_torch.accel")):
+                estimator = estimator or name
+                if name.startswith("render_"):
+                    return f"{name}: {estimator} / {query}"
+            f = f.f_back
+        return f"{estimator} / {query}"
+
+    def record(mode, args):
+        key = (mode, caller(), args[-4].shape[0], int(args[-2].sum()))
+        seen.setdefault(key, args)
+
+    def k1_rec(bvh, ray_o, ray_d, active, tmax, any_hit=False, counts=None):
+        args = (bvh, ray_o, ray_d, active, tmax)
+        record("any" if any_hit else "closest", args)
+        return k1(*args, any_hit=any_hit, counts=counts)
+
+    def k2_rec(*args):
+        record("k2", args)
+        return k2(*args)
+
+    intersect.k1_cuda, intersect.k2_cuda = k1_rec, k2_rec
+    try:
+        out = fn()
+    finally:
+        intersect.k1_cuda, intersect.k2_cuda = k1, k2
+    return out, [(mode, label, args)
+                 for (mode, label, _, _), args in seen.items()]
+
+
+def trainer_shapes(intersect, records, tris, tree):
+    """Phase 22: K1 and K2 on one trainer step's own inputs (``records`` of
+    ``capture_queries``) on ``tree`` (its name), over the step's triangles
+    ``tris`` (p0, e1, e2): each against its plain version (K1 through
+    ``tolerant``), timed and counted for its bound. Returns ({shape: dict}
+    of K1, the same of K2, {mode: [(max |dt|, valid mismatches), ...]} with
+    K2's under "k2", {label: lanes on which K1 and k1_plain differ},
+    {mode: the shape with the most active rays})."""
+    err = {"closest": [], "any": [], "k2": []}
+    tally, k1_shapes, k2_shapes, main = {}, {}, {}, {}
+    compare = tolerant(intersect, err, tris, tally)
+    for mode, label, args in records:
+        n, active = args[-4].shape[0], int(args[-2].sum())
+        name = f"trainer {tree}, {label}"
+        same = sum(k == name or k.startswith(f"{name} #")
+                   for k in (k2_shapes if mode == "k2" else k1_shapes))
+        if same:
+            name = f"{name} #{same + 1}"
+        if mode == "k2":
+            e, k2_shapes[name] = k2_timed(intersect, args, name,
+                                          f"{n} rays")
+            err["k2"].append(e)
+        else:
+            k1_shapes[name] = k1_shape(intersect, name, mode == "any", args,
+                                       compare)
+        best = main.get(mode)
+        if best is None or active > best[1]:
+            main[mode] = (name, active)
+    return (k1_shapes, k2_shapes, err, tally,
+            {mode: name for mode, (name, _) in main.items()})
+
+
+def trainer_phase(intersect, dev, tmp):
+    """Phase 22: the trainer at full width (see the module docstring).
+    Returns (the launch counts of the five timed steps, a dict of the
+    measures, and K1 and K2 on a step's own inputs as ``trainer_shapes``
+    gives them for the refit tree and the rebuilt tree together, with the
+    refit tree's shapes of the most active rays as the main ones)."""
+    import dataclasses
+
+    from psdr_tpu_torch import load_file, load_integrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.opt import GROUPS, Optimizer
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import flagship_deform, write_scene
+    os.makedirs(tmp)
+    path = write_scene(textured_cbox(TRAIN, "cpu"), tmp, name="train.xml")
+    sc = load_file(path, device=dev)
+    # the XML carries the film and the sampler; the boundary sample counts
+    # are set as the flagship sets them
+    sc.opts = dataclasses.replace(sc.opts, sppe=TRAIN["sppe"],
+                                  sppse=TRAIN["sppse"])
+    integ = load_integrator(sc)
+    opts = sc.opts
+    truth = sc.params()
+    with torch.no_grad():
+        target = integ.render_fn(sc, with_boundary=False, detached=True)(
+            params_from_numpy(truth, device=dev), threefry.PRNGKey(1000))
+    mesh = sc.meshes[OCCLUDER]
+    v_true = host(truth["meshes"][OCCLUDER]["vertex_positions"])
+    mesh.vertex_positions = flagship_deform(v_true)
+    leaf = ("meshes", OCCLUDER, "vertex_positions")
+    opt = Optimizer(sc, [f"Mesh[{OCCLUDER}].vertex_positions"], lr=1e-2)
+    render = integ.render_fn(sc, with_boundary=True)
+
+    def loss_fn(p, key):
+        return torch.mean((render(p, key) - target) ** 2)
+
+    def rmse():
+        v = host(opt.params[leaf[0]][leaf[1]][leaf[2]])
+        return float(np.sqrt(np.mean(np.sum((v - v_true) ** 2, axis=1))))
+
+    lanes = {t: opts.num_pixels * getattr(opts, t)
+             for t in ("spp", "sppe", "sppse")}
+    log(f"  {opts.width}x{opts.height}, lanes a step: interior "
+        f"{lanes['spp']}, primary edges {lanes['sppe']} (x2 rays), "
+        f"secondary edges {lanes['sppse']}; remat "
+        f"{[opts.resolve_remat(v) for v in lanes.values()]}; "
+        f"{int(sc.flat.sec_edge.valid.sum())} candidate edges; vertex RMSE "
+        f"to the truth at the start {rmse():.5f}")
+
+    # the gradient must lead toward the truth: along v(s) = v + s (v_true -
+    # v), the derivative at 0 of the loss linearized at v, mean(w * img)
+    # with w the loss's gradient in the image, w = 2 (img - target) / size,
+    # drawn with another key (so that w and the image's derivative do not
+    # share samples): by the gradient (every boundary term) and by a central
+    # difference with the same keys, over DESCENT_KEYS
+    with torch.no_grad():
+        w = 2 * (render(opt.params, threefry.PRNGKey(DESCENT_KEYS[0] - 1))
+                 - target) / target.numel()
+
+    def linear(p, key):
+        return torch.sum(w * render(p, key))
+
+    v0 = opt.params[leaf[0]][leaf[1]][leaf[2]].detach().clone()
+    u = torch.as_tensor(v_true, device=dev) - v0
+    ads, fds, coss = [], [], []
+    for k in DESCENT_KEYS:
+        live = {grp: [dict(e) for e in opt.params[grp]] for grp in GROUPS}
+        x = v0.clone().requires_grad_(True)
+        live[leaf[0]][leaf[1]][leaf[2]] = x
+        (g,) = torch.autograd.grad(linear(live, threefry.PRNGKey(k)), [x])
+        ads.append(float((g * u).sum()))
+        coss.append(-float((g * u).sum() / (g.norm() * u.norm())))
+        with torch.no_grad():
+            ends = []
+            for s in (DESCENT_EPS, -DESCENT_EPS):
+                live[leaf[0]][leaf[1]][leaf[2]] = v0 + s * u
+                ends.append(float(linear(live, threefry.PRNGKey(k))))
+        fds.append((ends[0] - ends[1]) / (2 * DESCENT_EPS))
+    ad, fd = float(np.mean(ads)), float(np.mean(fds))
+    log(f"  toward the truth, dL/ds over {len(DESCENT_KEYS)} keys: by the "
+        f"gradient {ad:.6g}, by central differences (s = +-{DESCENT_EPS}) "
+        f"{fd:.6g}, relative difference {abs(ad - fd) / abs(fd):.3g} (bound "
+        f"{DESCENT_REL}); by key (gradient, difference, cosine of -gradient "
+        f"with v_true - v): "
+        + ", ".join(f"({a:.4g}, {f:.4g}, {c:.3f})"
+                    for a, f, c in zip(ads, fds, coss)))
+    if not (ad < 0 and fd < 0 and abs(ad - fd) <= DESCENT_REL * abs(fd)):
+        raise AssertionError("phase 22: the gradient does not lead toward "
+                             "the truth as the rendered images do")
+
+    def step(key, label):
+        """One checked step: (seconds, loss, launches of the step)."""
+        before = {p: v.clone() for p, v in leaf_list(opt.params)}
+        seen = {}
+        update = opt.update
+        opt.update = lambda grads: (seen.update(grads), update(grads))[1]
+        counts = dict(intersect.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = opt.step(loss_fn, threefry.PRNGKey(key))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        opt.update = update
+        launches = {k: v - counts[k] for k, v in intersect.LAUNCHES.items()}
+        moved = [p for p, v in leaf_list(opt.params)
+                 if not torch.equal(v, before[p])]
+        g = seen.get(leaf)
+        if (not np.isfinite(loss) or g is None
+                or not bool(torch.isfinite(g).all()) or moved != [leaf]):
+            raise AssertionError(f"phase 22 ({label}): loss {loss}, "
+                                 f"gradient finite: {g is not None and bool(torch.isfinite(g).all())}, "
+                                 f"moved {moved}")
+        require_launches(22, launches)
+        return dt, loss, launches
+
+    step(0, "warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect.reset_launch_counts()
+    times, losses, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        dt, loss, launches = step(1 + i, f"step {i + 1}")
+        times.append(dt)
+        losses.append(loss)
+        per_step.append(launches)
+    launches = dict(intersect.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    dt = float(np.median(times))
+    samples = opts.num_pixels * (opts.spp + opts.sppe + opts.sppse)
+    log(f"  steps {', '.join(f'{t:.3f}' for t in times)} s; median "
+        f"{dt:.3f} s -> {samples / dt / 1e6:.3f} M grad-samples/s (pixels x "
+        f"(spp + sppe + sppse) = {samples}); losses "
+        f"{', '.join(f'{l:.6g}' for l in losses)}; vertex RMSE "
+        f"{rmse():.5f}; peak memory {peak / 2**30:.2f} GiB; launches over "
+        f"{TRAIN_STEPS} steps {launches}, a step {per_step[-1]}")
+    if any(p != per_step[0] for p in per_step):
+        raise AssertionError(f"phase 22: launches vary by step: {per_step}")
+    top, busy, adds = profile_step(
+        lambda: opt.step(loss_fn, threefry.PRNGKey(7)), "trainer step")
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError("phase 22: an indexing_backward kernel is among "
+                             "the step's top ten")
+
+    def captured(key, tree):
+        """One step with its K1 and K2 inputs recorded, then K1 and K2 on
+        them (``trainer_shapes``)."""
+        params = {grp: [{n: v.detach().clone() for n, v in e.items()}
+                        for e in opt.params[grp]] for grp in GROUPS}
+        _, records = capture_queries(intersect,
+                                     lambda: step(key, f"captured, {tree}"))
+        with torch.no_grad():
+            flat = detach_flat(sc.build(params))
+        log(f"  K1 and K2 on a step's own inputs, {tree}: {len(records)} "
+            "distinct launches")
+        return trainer_shapes(intersect, records,
+                              (flat.tri.p0, flat.tri.e1, flat.tri.e2), tree)
+
+    k1_refit, k2_refit, err, tally, main = captured(20, "refit tree")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = sc.refit_quality(opt.params)
+    t_refit = time.perf_counter() - t0
+    perm = sc._bvh_topo.perm.copy()
+    t0 = time.perf_counter()
+    rebuilt = opt.maybe_rebuild_accel(threshold=q * 0.999)
+    t_rebuild = time.perf_counter() - t0
+    if not rebuilt or np.array_equal(perm, sc._bvh_topo.perm):
+        raise AssertionError("phase 22: the forced rebuild made no new tree")
+    q2 = sc.refit_quality(opt.params)
+    dt_new, loss_new, launches_new = step(8, "after the rebuild")
+    log(f"  refit_quality {q:.5f} in {t_refit:.3f} s ({t_refit / dt:.2f} of "
+        f"a step); forced rebuild (threshold {q * 0.999:.5f}) in "
+        f"{t_rebuild:.3f} s, a new Morton order, quality now {q2:.5f}; a "
+        f"step on the new tree {dt_new:.3f} s, loss {loss_new:.6g}, launches "
+        f"{launches_new}")
+    k1_new, k2_new, err_new, tally_new, _ = captured(21, "rebuilt tree")
+    for mode in err:
+        err[mode] += err_new[mode]
+    tally.update(tally_new)
+    return launches, dict(step_s=dt, samples=samples, peak=peak, busy=busy,
+                          refit_s=t_refit), (
+        {**k1_refit, **k1_new}, {**k2_refit, **k2_new}, err, tally, main)
+
+
+def small_trainer_phase(dev, tmp):
+    """Phase 23: the trainer and the harness at SMALL_TRAIN on the card
+    against the CPU."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.opt import Optimizer
+    from psdr_tpu_torch.testing import run_ad, run_fd
+    from psdr_tpu_torch.testing.scenes import sphere_light_scene
+    paths = ["Mesh[0]", "BSDF[id=white].reflectance", "Emitter[0].radiance"]
+
+    def one_step(d):
+        sc = sphere_light_scene(**SMALL_TRAIN, device=d)
+        opt = Optimizer(sc, paths, lr=1e-2)
+        render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=True)
+        seen = {}
+        update = opt.update
+        opt.update = lambda grads: (seen.update(grads), update(grads))[1]
+        loss = opt.step(lambda p, key: torch.mean(render(p, key) ** 2),
+                        threefry.PRNGKey(3))
+        opt.update = update
+        return opt, loss, {k: host(v).ravel() for k, v in seen.items()}
+
+    (card, l_a, g_a), (_, _, g_b), (cpu, l_c, g_c) = (
+        one_step(d) for d in (dev, dev, torch.device("cpu")))
+    keys = sorted(g_c)
+
+    def rel(x, y):
+        ny = np.linalg.norm(y)
+        return 0.0 if ny == 0 and np.linalg.norm(x) == 0 else float(
+            np.linalg.norm(x - y) / ny)
+
+    spread = max(rel(g_a[k], g_b[k]) for k in keys)
+    worst = max(rel(g_a[k], g_c[k]) for k in keys)
+    cos = min(float(g_a[k] @ g_c[k]) / (np.linalg.norm(g_a[k])
+                                          * np.linalg.norm(g_c[k]))
+              for k in keys if np.linalg.norm(g_c[k]) > 0)
+    finite = all(np.isfinite(g_a[k]).all() for k in keys)
+    loss_rel = abs(l_a - l_c) / l_c
+    # the CPU's Adam update given the card's gradients
+    host_opt = Optimizer(sphere_light_scene(**SMALL_TRAIN, device="cpu"),
+                         paths, lr=1e-2)
+    host_opt.update({k: torch.as_tensor(g_a[k]).reshape(
+        host_opt.params[k[0]][k[1]][k[2]].shape) for k in keys})
+    upd = max(float(np.abs(host(v) - host(host_opt.params[g][i][n])).max())
+              for (g, i, n), v in card.trainable())
+    log(f"  optimizer step, {len(keys)} leaves: loss card {l_a:.8f} / CPU "
+        f"{l_c:.8f} (relative {loss_rel:.3g}); card spread {spread:.3g}; "
+        f"worst leaf {worst:.3g} (bound {GRAD_REL_L2} + spread), worst "
+        f"cosine {cos:.7f}; the CPU's Adam update from the card's gradients "
+        f"differs from the card's by at most {upd:.3g}")
+    if (loss_rel > 1e-5 or worst > GRAD_REL_L2 + spread or cos < GRAD_COS
+            or not finite or upd > 1e-6):
+        raise AssertionError("phase 23: the optimizer step on the card and "
+                             "on the CPU disagree")
+    # save -> load -> step equals the step without the round trip
+    render = DirectIntegrator(1, 1).render_fn(card.scene, with_boundary=True)
+
+    def loss_fn(p, key):
+        return torch.mean(render(p, key) ** 2)
+
+    ck = os.path.join(tmp, "ckpt.npz")
+    card.save(ck)
+    again = Optimizer(card.scene, paths, lr=1e-2)
+    again.load(ck)
+    for o in (card, again):
+        o.step(loss_fn, threefry.PRNGKey(4))
+    resume = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                 zip(card.trainable(), again.trainable()))
+    log(f"  save / load / step against the step without the round trip: "
+        f"largest |difference| {resume:.3g} (atomic adds)")
+    if resume > 1e-5:
+        raise AssertionError("phase 23: the resumed step differs")
+    # the harness: a sphere translation along x
+    kw = dict(direction=(1.0, 0.0, 0.0))
+    imgs = []
+    for d in (dev, dev, torch.device("cpu")):
+        sc = sphere_light_scene(**SMALL_TRAIN, device=d)
+        t0 = time.perf_counter()
+        ad = run_ad(sc, DirectIntegrator(1, 1), "mesh_transform", npass=2,
+                    **kw)
+        fd = run_fd(sc, DirectIntegrator(1, 1), "mesh_transform", eps=0.05,
+                    npass=2, **kw)
+        imgs.append((ad, fd, time.perf_counter() - t0))
+    (ad_a, fd_a, t_a), (ad_b, fd_b, _), (ad_c, fd_c, t_c) = imgs
+    ad_tol = HARNESS_REL_L2 + rel(ad_a, ad_b)
+    fd_tol = HARNESS_REL_L2 + rel(fd_a, fd_b)
+    ad_rel, fd_rel = rel(ad_a, ad_c), rel(fd_a, fd_c)
+    l1 = float(np.abs(ad_a - fd_a).sum() / np.abs(fd_a).sum())
+    log(f"  run_ad / run_fd of a sphere translation: card {t_a:.2f} s, CPU "
+        f"{t_c:.2f} s; card against CPU relative L2: AD {ad_rel:.3g} (bound "
+        f"{HARNESS_REL_L2} + the card's spread = {ad_tol:.3g}), FD "
+        f"{fd_rel:.3g} (bound {fd_tol:.3g}); AD against FD on the card, L1 "
+        f"{l1:.3g} of FD's")
+    if (not np.isfinite(ad_a).all() or ad_rel > ad_tol or fd_rel > fd_tol
+            or not np.abs(ad_a).max() > 0):
+        raise AssertionError("phase 23: the harness on the card and on the "
+                             "CPU disagree")
+    log("  the 1D vertex offset: value_and_grad of every leaf, card vs CPU")
+    grad_phase(dev, phase=23, scene=dict(SMALL_TRAIN, sppe=0, sppse=0),
+               make_scene=lambda **k: sphere_light_scene(vertex_offset=True,
+                                                         **k))
+
+
+def env_opt_in_phase(intersect, dev):
+    """Phase 24: the envmap's alias and Hier2D tables, card vs CPU on
+    env_scene under a 100 x 200 sky, then env_bench_scene's forward under
+    the frozen cmf (phase 18's table) and under each. Returns {table:
+    (launches, median frame seconds)}."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.testing.scenes import (env_bench_scene, env_scene,
+                                               sun_sky)
+    log("  env_bench_scene, the frozen cmf:")
+    out = {"cmf": forward_phase(intersect, dev, DirectIntegrator(1, 1), 24, 3,
+                                sc=env_bench_scene(**ENV_BENCH,
+                                                   device=dev))[::2]}
+
+    def big(**kw):
+        return env_scene(sky=sun_sky(*ENV_SKY, seed=4), **kw)
+
+    for switch, kind in (("PSDR_TPU_ENV_ALIAS", "alias"),
+                         ("PSDR_TPU_ENV_HIER", "hier")):
+        os.environ[switch] = "1"
+        try:
+            hc = big(**ENV_OPT_SMALL, device=dev).flat.envmap.cell_distrb
+            if getattr(hc, kind) is None:
+                raise AssertionError(f"phase 24: {switch}=1 took no {kind} "
+                                     "table")
+            log(f"  {switch}=1: the {kind} table on the {hc.resolution} grid")
+            render_match(dev, 24, f"env_scene under {switch}=1",
+                         big, ENV_OPT_SMALL, DirectIntegrator(1, 1),
+                         ((IMG_RTOL, IMG_CLOSE_FRAC),))
+            grad_phase(dev, phase=24, scene=ENV_OPT_BOUNDARY,
+                       integ=PathTracer(2), make_scene=big)
+            t0 = time.perf_counter()
+            sc = env_bench_scene(**ENV_BENCH, device=dev)
+            res = sc.flat.envmap.cell_distrb.resolution
+            torch.cuda.synchronize()
+            log(f"  env_bench_scene under {switch}=1: the {kind} table on "
+                f"the {res} grid, built with the scene in "
+                f"{time.perf_counter() - t0:.2f} s")
+            launches, _, dt = forward_phase(intersect, dev,
+                                            DirectIntegrator(1, 1), 24, 3,
+                                            sc=sc)
+            out[kind] = (launches, dt)
+        finally:
+            del os.environ[switch]
+    log(f"  env_bench_scene DirectIntegrator(1, 1) frame: frozen cmf "
+        f"{out['cmf'][1]:.3f} s, alias {out['alias'][1]:.3f} s, Hier2D "
+        f"{out['hier'][1]:.3f} s")
+    return out
 
 
 def main() -> int:
@@ -1403,8 +1971,8 @@ def main() -> int:
     # -- 5. the forward at full width ------------------------------------------
     log("phase 5: DirectIntegrator(1, 1) forward, 512x512, spp 64, "
         f"reuse {os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
-    launches, mean_direct = forward_phase(intersect, dev,
-                                          DirectIntegrator(1, 1), 5, 3)
+    launches, mean_direct, _ = forward_phase(intersect, dev,
+                                             DirectIntegrator(1, 1), 5, 3)
     # the random stream: one chunk's (n, 3) uniform draw in tensor code
     key = threefry.PRNGKey(1)
     rng_ms, _ = time_ms(lambda: threefry.uniform(key, (N_TIME, 3), dev), 5)
@@ -1459,7 +2027,8 @@ def main() -> int:
     # -- 14. the PathTracer's forward at full width ---------------------------------
     log("phase 14: PathTracer(3) forward, 512x512, spp 64, reuse "
         f"{os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
-    pt_fwd, mean_path = forward_phase(intersect, dev, PathTracer(3), 14, 7)
+    pt_fwd, mean_path, _ = forward_phase(intersect, dev, PathTracer(3), 14,
+                                         7)
     if not mean_path > mean_direct:
         raise AssertionError(f"phase 14: three bounces in a closed box must "
                              f"add light ({mean_path} vs {mean_direct})")
@@ -1487,11 +2056,12 @@ def main() -> int:
     # -- 18. env_bench_scene forward ---------------------------------------------------
     log(f"phase 18: env_bench_scene forward, {ENV_BENCH}")
     env_sc = env_bench_scene(**ENV_BENCH, device=dev)
-    env_fwd, _ = forward_phase(intersect, dev, DirectIntegrator(1, 1), 18, 3,
-                               sc=env_sc)
+    env_fwd, _, env_cmf_s = forward_phase(intersect, dev,
+                                          DirectIntegrator(1, 1), 18, 3,
+                                          sc=env_sc)
     log("  PathTracer(3):")
-    env_pt_fwd, _ = forward_phase(intersect, dev, PathTracer(3), 18, 7,
-                                  sc=env_sc)
+    env_pt_fwd, _, _ = forward_phase(intersect, dev, PathTracer(3), 18, 7,
+                                     sc=env_sc)
 
     # -- 19. env_bench_scene backward ---------------------------------------------------
     log(f"phase 19: env_bench_scene PathTracer(3) backward, {ENV_BWD}")
@@ -1514,17 +2084,47 @@ def main() -> int:
     k2_err = k2_err + env_err["k2"]
     log(f"  lanes on which K1 and k1_plain differ: {env_tally}")
 
-    # launches: the backward's three timed steps (the main path), the
-    # forward's three timed frames and the boundary step's three timed
-    # steps, the same three of the PathTracer (phases 15, 14, 16), and
-    # env_bench_scene's two forwards and its backward (phases 18, 19); K3,
-    # off the render path, its entry point's run in phase 7. ms,
-    # plain_ms and bound_ms of K1 are the tiled camera chunk's (closest) and
-    # the tiled shadow sweep's (any); the other timed shapes stand under
-    # "shapes".
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 21. the loader on the card -----------------------------------
+        log(f"phase 21: the bench scene written as files and loaded on the "
+            f"card, {BENCH}")
+        loaded_fwd, _ = loader_phase(intersect, dev,
+                                     os.path.join(tmp, "bench"), launches)
+        # -- 22. the trainer at full width: this slice's main path --------
+        log(f"phase 22: the trainer, {TRAIN}, Optimizer on "
+            f"Mesh[{OCCLUDER}].vertex_positions through "
+            "render_fn(with_boundary=True)")
+        train, _, (train_k1, train_k2, train_err, train_tally,
+                   train_main) = trainer_phase(intersect, dev,
+                                               os.path.join(tmp, "train"))
+        shapes.update(train_k1)
+        for mode in ("closest", "any"):
+            err[mode] += train_err[mode]
+        k2_err = k2_err + train_err["k2"]
+        log(f"  lanes on which K1 and k1_plain differ: {train_tally}")
+        # -- 23. the trainer and the harness, card against CPU ------------
+        log(f"phase 23: optimizer step, save / load and the harness on the "
+            f"card vs on the CPU, {SMALL_TRAIN}")
+        small_trainer_phase(dev, tmp)
+        # -- 24. the envmap's opt-in tables -------------------------------
+        log("phase 24: PSDR_TPU_ENV_ALIAS=1 and PSDR_TPU_ENV_HIER=1, card "
+            "vs CPU and env_bench_scene forward")
+        env_opt = env_opt_in_phase(intersect, dev)
+    log(f"all phases passed in {time.time() - T_START:.0f} s")
+
+    # launches: the trainer's five timed steps (phase 22, this slice's main
+    # path), the backward's three timed steps, the forward's three timed
+    # frames and the boundary step's three timed steps, the same three of
+    # the PathTracer (phases 15, 14, 16), env_bench_scene's two forwards
+    # and its backward (phases 18, 19), the loaded scene's forward (21) and
+    # env_bench_scene's forward under each opt-in table (24); K3, off the
+    # render path, its entry point's run in phase 7. ms, plain_ms and
+    # bound_ms of K1 and K2 are those of the trainer's step on its refit
+    # tree, on the launch of each mode with the most active rays; the other
+    # timed shapes stand under "shapes".
     kernels = []
-    for mode, main in (("closest", "tiled camera chunk"),
-                       ("any", "tiled shadow sweep")):
+    for mode in ("closest", "any"):
+        main = train_main[mode]
         mine = {k: v for k, v in shapes.items()
                 if v["any_hit"] == (mode == "any")}
         kernels.append({
@@ -1532,7 +2132,8 @@ def main() -> int:
             "route": "cuda",
             "source": "psdr_tpu_torch/csrc/intersect.cu",
             "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-            "launches": bwd[mode],
+            "launches": train[mode],
+            "launches_backward": bwd[mode],
             "launches_forward": launches[mode],
             "launches_boundary": bnd[mode],
             "launches_path_backward": pt_bwd[mode],
@@ -1541,14 +2142,17 @@ def main() -> int:
             "launches_env_forward": env_fwd[mode],
             "launches_env_path_forward": env_pt_fwd[mode],
             "launches_env_path_backward": env_bwd[mode],
+            "launches_loaded_forward": loaded_fwd[mode],
+            "launches_env_alias_forward": env_opt["alias"][0][mode],
+            "launches_env_hier_forward": env_opt["hier"][0][mode],
             # |t| error of the hits: closest against k1_plain's hit, any
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
             "valid_mismatches": sum(n for _, n in err[mode]),
-            # phase 20's lanes on which K1 equals its walk in tensor code
-            # and not k1_plain (the cull-margin rule), by shape
+            # phases 20 and 22: lanes on which K1 equals its walk in tensor
+            # code and not k1_plain (the cull-margin rule), by shape
             "lanes_unlike_k1_plain": {
-                k: v for k, v in env_tally.items()
+                k: v for k, v in {**env_tally, **train_tally}.items()
                 if shapes[k.split(" ", 1)[1]]["any_hit"] == (mode == "any")},
             "ms": mine[main]["ms"],
             "plain_ms": mine[main]["plain_ms"],
@@ -1561,7 +2165,8 @@ def main() -> int:
         "name": "ray_intersect_brute (K2)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/brute.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
-        "launches": bwd["k2"], "launches_forward": launches["k2"],
+        "launches": train["k2"], "launches_backward": bwd["k2"],
+        "launches_forward": launches["k2"],
         "launches_boundary": bnd["k2"],
         "launches_path_backward": pt_bwd["k2"],
         "launches_path_forward": pt_fwd["k2"],
@@ -1569,14 +2174,17 @@ def main() -> int:
         "launches_env_forward": env_fwd["k2"],
         "launches_env_path_forward": env_pt_fwd["k2"],
         "launches_env_path_backward": env_bwd["k2"],
+        "launches_loaded_forward": loaded_fwd["k2"],
+        "launches_env_alias_forward": env_opt["alias"][0]["k2"],
+        "launches_env_hier_forward": env_opt["hier"][0]["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
-        # the median launch of the emitter-first sweep of 2^21 bounce rays
-        "ms": k2_ms["ms"], "plain_ms": k2_ms["plain_ms"],
-        "bound_ms": k2_ms["bound_ms"], "bound_by": k2_ms["bound_by"],
+        # the median launch
+        **{k: train_k2[train_main["k2"]][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2,
-                   **env_k2}})
+                   **env_k2, **train_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
@@ -1589,6 +2197,8 @@ def main() -> int:
         "launches_env_forward": env_fwd["k3"],
         "launches_env_path_forward": env_pt_fwd["k3"],
         "launches_env_path_backward": env_bwd["k3"],
+        "launches_trainer": train["k3"],
+        "launches_loaded_forward": loaded_fwd["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],

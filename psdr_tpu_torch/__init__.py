@@ -5,17 +5,21 @@ reference each ported module is tested against. Ported so far: the forward
 render and the gradients (interior and boundary terms, guiding) of
 ``DirectIntegrator`` and ``PathTracer``, the AOV integrator, diffuse and
 rough-conductor materials, image textures, authored vertex normals, area
-lights and the environment map, with the intersection kernels
-(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper.
+lights and the environment map, the XML loader with OBJ and EXR IO, the
+masked-Adam ``opt.Optimizer`` and the AD-vs-FD harness (``testing``), with
+the intersection kernels (``accel/intersect.py``, ``csrc/*.cu``) written by
+hand for Hopper.
 """
 __version__ = "0.1.0"
 
 from .core.records import RenderOptions
 from .scene import Scene
-from .shape import Mesh
+from .scene.loader import load_file, load_integrator, load_string
+from .shape import Mesh, load_obj
 from .shape import primitives
 from .bsdf import Diffuse, RoughConductor
 from .emitter import AreaLight, EnvironmentMap
 from .sensor import PerspectiveCamera
 from .integrator import (DirectIntegrator, FieldExtractionIntegrator,
                          PathTracer)
+from . import opt

@@ -33,8 +33,34 @@ def params_from_numpy(tree, device="cuda", requires_grad: bool = False):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, requires_grad)
                           for v in tree)
+    if isinstance(tree, torch.Tensor):     # a leaf set from a tensor
+        return tree.detach().to(device=device, dtype=torch.float32,
+                                copy=True).requires_grad_(requires_grad)
     return torch.tensor(np.asarray(tree, np.float32), device=device,
                         requires_grad=requires_grad)
+
+
+def adam_state_from_numpy(opt, mu, nu, count) -> None:
+    """Carry an optax Adam state into ``opt`` (an ``opt.Optimizer``), so a
+    run begun in the JAX package continues here step for step: ``mu`` and
+    ``nu`` are the moments of the selected leaves as numpy arrays in the
+    params tree's order (``jax.tree.leaves`` of the masked state, which
+    leaves the frozen leaves out), ``count`` the steps taken."""
+    paths = [path for path, _ in opt.trainable()]
+    if len(mu) != len(paths) or len(nu) != len(paths):
+        raise ValueError(f"{len(paths)} selected leaves, {len(mu)} / "
+                         f"{len(nu)} moments")
+    dev = opt.scene.device
+    for path, m, v in zip(paths, mu, nu):
+        shape = tuple(opt.state["mu"][path].shape)
+        if np.shape(m) != shape or np.shape(v) != shape:
+            raise ValueError(f"{path}: moments of shape {np.shape(m)} / "
+                             f"{np.shape(v)}, the leaf {shape}")
+        opt.state["mu"][path] = torch.tensor(np.asarray(m, np.float32),
+                                             device=dev)
+        opt.state["nu"][path] = torch.tensor(np.asarray(v, np.float32),
+                                             device=dev)
+    opt.state["count"] = int(count)
 
 
 def discrete_from_numpy(pmf, cmf=None, device="cuda") -> Discrete:

@@ -50,6 +50,15 @@ class RngStream:
     def next_3d(self, n: int) -> torch.Tensor:
         return self.next_1d((n, 3))
 
+    def next_nd(self, n: int, d: int) -> torch.Tensor:
+        return self.next_1d((n, d))
+
+
+def make_streams(seed: int, n: int = 3) -> list[torch.Tensor]:
+    """The scene's independent sampler streams (interior, primary edges,
+    secondary edges): ``n`` keys split from ``PRNGKey(seed)``."""
+    return list(threefry.split(threefry.PRNGKey(seed), n))
+
 
 # Larcher-Pillichshammer column vectors: v_{k+1} = v_k ^ (v_k >> 1)
 _LP_V = []

@@ -2,13 +2,15 @@
 
 Counterpart of ``psdr_tpu/core/transform.py``. The builders are host numpy;
 ``transform_pos``/``transform_dir`` apply a matrix to points or directions
-of shape (..., 3) and work on numpy arrays and torch tensors alike.
+of shape (..., 3), and ``inverse`` inverts one, on numpy arrays and torch
+tensors alike.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 
 def translate(v) -> np.ndarray:
@@ -75,3 +77,9 @@ def transform_pos(mat, p):
 def transform_dir(mat, d):
     """Apply M's linear part to directions d (..., 3) (no divide)."""
     return d @ mat[:3, :3].T
+
+
+def inverse(mat):
+    if isinstance(mat, torch.Tensor):
+        return torch.linalg.inv(mat)
+    return np.linalg.inv(mat)

@@ -42,6 +42,10 @@ def square_to_uniform_triangle(sample: torch.Tensor) -> torch.Tensor:
     return torch.stack([1.0 - t, t * sample[..., 1]], dim=-1)
 
 
+def square_to_uniform_triangle_pdf(p: torch.Tensor) -> torch.Tensor:
+    return torch.full(p.shape[:-1], 2.0, dtype=p.dtype, device=p.device)
+
+
 def square_to_uniform_sphere(sample: torch.Tensor) -> torch.Tensor:
     """Uniform direction on S^2 from (..., 2) in [0,1)^2."""
     z = 1.0 - 2.0 * sample[..., 1]

@@ -8,10 +8,7 @@ Counterpart of ``psdr_tpu/emitter/envmap.py``:
   the scene AABB with a G-converted pdf.
 
 The scene adds an 8-vertex, 12-face bounding mesh that carries this
-emitter, so environment hits look like surface hits. The alias-table and
-hierarchical-warp importance tables of the JAX package
-(``PSDR_TPU_ENV_ALIAS=1``, ``PSDR_TPU_ENV_HIER=1``) are not ported and
-raise (ROADMAP item 15).
+emitter, so environment hits look like surface hits.
 """
 from __future__ import annotations
 
@@ -24,8 +21,10 @@ import torch
 from ..core import transform as xform
 from ..core.bitmap import Bitmap, eval_bitmap, from_array
 from ..core.constants import Epsilon, InvPi, InvTwoPi, Pi, TwoPi
-from ..core.distribution import (Discrete, HyperCube, hypercube_init,
-                                 hypercube_pdf, hypercube_sample_reuse)
+from ..core.distribution import (AliasTable, Discrete, Hier2D, HyperCube,
+                                 alias_table_host, hier2d_host,
+                                 hypercube_init, hypercube_pdf,
+                                 hypercube_sample_reuse)
 from ..core.math import (dot, ray_intersect_scene_aabb, rgb2luminance,
                          safe_acos, safe_rsqrt, safe_sqrt, sphdir, sqr,
                          squared_norm)
@@ -112,12 +111,11 @@ _FROZEN_CACHE: dict = {}
 
 def _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, kind: str):
     """Host-side (float64 numpy) importance table, built once per radiance
-    snapshot: a ``Discrete`` of numpy arrays whose monotone inverse-CDF
-    search keeps the (0,2)-sequence's stratification. Only ``kind="cmf"``
-    is ported."""
-    if kind != "cmf":
-        raise NotImplementedError(
-            f"frozen envmap table {kind!r} is not ported (ROADMAP item 15)")
+    snapshot. ``kind="cmf"``: a ``Discrete`` whose monotone inverse-CDF
+    search keeps the (0,2)-sequence's stratification (the default);
+    ``"alias"``: an ``AliasTable``, O(1) sampling but a non-monotone map
+    from u to cell, which loses that stratification; ``"hier"``: a
+    ``Hier2D``, monotone in both sample axes."""
     key = (id(host_radiance), tuple(host_radiance.shape), gw, gh, kind)
     hit = _FROZEN_CACHE.get(key)
     if hit is None:
@@ -125,12 +123,18 @@ def _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, kind: str):
         if isinstance(rad, torch.Tensor):
             rad = rad.detach().cpu().numpy()
         mass = _host_mass_grid(np.asarray(rad), gw, gh, gw_f, gh_f)
-        total = mass.sum()
-        if not np.isfinite(total) or total <= 0.0:
-            mass = np.ones_like(mass)
-        pmf = mass.astype(np.float32)
-        cmf = np.maximum.accumulate(np.cumsum(mass).astype(np.float32))
-        hit = (Discrete(pmf=pmf, cmf=cmf, total=cmf[-1]), host_radiance)
+        if kind == "alias":
+            table = alias_table_host(mass)
+        elif kind == "hier":
+            table = hier2d_host(mass, gw, gh)
+        else:
+            total = mass.sum()
+            if not np.isfinite(total) or total <= 0.0:
+                mass = np.ones_like(mass)
+            pmf = mass.astype(np.float32)
+            cmf = np.maximum.accumulate(np.cumsum(mass).astype(np.float32))
+            table = Discrete(pmf=pmf, cmf=cmf, total=cmf[-1])
+        hit = (table, host_radiance)
         if len(_FROZEN_CACHE) > 8:
             _FROZEN_CACHE.clear()
         _FROZEN_CACHE[key] = hit
@@ -166,34 +170,48 @@ def configure_envmap(params: dict, lower: torch.Tensor, upper: torch.Tensor,
     4; 1 restores the parity grid). Above 2^15 cells, with a host radiance
     snapshot, the table is frozen: built once on the host
     (``_frozen_tables``) and not again every frame
-    (``PSDR_TPU_ENV_FROZEN=0`` turns that off)."""
+    (``PSDR_TPU_ENV_FROZEN=0`` turns that off). Two opt-in frozen tables
+    replace the cmf there: ``PSDR_TPU_ENV_ALIAS=1`` (the alias table) and
+    ``PSDR_TPU_ENV_HIER=1`` (the hierarchical warp, up to 4096 cells an
+    axis); their sampling cost does not grow with the grid, so either
+    takes the parity grid (a default divisor of 1)."""
     data = params["radiance"]
     dev = data.device
     h, w = data.shape[0], data.shape[1]
     gw_f, gh_f = (w - 1) * 2, (h - 1) * 2
     big = host_radiance is not None and gw_f * gh_f > (1 << 15)
-    # where the JAX package would take one of its two opt-in tables
-    for switch, fits in (("PSDR_TPU_ENV_ALIAS", True),
-                         ("PSDR_TPU_ENV_HIER", max(gw_f, gh_f) <= 4096)):
-        if big and fits and os.environ.get(switch, "0") == "1":
-            raise NotImplementedError(
-                f"{switch}=1: the alias-table and hierarchical-warp envmap "
-                "tables are not ported (ROADMAP item 15)")
-    use_frozen_cmf = big and os.environ.get("PSDR_TPU_ENV_FROZEN", "1") == "1"
-    div = max(1, int(os.environ.get("PSDR_TPU_ENV_RESO_DIV", "4")))
+    use_alias = big and os.environ.get("PSDR_TPU_ENV_ALIAS", "0") == "1"
+    use_hier = (big and not use_alias and max(gw_f, gh_f) <= 4096
+                and os.environ.get("PSDR_TPU_ENV_HIER", "0") == "1")
+    use_frozen_cmf = (big and not use_alias and not use_hier
+                      and os.environ.get("PSDR_TPU_ENV_FROZEN", "1") == "1")
+    div = max(1, int(os.environ.get(
+        "PSDR_TPU_ENV_RESO_DIV", "1" if use_alias or use_hier else "4")))
     gw, gh = gw_f, gh_f
     if div > 1 and gw_f * gh_f > (1 << 18):
         gw, gh = max(128, gw_f // div), max(64, gh_f // div)
-    if use_frozen_cmf:
+    placeholder = dict(
+        cells=torch.zeros((0, 2), dtype=torch.int32, device=dev),
+        resolution=(gw, gh),
+        unit=1.0 / torch.tensor((gw, gh), dtype=torch.float32, device=dev))
+    if use_alias:
+        at = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "alias")
+        hc = HyperCube(distrb=None, alias=AliasTable(
+            packed=torch.as_tensor(at.packed, device=dev),
+            pmf=torch.as_tensor(at.pmf, device=dev),
+            total=torch.as_tensor(at.total, device=dev)), **placeholder)
+    elif use_hier:
+        ht = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "hier")
+        hc = HyperCube(distrb=None, hier=Hier2D(
+            levels=tuple(torch.as_tensor(t, device=dev) for t in ht.levels),
+            pmf=torch.as_tensor(ht.pmf, device=dev),
+            total=torch.as_tensor(ht.total, device=dev)), **placeholder)
+    elif use_frozen_cmf:
         d = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "cmf")
         cmf = torch.as_tensor(d.cmf, device=dev)
         hc = HyperCube(
             distrb=Discrete(pmf=torch.as_tensor(d.pmf, device=dev), cmf=cmf,
-                            total=cmf[-1]),
-            cells=torch.zeros((0, 2), dtype=torch.int32, device=dev),
-            resolution=(gw, gh),
-            unit=1.0 / torch.tensor((gw, gh), dtype=torch.float32,
-                                    device=dev))
+                            total=cmf[-1]), **placeholder)
     elif (gw, gh) == (gw_f, gh_f):
         # reference-parity grid: one bilinear tap per (half-texel) cell
         hc = hypercube_init((gw, gh), _grid_mass(data.detach(), gw, gh))

@@ -40,7 +40,7 @@ from ..emitter.envmap import (EnvironmentMap, EnvmapState, configure_envmap,
 from ..sensor.perspective import (PerspectiveCamera, PrimaryEdgeInfo,
                                   build_primary_edges, configure_sensor,
                                   finalize_primary_edges)
-from ..shape.mesh import (Mesh, SecondaryEdgeInfo, TriangleInfo,
+from ..shape.mesh import (Mesh, SecondaryEdgeInfo, TriangleInfo, _host,
                           compute_sec_edge_info, compute_triangle_info,
                           sample_position)
 
@@ -161,6 +161,18 @@ class Scene:
         self.param_map[f"Sensor[{len(self.sensors)-1}]"] = sensor
         return len(self.sensors) - 1
 
+    # -- loading ----------------------------------------------------------------
+    @staticmethod
+    def load_file(fname: str, auto_configure: bool = True,
+                  device="cuda") -> "Scene":
+        from .loader import load_file
+        return load_file(fname, auto_configure, device=device)
+
+    @staticmethod
+    def load_string(xml: str, base_dir: str = ".", device="cuda") -> "Scene":
+        from .loader import load_string
+        return load_string(xml, base_dir, device=device)
+
     @property
     def envmap_index(self) -> int:
         for i, e in enumerate(self.emitters):
@@ -198,6 +210,60 @@ class Scene:
             self._bvh_topo = build_bvh_topology(
                 tri.p0.cpu().numpy(), tri.e1.cpu().numpy(),
                 tri.e2.cpu().numpy(), leaf_size=BVH_LEAF_SIZE)
+
+    @staticmethod
+    def _leaf_area(perm, leaf_size, p0, e1, e2) -> float:
+        """Total surface area of the leaf AABBs that a triangle permutation
+        induces: the cull cost of a topology."""
+        L = leaf_size
+        idx = np.maximum(perm, 0).reshape(-1, L)
+        ok = (perm >= 0).reshape(-1, L)[..., None]
+        v0 = p0[idx]
+        pts = np.stack([v0, v0 + e1[idx], v0 + e2[idx]], axis=2)
+        big = np.float32(1e30)
+        lo = np.where(ok[:, :, None], pts, big).min(axis=(1, 2))
+        hi = np.where(ok[:, :, None], pts, -big).max(axis=(1, 2))
+        ext = np.maximum(hi - lo, 0.0)
+        any_tri = ok[:, :, 0].any(axis=1)
+        area = 2 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                    + ext[:, 2] * ext[:, 0])
+        return float(np.where(any_tri, area, 0.0).sum())
+
+    def refit_quality(self, params: dict | None = None) -> float:
+        """Ratio (>= ~1) of the current topology's refit leaf-AABB surface
+        area to a fresh Morton build's, at ``params`` (default: the scene's
+        own). The Morton order frozen by ``prepare_accel`` degrades under
+        large deformation; a ratio well above 1 means rays sweep needlessly
+        fat leaf boxes. Costs a build and a fresh topology on the host."""
+        if self._bvh_topo is None:
+            return 1.0
+        with torch.no_grad():
+            tri = self.build(self.params() if params is None else params).tri
+        p0, e1, e2 = (x.cpu().numpy() for x in (tri.p0, tri.e1, tri.e2))
+        fresh = build_bvh_topology(p0, e1, e2,
+                                   leaf_size=self._bvh_topo.leaf_size)
+        cur = self._leaf_area(self._bvh_topo.perm, self._bvh_topo.leaf_size,
+                              p0, e1, e2)
+        ref = self._leaf_area(fresh.perm, fresh.leaf_size, p0, e1, e2)
+        return cur / max(ref, 1e-30)
+
+    def maybe_rebuild_accel(self, params: dict | None = None,
+                            threshold: float = 1.5) -> bool:
+        """Rebuild the Morton topology when ``refit_quality`` has degraded
+        past ``threshold``; call between optimizer steps. ``params`` (if
+        given) become the scene's own first. Returns True on a rebuild.
+        Every later ``build``, including those of a ``render_fn`` made
+        before, refits the new topology."""
+        if self._bvh_topo is None:
+            return False
+        if self.refit_quality(params) <= threshold:
+            return False
+        if params is not None:
+            self.set_params(_host_tree(params))
+        self._bvh_topo = None
+        self._flat_cache = None
+        self.prepare_accel()
+        return True
 
     def configure(self) -> FlatScene:
         """Build + cache the flat scene at the current parameters."""
@@ -282,7 +348,8 @@ class Scene:
                         f"envmap_distrb has {d.size} cells, the importance "
                         f"grid {envmap.cell_distrb.num_cells}")
                 envmap = envmap._replace(
-                    cell_distrb=envmap.cell_distrb._replace(distrb=d))
+                    cell_distrb=envmap.cell_distrb._replace(
+                        distrb=d, alias=None, hier=None))
             bits = torch.tensor([[bool(i & (1 << j)) for j in range(3)]
                                  for i in range(8)], device=dev)
             corners = torch.where(bits, upper, lower)
@@ -425,6 +492,15 @@ class Scene:
         return ("Scene[\n  # Sensors\n  " + "\n  ".join(map(repr, self.sensors))
                 + "\n  # BSDFs\n  " + "\n  ".join(map(repr, self.bsdfs))
                 + "\n  # Meshes\n  " + "\n  ".join(map(repr, self.meshes)) + "\n]")
+
+
+def _host_tree(tree):
+    """A params tree with every leaf as detached float32 numpy."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    return _host(tree)
 
 
 # -- scene queries (functions of a FlatScene) --------------------------------

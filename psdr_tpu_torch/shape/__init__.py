@@ -1,3 +1,3 @@
-from .mesh import Mesh
+from .mesh import Mesh, load_obj
 
-__all__ = ["Mesh"]
+__all__ = ["Mesh", "load_obj"]

@@ -1,9 +1,8 @@
-"""Triangle meshes: host-side topology (the edge-adjacency table included)
-and the world-space geometry build. Counterpart of
+"""Triangle meshes: host-side topology (OBJ load and dump, the
+edge-adjacency table) and the world-space geometry build. Counterpart of
 ``psdr_tpu/shape/mesh.py``. Authored vertex normals (``normals`` and
-``normal_idx``, as an OBJ's vn channels) override the area-weighted shading
-normals with ``use_vertex_normals``. OBJ loading (ROADMAP item 16) and the
-1D vertex offset (item 17) are not ported."""
+``normal_idx``, an OBJ's vn channels) override the area-weighted shading
+normals with ``use_vertex_normals``."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -95,9 +94,18 @@ def compute_sec_edge_info(vertex_positions: torch.Tensor,
 
 
 class Mesh:
-    """Host-side mesh: static topology + parameter leaves
-    (``vertex_positions``: raw object-space positions (V, 3); ``to_world``:
-    4x4 object-to-world matrix)."""
+    """Host-side mesh: static topology + parameter leaves.
+
+    * ``vertex_positions``: raw object-space positions (V, 3);
+    * ``to_world``: 4x4 object-to-world matrix, composed as
+      ``to_world_left @ to_world @ to_world_right`` with two static outer
+      factors (``append_transform`` grows the left one);
+    * ``vertex_offset`` (with ``enable_vertex_offset``): one scalar per
+      vertex, a displacement along the raw area-weighted vertex normals
+      applied before the transform, so a shape optimization moves vertices
+      along the normal only. ``shift_vertices`` bakes it into the raw
+      positions.
+    """
 
     def __init__(self, vertices: np.ndarray, faces: np.ndarray,
                  uv: Optional[np.ndarray] = None,
@@ -110,9 +118,6 @@ class Mesh:
                  use_vertex_normals: bool = False,
                  bsdf_id: int = -1, emitter_id: int = -1,
                  mesh_id: str = ""):
-        if enable_vertex_offset:
-            raise NotImplementedError(
-                "the 1D vertex offset is not ported (ROADMAP item 17)")
         self.vertices = np.ascontiguousarray(vertices, np.float32)
         self.faces = np.ascontiguousarray(faces, np.int32)
         self.uv = None if uv is None else np.ascontiguousarray(uv, np.float32)
@@ -143,7 +148,12 @@ class Mesh:
                              else np.zeros((0, 5), np.int32))
         self._edge_table = None   # (edge_indices, device, its int64 tensor)
         self.vertex_positions = self.vertices
+        self.enable_vertex_offset = bool(enable_vertex_offset)
+        self.vertex_offset = (np.zeros((self.num_vertices,), np.float32)
+                              if self.enable_vertex_offset else None)
         self.to_world = np.eye(4, dtype=np.float32)
+        self.to_world_left = np.eye(4, dtype=np.float32)
+        self.to_world_right = np.eye(4, dtype=np.float32)
 
     def edge_table(self, device) -> torch.Tensor:
         """``edge_indices`` as int64 on ``device``: static topology, so it is
@@ -158,26 +168,49 @@ class Mesh:
         return cached[2]
 
     def params(self) -> dict:
-        return {"vertex_positions": self.vertex_positions,
-                "to_world": self.to_world}
+        p = {"vertex_positions": self.vertex_positions,
+             "to_world": self.to_world}
+        if self.enable_vertex_offset:
+            p["vertex_offset"] = self.vertex_offset
+        return p
 
     def set_params(self, p: dict) -> None:
         self.vertex_positions = p["vertex_positions"]
         self.to_world = p["to_world"]
+        if self.enable_vertex_offset and "vertex_offset" in p:
+            self.vertex_offset = p["vertex_offset"]
 
     def set_transform(self, mat) -> None:
         self.to_world = np.asarray(mat, np.float32)
 
+    def append_transform(self, mat) -> None:
+        self.to_world_left = np.asarray(mat, np.float32) @ self.to_world_left
+
+    def _composite(self, to_world: torch.Tensor) -> torch.Tensor:
+        """``to_world_left @ to_world @ to_world_right``."""
+        dev = to_world.device
+        return (torch.as_tensor(self.to_world_left, device=dev) @ to_world
+                @ torch.as_tensor(self.to_world_right, device=dev))
+
     def world_positions(self, params: dict) -> torch.Tensor:
-        return xform.transform_pos(params["to_world"],
-                                   params["vertex_positions"])
+        vp = params["vertex_positions"]
+        off = params.get("vertex_offset")
+        if off is not None:
+            # displace the raw positions along the raw area-weighted
+            # normals, themselves a differentiable function of the raw
+            # positions, before the world transform
+            _, vn = compute_triangle_info(
+                vp, torch.as_tensor(self.faces, device=vp.device),
+                self.num_vertices)
+            vp = vp + off[:, None] * vn
+        return xform.transform_pos(self._composite(params["to_world"]), vp)
 
     def world_shading_normals(self, params: dict):
         """Per-corner world-space shading normals from the authored
-        normals: rows transform by the inverse transpose of ``to_world``'s
-        linear part (differentiable in ``to_world``; the raw normals are
-        authored data, not a function of the positions)."""
-        m = params["to_world"]
+        normals: rows transform by the inverse transpose of the composite
+        ``to_world``'s linear part (differentiable in ``to_world``; the raw
+        normals are authored data, not a function of the positions)."""
+        m = self._composite(params["to_world"])
         n = torch.as_tensor(self.normals, device=m.device) @ torch.linalg.inv(
             m[:3, :3])
         n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
@@ -185,9 +218,63 @@ class Mesh:
         ni = torch.as_tensor(self.normal_idx, device=m.device).long()
         return n[ni[:, 0]], n[ni[:, 1]], n[ni[:, 2]]
 
+    def shift_vertices(self) -> None:
+        """Bake the current (detached) offset into the raw positions and
+        reset it to zero: call between optimization epochs to re-anchor the
+        offset parameterization."""
+        if not self.enable_vertex_offset:
+            return
+        vp = _host(self.vertex_positions)
+        self.vertex_positions = vp + _host(self.vertex_offset)[:, None] * \
+            _vertex_normals_np(vp, self.faces)
+        self.vertex_offset = np.zeros((self.num_vertices,), np.float32)
+
+    def dump(self, fname: str) -> None:
+        """Write the current raw geometry to an OBJ file; a pending vertex
+        offset is baked into the written positions."""
+        vp = _host(self.vertex_positions)
+        if self.enable_vertex_offset:
+            vp = vp + _host(self.vertex_offset)[:, None] * \
+                _vertex_normals_np(vp, self.faces)
+        lines = ["v %.6e %.6e %.6e\n" % tuple(r) for r in vp]
+        if self.uv is not None:
+            lines += ["vt %.6e %.6e\n" % tuple(r) for r in self.uv]
+        f1 = self.faces.astype(np.int64) + 1
+        if self.uv_idx is not None:
+            t1 = self.uv_idx.astype(np.int64) + 1
+            lines += [f"f {a}/{ta} {b}/{tb} {c}/{tc}\n"
+                      for (a, b, c), (ta, tb, tc) in zip(f1.tolist(),
+                                                         t1.tolist())]
+        else:
+            lines += [f"f {a} {b} {c}\n" for a, b, c in f1.tolist()]
+        with open(fname, "w") as fh:
+            fh.writelines(lines)
+
     def __repr__(self):
         return (f"Mesh[nv={self.num_vertices}, nf={self.num_faces}"
                 + (f", id={self.id}" if self.id else "") + "]")
+
+
+def _host(x) -> np.ndarray:
+    """A leaf (numpy array or tensor) as detached float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _vertex_normals_np(vp: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Host-side area-weighted vertex normals (the numpy twin of
+    ``compute_triangle_info``'s normal pass, for baking an offset)."""
+    p0, p1, p2 = vp[faces[:, 0]], vp[faces[:, 1]], vp[faces[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)
+    fa = np.linalg.norm(fn, axis=-1)
+    vn = np.zeros_like(vp)
+    vw = np.zeros((vp.shape[0],), vp.dtype)
+    for i in range(3):
+        np.add.at(vn, faces[:, i], fn)
+        np.add.at(vw, faces[:, i], fa)
+    vn = vn / np.maximum(vw, 1e-20)[:, None]
+    return vn / np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-20)
 
 
 def build_edges(faces: np.ndarray) -> np.ndarray:
@@ -227,6 +314,59 @@ def build_edges(faces: np.ndarray) -> np.ndarray:
     first = first[rows]
     return np.stack([lo[first], hi[first], face[first], second[rows],
                      opp[first]], axis=1).astype(np.int32)
+
+
+def load_obj(fname: str, **kwargs) -> Mesh:
+    """OBJ parser: v / vt / vn lines and faces in the v, v/t, v//n and
+    v/t/n forms, negative indices counted from the end, polygons split into
+    fans. Faces come in file order, as the JAX package's loaders give them
+    (the edge table's row order depends on it). ``kwargs`` go to ``Mesh``."""
+    verts, uvs, nrms = [], [], []
+    f_v, f_t, f_n = [], [], []
+    has_uv_face = has_nrm_face = False
+    with open(fname) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append((float(parts[1]), float(parts[2]),
+                              float(parts[3])))
+            elif line.startswith("vt "):
+                parts = line.split()
+                uvs.append((float(parts[1]), float(parts[2])))
+            elif line.startswith("vn "):
+                parts = line.split()
+                nrms.append((float(parts[1]), float(parts[2]),
+                             float(parts[3])))
+            elif line.startswith("f "):
+                idx, tdx, ndx = [], [], []
+                for p in line.split()[1:]:
+                    comp = p.split("/")
+                    v = int(comp[0])
+                    idx.append(v - 1 if v > 0 else len(verts) + v)
+                    if len(comp) > 1 and comp[1]:
+                        t = int(comp[1])
+                        tdx.append(t - 1 if t > 0 else len(uvs) + t)
+                        has_uv_face = True
+                    else:
+                        tdx.append(0)
+                    if len(comp) > 2 and comp[2]:
+                        nn = int(comp[2])
+                        ndx.append(nn - 1 if nn > 0 else len(nrms) + nn)
+                        has_nrm_face = True
+                    else:
+                        ndx.append(-1)      # no normal on this corner
+                for k in range(1, len(idx) - 1):
+                    f_v.append((idx[0], idx[k], idx[k + 1]))
+                    f_t.append((tdx[0], tdx[k], tdx[k + 1]))
+                    f_n.append((ndx[0], ndx[k], ndx[k + 1]))
+    uv = np.asarray(uvs, np.float32) if (uvs and has_uv_face) else None
+    use_n = bool(nrms) and has_nrm_face
+    return Mesh(np.asarray(verts, np.float32), np.asarray(f_v, np.int32),
+                uv=uv, uv_idx=np.asarray(f_t, np.int32) if uv is not None
+                else None,
+                normals=np.asarray(nrms, np.float32) if use_n else None,
+                normal_idx=np.asarray(f_n, np.int32) if use_n else None,
+                **kwargs)
 
 
 def sample_position(tri_info: TriangleInfo, face_distrb: Discrete,

@@ -1,5 +1,5 @@
-"""Procedural meshes (quads, icospheres), host numpy. Counterpart of
-``psdr_tpu/shape/primitives.py`` as far as ``testing/scenes.py`` needs it."""
+"""Procedural meshes (quads, boxes, icospheres), host numpy. Counterpart
+of ``psdr_tpu/shape/primitives.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,6 +16,25 @@ def make_quad(size: float = 1.0, z: float = 0.0, flip: bool = False, **kwargs) -
         faces = faces[:, ::-1].copy()
     uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
     return Mesh(vertices, faces, uv=uv, uv_idx=faces.copy(), **kwargs)
+
+
+def make_box(half: float = 1.0, inward: bool = False, **kwargs) -> Mesh:
+    """Axis-aligned box; ``inward=True`` flips faces (Cornell-box walls)."""
+    h = half
+    v = np.array([[x, y, z] for x in (-h, h) for y in (-h, h) for z in (-h, h)],
+                 np.float32)
+    # 12 triangles, outward-facing
+    f = np.array([
+        [0, 1, 3], [0, 3, 2],   # -x
+        [4, 6, 7], [4, 7, 5],   # +x
+        [0, 4, 5], [0, 5, 1],   # -y
+        [2, 3, 7], [2, 7, 6],   # +y
+        [0, 2, 6], [0, 6, 4],   # -z
+        [1, 5, 7], [1, 7, 3],   # +z
+    ], np.int32)
+    if inward:
+        f = f[:, ::-1].copy()
+    return Mesh(v, f, **kwargs)
 
 
 def make_icosphere(subdiv: int = 2, radius: float = 1.0, **kwargs) -> Mesh:

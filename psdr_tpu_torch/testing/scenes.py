@@ -22,6 +22,9 @@ an area light and a 512 x 1024 environment map. At
 scene: camera rays, the bounce and shadow rays from their hits, and a path
 tracer's later bounces; ``tiled_material_rays`` makes the BSDF-sampled
 bounce rays and the shadow rays toward environment-map samples.
+``write_scene`` writes a scene as XML, OBJ and EXR files for the loader;
+``flagship_deform`` is ``examples/flagship_recovery.py``'s deformation of
+the occluder.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from ..integrator.direct import _emitter_meta
 from ..scene.scene import ray_intersect, sample_emitter_position
 from ..sensor.perspective import sample_primary_ray
 from ..shape import primitives
+from ..shape.mesh import _host
 
 
 def cbox_scene(width=48, height=48, spp=4, sppe=0, sppse=0,
@@ -92,13 +96,16 @@ def cbox_scene(width=48, height=48, spp=4, sppe=0, sppse=0,
 
 
 def sphere_light_scene(width=32, height=32, spp=4, sppe=0, sppse=0,
-                       subdiv=1, device="cuda") -> Scene:
-    """Diffuse sphere on the z-axis lit by an overhead area light."""
+                       subdiv=1, vertex_offset=False,
+                       device="cuda") -> Scene:
+    """Diffuse sphere on the z-axis lit by an overhead area light; with
+    ``vertex_offset`` the sphere carries the 1D vertex offset leaf."""
     sc = Scene(device=device)
     white = sc.add_bsdf(Diffuse([0.8, 0.8, 0.8]), "white")
     grey = sc.add_bsdf(Diffuse([0.5, 0.5, 0.5]), "grey")
-    sc.add_mesh(primitives.make_icosphere(subdiv=subdiv, radius=1.0,
-                                          bsdf_id=white))
+    sc.add_mesh(primitives.make_icosphere(
+        subdiv=subdiv, radius=1.0, bsdf_id=white,
+        enable_vertex_offset=vertex_offset))
     floor = primitives.make_quad(size=8.0, bsdf_id=grey, enable_edges=False,
                                  use_face_normals=True)
     floor.set_transform(np.asarray(
@@ -234,14 +241,15 @@ def gradient_sky(h=16, w=32) -> np.ndarray:
 
 
 def env_scene(bsdf=None, width=24, height=24, spp=8, sppe=0, sppse=0,
-              device="cuda") -> Scene:
+              sky=None, device="cuda") -> Scene:
     """``tests/test_envmap.py::_env_scene``: a subdiv-2 icosphere of
     material ``bsdf`` (default ``Diffuse([0.7, 0.7, 0.7])``) under the
-    16 x 32 gradient sky, no other light."""
+    16 x 32 gradient sky (or the image ``sky``), no other light."""
     sc = Scene(device=device)
     b = sc.add_bsdf(Diffuse([0.7, 0.7, 0.7]) if bsdf is None else bsdf, "mat")
     sc.add_mesh(primitives.make_icosphere(subdiv=2, radius=1.0, bsdf_id=b))
-    sc.add_emitter(EnvironmentMap(gradient_sky(), scale=1.0))
+    sc.add_emitter(EnvironmentMap(gradient_sky() if sky is None else sky,
+                                  scale=1.0))
     cam = PerspectiveCamera(fov_x=40.0)
     cam.set_transform(np.asarray(xf.look_at([0, 0, 5], [0, 0, 0], [0, 1, 0])))
     sc.add_sensor(cam)
@@ -367,6 +375,103 @@ def env_bench_scene(width=512, height=512, spp=64, sppe=0, sppse=0,
     sc.opts = RenderOptions(width=width, height=height, spp=spp, sppe=sppe,
                             sppse=sppse)
     return sc
+
+
+def flagship_deform(v: np.ndarray) -> np.ndarray:
+    """``examples/flagship_recovery.py``'s deformation of the occluder's
+    raw vertices: a smooth bump about (0.25, 0, 0.1) plus a rigid shift."""
+    v = np.asarray(v, np.float32)
+    c = np.array([0.25, 0.0, 0.1], np.float32)
+    r2 = np.sum((v - c) ** 2, axis=1, keepdims=True)
+    bump = 0.12 * np.exp(-r2 / 0.05) * (v - c) / np.sqrt(
+        np.maximum(r2, 1e-8))
+    return (v + bump + np.array([0.06, -0.04, 0.03], np.float32)).astype(
+        np.float32)
+
+
+def _fmt(v) -> str:
+    return ", ".join("%.9g" % float(x) for x in np.ravel(v))
+
+
+def write_scene(scene: Scene, directory: str, name: str = "scene.xml",
+                integrator: str = "") -> str:
+    """Write ``scene`` as files the loader reads back: one OBJ per mesh
+    (``Mesh.dump``), one float EXR per image texture and for an
+    environment map (``core.exr.write_exr``, lossless), and the XML, whose
+    numbers carry nine significant digits. Diffuse and rough-conductor
+    BSDFs, area lights, an environment map, the first perspective sensor
+    and the film and sampler of ``scene.opts``; ``integrator`` is an
+    optional ``<integrator>`` element. The XML has no switch for a mesh's
+    edges: the loaded meshes all carry them. Returns the XML's path."""
+    import os
+
+    from ..core.exr import write_exr
+
+    lines = ['<scene version="0.5.0">']
+    if integrator:
+        lines.append(integrator)
+
+    def matrix(m):
+        return f'<transform name="to_world"><matrix value="{_fmt(m)}"/>' \
+               '</transform>'
+
+    def param(tag_name, data, fname):
+        data = _host(data)
+        if data.shape[:2] != (1, 1):
+            write_exr(os.path.join(directory, fname), data)
+            return (f'<texture name="{tag_name}" type="bitmap"><string '
+                    f'name="filename" value="{fname}"/></texture>')
+        if data.shape[-1] == 1:
+            return f'<float name="{tag_name}" value="{_fmt(data)}"/>'
+        return f'<rgb name="{tag_name}" value="{_fmt(data)}"/>'
+
+    cam = scene.sensors[0]
+    o = scene.opts
+    lines.append(
+        f'<sensor type="perspective"><float name="fov" value="{cam.fov_x!r}"/>'
+        f'<float name="near_clip" value="{cam.near_clip!r}"/>'
+        f'<float name="far_clip" value="{cam.far_clip!r}"/>'
+        + matrix(_host(cam.to_world))
+        + f'<sampler type="independent"><integer name="sample_count" '
+        f'value="{o.spp}"/></sampler><film type="hdrfilm"><integer '
+        f'name="width" value="{o.width}"/><integer name="height" '
+        f'value="{o.height}"/></film></sensor>')
+    ids = []
+    for i, b in enumerate(scene.bsdfs):
+        bid = b.id or f"bsdf{i}"
+        ids.append(bid)
+        fields = b.params()
+        lines.append(f'<bsdf type="{b.kind}" id="{bid}">' + "".join(
+            param(k, v, f"{bid}_{k}.exr") for k, v in fields.items())
+            + '</bsdf>')
+    for i, em in enumerate(scene.emitters):
+        if isinstance(em, EnvironmentMap):
+            fname = f"envmap{i}.exr"
+            write_exr(os.path.join(directory, fname), _host(em.radiance.data))
+            lines.append(
+                f'<emitter type="envmap"><string name="filename" '
+                f'value="{fname}"/><float name="scale" '
+                f'value="{_fmt(_host(em.scale))}"/>'
+                + matrix(_host(em.to_world)) + '</emitter>')
+    for i, m in enumerate(scene.meshes):
+        fname = f"mesh{i}.obj"
+        m.dump(os.path.join(directory, fname))
+        world = m.to_world_left @ _host(m.to_world) @ m.to_world_right
+        body = [f'<string name="filename" value="{fname}"/>', matrix(world)]
+        if m.use_face_normals:
+            body.append('<boolean name="face_normals" value="true"/>')
+        if m.bsdf_id >= 0:
+            body.append(f'<ref id="{ids[m.bsdf_id]}"/>')
+        if m.emitter_id >= 0:
+            rad = _host(scene.emitters[m.emitter_id].radiance)
+            body.append(f'<emitter type="area"><rgb name="radiance" '
+                        f'value="{_fmt(rad)}"/></emitter>')
+        lines.append('<shape type="obj">' + "".join(body) + '</shape>')
+    lines.append('</scene>')
+    path = os.path.join(directory, name)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 def triangle_soup(n_tris=2048, n_rays=600):

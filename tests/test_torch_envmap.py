@@ -1,6 +1,8 @@
 """The port's environment map against the JAX package's on the CPU: the
 host-side mass grid and frozen cmf bit for bit, ``configure_envmap`` on its
-three grids, the four direction and position functions lane by lane on the
+three grids and under its two opt-in tables (the alias table and the
+hierarchical warp: host builds bit for bit, samplers lane by lane, renders
+per pixel, gradients per leaf), the four direction and position functions lane by lane on the
 JAX package's importance table (``convert.envmap_state_from_numpy``: XLA's
 scan and torch's cumsum differ in the last place, and a sample between the
 two values picks another cell), ``Scene.build``'s bounding mesh, ``renderC``
@@ -24,6 +26,8 @@ import psdr_tpu as J
 import psdr_tpu_torch as T
 from psdr_tpu.emitter import envmap as j_env
 from psdr_tpu_torch.convert import envmap_state_from_numpy, params_from_numpy
+from psdr_tpu.core import distribution as j_dist
+from psdr_tpu_torch.core import distribution as t_dist
 from psdr_tpu_torch.core import threefry
 from psdr_tpu_torch.core import transform as t_xf
 from psdr_tpu_torch.emitter import envmap as t_env
@@ -146,22 +150,43 @@ def test_configure_envmap_grids_match_jax(grid, monkeypatch):
 
 @pytest.mark.parametrize("switch", ["PSDR_TPU_ENV_ALIAS", "PSDR_TPU_ENV_HIER"])
 def test_alias_and_hier_switches_raise_by_name(switch, monkeypatch):
-    """Where the JAX package would take its alias table or its hierarchical
-    warp (a grid above 2^15 cells with a host snapshot), the port raises
-    and names the queue; on a small grid both packages ignore the switch."""
+    """Where the JAX package takes its alias table or its hierarchical
+    warp (a grid above 2^15 cells with a host snapshot), so does the port,
+    on the parity grid (a default divisor of 1), bit for bit; on a small
+    grid both ignore the switch. Beyond their bounds the host builders
+    raise and say which (2^24 alias cells; 4096 hier cells an axis)."""
     monkeypatch.setenv(switch, "1")
     rad = _sky(70, 130)
-    p = {"radiance": _t(rad), "scale": torch.tensor(1.0),
-         "to_world": torch.eye(4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        t_env.configure_envmap(p, torch.zeros(3), torch.ones(3),
-                               host_radiance=rad)
-    small = dict(p, radiance=_t(_sky(16, 32)))
+    p = {"radiance": rad, "scale": np.float32(1.0),
+         "to_world": np.eye(4, dtype=np.float32)}
+    lower, upper = np.zeros(3, np.float32), np.ones(3, np.float32)
+    jst = j_env.configure_envmap({k: jnp.asarray(v) for k, v in p.items()},
+                                 jnp.asarray(lower), jnp.asarray(upper),
+                                 host_radiance=rad)
+    tst = t_env.configure_envmap({k: _t(np.asarray(v)) for k, v in p.items()},
+                                 _t(lower), _t(upper), host_radiance=rad)
+    jh, th = jst.cell_distrb, tst.cell_distrb
+    assert th.resolution == tuple(int(r) for r in jh.resolution) == (258, 138)
+    assert th.distrb is None and th.cells.shape == (0, 2)
+    assert th.num_cells == jh.num_cells == 258 * 138
+    name = "alias" if switch.endswith("ALIAS") else "hier"
+    jt, tt = getattr(jh, name), getattr(th, name)
+    assert getattr(th, {"alias": "hier", "hier": "alias"}[name]) is None
+    for f in jt._fields:
+        a, b = getattr(jt, f), getattr(tt, f)
+        for x, y in (zip(a, b) if f == "levels" else [(a, b)]):
+            assert _np(y).tobytes() == np.asarray(x).tobytes(), f
+    small = dict(p, radiance=_t(_sky(16, 32)), scale=torch.tensor(1.0),
+                 to_world=torch.eye(4))
     st = t_env.configure_envmap(small, torch.zeros(3), torch.ones(3),
                                 host_radiance=_sky(16, 32))
     assert st.cell_distrb.resolution == (62, 30)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        t_env._frozen_tables(rad, 8, 8, 8, 8, "alias")
+    assert st.cell_distrb.alias is None and st.cell_distrb.hier is None
+    with pytest.raises(ValueError, match="4096 cells per axis"):
+        t_env.hier2d_host(np.ones(8200 * 2), 8200, 2)
+    with pytest.raises(ValueError, match="2\\^24 cells"):
+        t_dist.alias_sample_reuse(t_dist.AliasTable(
+            packed=None, pmf=np.zeros(1 << 24), total=1.0), torch.zeros(1))
 
 
 # -- the build --------------------------------------------------------------------
@@ -442,3 +467,168 @@ def test_env_rotation_forward_mode_equals_reverse_mode(bsdf):
     (image(a) * w).sum().backward()
     np.testing.assert_allclose(a.grad.item(), (tan * w).sum().item(),
                                rtol=1e-3)
+
+
+# -- the opt-in tables: PSDR_TPU_ENV_ALIAS=1, PSDR_TPU_ENV_HIER=1 --------------------
+
+def _masses(n, seed):
+    """Cell masses with zero runs, a spike and a spread of magnitudes."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(0.0, 1.0, n) ** 3
+    m[rng.uniform(size=n) < 0.2] = 0.0
+    m[n // 3] = 500.0
+    return m
+
+
+@pytest.mark.parametrize("gw,gh", [(40, 30), (258, 138), (398, 198)])
+def test_alias_and_hier_host_tables_bit_for_bit(gw, gh):
+    """``alias_table_host`` and ``hier2d_host`` are the JAX package's
+    float64 numpy builds, copied: equal bit for bit, the all-zero mass's
+    uniform fallback included."""
+    for mass in (_masses(gw * gh, gw), np.zeros(gw * gh)):
+        ja, ta = j_dist.alias_table_host(mass), t_dist.alias_table_host(mass)
+        for f in ja._fields:
+            assert (np.asarray(getattr(ta, f)).tobytes()
+                    == np.asarray(getattr(ja, f)).tobytes()), f
+        jh, th = j_dist.hier2d_host(mass, gw, gh), t_dist.hier2d_host(
+            mass, gw, gh)
+        assert [t.shape for t in th.levels] == [t.shape for t in jh.levels]
+        for a, b in zip(jh.levels, th.levels):
+            assert a.tobytes() == b.tobytes()
+        assert th.pmf.tobytes() == jh.pmf.tobytes() and th.total == jh.total
+    assert t_dist._hier_split_plan(512, 256) == j_dist._hier_split_plan(
+        512, 256) == [(8, 8), (8, 8), (8, 4)]
+
+
+def _on_torch(table):
+    return type(table)(*(tuple(_t(x) for x in v) if isinstance(v, tuple)
+                         else _t(np.asarray(v)) for v in table))
+
+
+def _on_jax(table):
+    return type(table)(*(tuple(jnp.asarray(x) for x in v)
+                         if isinstance(v, tuple) else jnp.asarray(v)
+                         for v in table))
+
+
+def test_alias_sample_reuse_bit_equal():
+    """65,536 uniforms (0 and the largest below 1 among them) through a
+    398 x 198 alias table: index, pdf and remapped uniform equal to the JAX
+    sampler's bit for bit on every lane; hypercube_pdf too."""
+    mass = _masses(398 * 198, 1)
+    at = j_dist.alias_table_host(mass)
+    rng = np.random.default_rng(6)
+    u = rng.uniform(size=1 << 16).astype(np.float32)
+    u[:2] = [0.0, np.nextafter(np.float32(1), np.float32(0))]
+    want = j_dist.alias_sample_reuse(_on_jax(at), jnp.asarray(u))
+    got = t_dist.alias_sample_reuse(_on_torch(at), _t(u))
+    for w, g in zip(want, got):
+        assert _np(g).tobytes() == np.asarray(w).tobytes()
+    reso = (398, 198)
+    jhc = j_dist.HyperCube(distrb=None, cells=jnp.zeros((0, 2), jnp.int32),
+                           resolution=jnp.asarray(reso, jnp.int32),
+                           unit=1.0 / jnp.asarray(reso, jnp.float32),
+                           alias=_on_jax(at))
+    thc = t_dist.HyperCube(distrb=None, cells=torch.zeros((0, 2)),
+                           resolution=reso,
+                           unit=1.0 / torch.tensor(reso, dtype=torch.float32),
+                           alias=_on_torch(at))
+    s2 = rng.uniform(size=(4096, 2)).astype(np.float32)
+    jw, jp = j_dist.hypercube_sample_reuse(jhc, jnp.asarray(s2))
+    tw, tp = t_dist.hypercube_sample_reuse(thc, _t(s2))
+    np.testing.assert_allclose(_np(tw), np.asarray(jw), rtol=0, atol=1e-7)
+    assert _np(tp).tobytes() == np.asarray(jp).tobytes()
+    np.testing.assert_array_equal(_np(t_dist.hypercube_pdf(thc, tw)),
+                                  np.asarray(j_dist.hypercube_pdf(jhc, jw)))
+
+
+@pytest.mark.parametrize("gw,gh", [(258, 138), (398, 198), (1022, 510),
+                                   (4000, 2000)])
+def test_hier2d_sample_reuse_lane_by_lane(gw, gh):
+    """65,536 sample pairs through the hierarchical warp against the JAX
+    sampler. Should a row's sums round apart from XLA's, a pair within a
+    last place of a bin border would land one cell over: at most 1 in 2,000
+    lanes may pick another cell (measured: none, on every grid here, since
+    ``_invcdf_small`` adds its running sum left to right as XLA does; with
+    torch.cumsum 1 of 65,536 at 4000 x 2000 and the in-cell point off by up
+    to 0.09 of a cell). On the others the warped point and the cell pdf are
+    equal bit for bit; hypercube_pdf at the port's points is the port's
+    sampled pdf."""
+    h = j_dist.hier2d_host(_masses(gw * gh, 2), gw, gh)
+    rng = np.random.default_rng(7)
+    s = rng.uniform(size=(1 << 16, 2)).astype(np.float32)
+    jw, jp = map(np.asarray, j_dist.hier2d_sample_reuse(
+        _on_jax(h), jnp.asarray(s), (gw, gh)))
+    tw, tp = map(_np, t_dist.hier2d_sample_reuse(_on_torch(h), _t(s),
+                                                 (gw, gh)))
+    reso = np.array([gw, gh])
+    jc, tc = np.floor(jw * reso), np.floor(tw * reso)
+    same = (jc == tc).all(-1)
+    assert (~same).sum() <= len(s) // 2000, (~same).sum()
+    assert tp[same].tobytes() == jp[same].tobytes()
+    assert tw[same].tobytes() == jw[same].tobytes()
+    hc = t_dist.HyperCube(distrb=None, cells=torch.zeros((0, 2)),
+                          resolution=(gw, gh),
+                          unit=1.0 / torch.tensor((gw, gh),
+                                                  dtype=torch.float32),
+                          hier=_on_torch(h))
+    np.testing.assert_array_equal(
+        _np(t_dist.hypercube_pdf(hc, _t(tw))), tp * np.float32(gw * gh))
+    assert (tp > 0).all()
+
+
+def _big_sky_pair(switch, monkeypatch, bsdf="diffuse", **kw):
+    """env_scene in both packages under a 100 x 200 sky (a 398 x 198 grid,
+    above 2^15 cells) with the map rotated and ``switch`` on. Both build
+    the same host table, so nothing is carried across."""
+    monkeypatch.setenv(switch, "1")
+    mats = {"diffuse": lambda lib: lib.Diffuse([0.7, 0.7, 0.7]),
+            "rough": lambda lib: lib.RoughConductor(alpha_u=0.3, alpha_v=0.2)}
+    js = j_env_scene(mats[bsdf](J))
+    js.opts = J.RenderOptions(**{**dict(width=24, height=24, spp=8), **kw})
+    ts = t_scenes.env_scene(mats[bsdf](T), **kw, **CPU)
+    sky = _sky(100, 200, seed=3)
+    for sc in (js, ts):
+        sc.emitters[0].set_params(dict(sc.emitters[0].params(), radiance=sky,
+                                       to_world=_rotation()))
+    for jm, tm in zip(js.meshes, ts.meshes):
+        tm.edge_indices = jm.edge_indices
+    name = "alias" if switch.endswith("ALIAS") else "hier"
+    tf = ts.build(params_from_numpy(ts.params(), **CPU))
+    assert getattr(tf.envmap.cell_distrb, name) is not None
+    assert tf.envmap.cell_distrb.resolution == (398, 198)
+    return js, ts
+
+
+@pytest.mark.parametrize("integ", ["direct(1,1)", "direct(0,2)", "path(3)"])
+@pytest.mark.parametrize("switch", ["PSDR_TPU_ENV_ALIAS", "PSDR_TPU_ENV_HIER"])
+def test_env_opt_in_renderC_matches_jax(switch, integ, monkeypatch):
+    """renderC of env_scene under each switch, MIS, light sampling only and
+    three bounces: at least 99% of pixels allclose (rtol 1e-4, atol 1e-5),
+    means to 1e-4."""
+    js, ts = _big_sky_pair(switch, monkeypatch)
+    make = INTEGRATORS[integ]
+    want = np.asarray(jax.jit(make(J).render_fn(
+        js, with_boundary=False, detached=True))(js.params(),
+                                                 jax.random.PRNGKey(6)))
+    got = _np(make(T).render_fn(ts, with_boundary=False, detached=True)(
+        params_from_numpy(js.params(), **CPU), threefry.PRNGKey(6)))
+    _assert_images_match(got, want)
+
+
+@pytest.mark.parametrize("switch", ["PSDR_TPU_ENV_ALIAS", "PSDR_TPU_ENV_HIER"])
+def test_env_opt_in_value_and_grad_matches_jax_forward_mode(switch,
+                                                            monkeypatch):
+    """value_and_grad of mean(img^2) under each switch, PathTracer(2) with
+    the boundary terms (their emitter points come from the table), 12 x 12
+    at spp 4, against the JAX package's forward-mode derivative per leaf
+    (``jvp_reference``): loss to 1e-5, every leaf within 1e-2 and finite,
+    the map's texels and rotation among them."""
+    kw = dict(width=12, height=12, spp=4, sppe=2, sppse=8)
+    js, ts = _big_sky_pair(switch, monkeypatch, **kw)
+    j_loss, ref = jvp_reference(js, J.PathTracer(2), 3, True)
+    t_loss, p = _port_grad(ts, js.params(), T.PathTracer(2), 3, True)
+    assert abs(t_loss - j_loss) <= 1e-5 * j_loss
+    assert assert_matches_jvp_reference(ref, p) < 1e-2
+    for k in ("radiance", "to_world"):
+        assert p["emitters"][0][k].grad.abs().sum() > 0, k

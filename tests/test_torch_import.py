@@ -21,7 +21,8 @@ def test_import_without_jax():
     boundary code runs: the edge table, the HyperCube functions, the
     guiding preprocess and a boundary render with its backward on the CPU
     at 8x8; and the materials and lights: a rough conductor under an
-    environment map, a textured quad and an AOV."""
+    environment map, a textured quad and an AOV; and the loader, the EXR
+    codecs, an optimizer step and the harness."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -31,7 +32,9 @@ def test_import_without_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('core.gather', 'accel.intersect', 'accel.bruteforce',"
         " 'bsdf.ggx', 'bsdf.roughconductor', 'emitter.envmap',"
-        " 'integrator.field', 'core.bitmap'):\n"
+        " 'integrator.field', 'core.bitmap', 'scene.loader', 'opt',"
+        " 'testing.harness', 'testing.differential', 'profiling',"
+        " 'core.exr', 'core.piz', 'core.b44'):\n"
         "    assert 'psdr_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
@@ -74,6 +77,32 @@ def test_import_without_jax():
         " spp=1, device='cpu')\n"
         "assert FieldExtractionIntegrator('uv').renderC(sc).shape"
         " == (8, 8, 3)\n"
+        "import os, tempfile\n"
+        "from psdr_tpu_torch import load_string, opt, testing\n"
+        "from psdr_tpu_torch.core.exr import read_exr, write_exr\n"
+        "d = tempfile.mkdtemp()\n"
+        "open(os.path.join(d, 'q.obj'), 'w').write('v -1 -1 0\\nv 1 -1 0"
+        "\\nv 1 1 0\\nv -1 1 0\\nf 1 2 3 4\\n')\n"
+        "write_exr(os.path.join(d, 't.exr'), np.full((4, 4, 3), 0.5,"
+        " np.float32), compression='piz')\n"
+        "assert read_exr(os.path.join(d, 't.exr')).shape == (4, 4, 3)\n"
+        "sc = load_string('<scene><sensor type=\"perspective\"><transform"
+        " name=\"to_world\"><lookat origin=\"0,0,3\" target=\"0,0,0\""
+        " up=\"0,1,0\"/></transform><film type=\"hdrfilm\"><integer"
+        " name=\"width\" value=\"8\"/><integer name=\"height\""
+        " value=\"8\"/></film></sensor><bsdf type=\"diffuse\" id=\"w\">"
+        "<texture name=\"reflectance\" type=\"bitmap\"><string"
+        " name=\"filename\" value=\"t.exr\"/></texture></bsdf><shape"
+        " type=\"obj\"><string name=\"filename\" value=\"q.obj\"/>"
+        "<ref id=\"w\"/><emitter type=\"area\"><rgb name=\"radiance\""
+        " value=\"1\"/></emitter></shape></scene>', base_dir=d,"
+        " device='cpu')\n"
+        "o = opt.Optimizer(sc, ['BSDF[id=w].reflectance'], lr=0.1)\n"
+        "r = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False)\n"
+        "o.step(lambda p, k: r(p, k).mean(), threefry.PRNGKey(0))\n"
+        "assert o.state['count'] == 1\n"
+        "assert testing.run_ad(sc, DirectIntegrator(1, 1),"
+        " 'mesh_transform').shape == (8, 8, 3)\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n")
@@ -122,3 +151,29 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         intersect.load_library(nvcc=str(tmp_path / "no-such-nvcc"))
     assert not any(tmp_path.rglob("*.so"))
+
+
+def test_profiling_times_and_traces_on_the_cpu(tmp_path, capsys):
+    """``timed`` records and prints a block's wall time (``block`` on CPU
+    tensors waits for nothing), ``trace`` writes a Chrome trace of the
+    block, ``render_timed`` returns renderC's image and its seconds and
+    prints only under ``log_level``."""
+    import dataclasses
+
+    from psdr_tpu_torch import DirectIntegrator, profiling
+    from psdr_tpu_torch.testing.scenes import sphere_light_scene
+    holder = {}
+    with profiling.timed("block", holder) as h:
+        x = h.block({"a": [torch.ones(3) * 2]})
+    assert x["a"][0].sum() == 6 and holder["block"] == h.elapsed > 0
+    assert "[psdr_tpu_torch] block:" in capsys.readouterr().out
+    with profiling.trace(str(tmp_path / "tr")):
+        torch.ones(64).cumsum(0)
+    assert "aten::cumsum" in (tmp_path / "tr" / "trace.json").read_text()
+    sc = sphere_light_scene(8, 8, spp=1, device="cpu")
+    img, secs = profiling.render_timed(DirectIntegrator(1, 1), sc)
+    assert img.shape == (8, 8, 3) and secs > 0
+    assert capsys.readouterr().out == ""
+    sc.opts = dataclasses.replace(sc.opts, log_level=1)
+    profiling.render_timed(DirectIntegrator(1, 1), sc)
+    assert "renderC" in capsys.readouterr().out

@@ -118,9 +118,9 @@ def test_unported_options_raise():
     """What the port still leaves out raises NotImplementedError instead of
     doing something else, and names its place in ROADMAP.md's queue: lane
     sharding (``shard=`` of every term), the lane-sharded guiding build
-    (``mesh=``), the 1D vertex offset, an emitter or a BSDF of an unknown
-    kind (in the build, and so in render_fn and renderD). The boundary
-    options (sppe/sppse > 0) build and render."""
+    (``mesh=``), an emitter or a BSDF of an unknown kind (in the build, and
+    so in render_fn and renderD). The boundary options (sppe/sppse > 0)
+    build and render, and the 1D vertex offset, once left out, is a leaf."""
     from psdr_tpu_torch.integrator.direct import _emitter_meta
 
     ts = t_cbox(width=8, height=8, spp=1, sppe=1, sppse=1, occluder_subdiv=1,
@@ -139,8 +139,8 @@ def test_unported_options_raise():
         integ.preprocess_secondary_edges(ts, 0, (2, 2, 2, 1), mesh=object())
 
     from psdr_tpu_torch.shape import primitives
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        primitives.make_quad(enable_vertex_offset=True)
+    quad = primitives.make_quad(enable_vertex_offset=True)
+    assert quad.params()["vertex_offset"].shape == (4,)
 
     class PointLight:       # stands in for an emitter kind of no package
         kind = "point"
