@@ -96,7 +96,7 @@ Every phase passes or the script exits nonzero:
     the written ones, ``renderC`` at 64x64, spp 4 matches the CPU's load
     under phase 4's gates, and the forward at phase 5's config launches K1
     and K2 as phase 5 did;
-22. the main path of this slice, the trainer at full width: the same scene
+22. the main path of slice 7, the trainer at full width: the same scene
     loaded at ``examples/flagship_recovery.py``'s config (256x256, spp 16,
     sppe 4, sppse 32, one view), a target rendered at the true shape, the
     occluder started from the flagship's deformation, and
@@ -121,7 +121,35 @@ Every phase passes or the script exits nonzero:
 24. the environment map's opt-in tables (``PSDR_TPU_ENV_ALIAS=1``,
     ``PSDR_TPU_ENV_HIER=1``) on a 100 x 200 sky (a 398 x 198 grid): render
     and gradient on the card against the CPU; then ``env_bench_scene``'s
-    forward (phase 18's config) under each, beside the frozen cmf's.
+    forward (phase 18's config) under each, beside the frozen cmf's;
+25. the sharded paths (``psdr_tpu_torch.parallel``) over two gloo ranks
+    that share the card (gloo takes CUDA tensors; NCCL cannot put two ranks
+    on one card): phase 12's boundary step through ``shard_render_fn``,
+    split by budget (spp 16) and by lanes (spp 15, which 2 does not
+    divide), each image against ``per_device_render_fn``'s serial emulation
+    on the card (rtol 2e-5, atol 2e-6) and each gradient leaf within
+    SHARD_REL_L2 of it (the rank bodies are ``testing.ranks``'s, as the
+    tests run them); ``make_train_step`` under ``sgd(STEP_LR)`` with
+    ``overlap=True`` against ``overlap=False`` and the emulation; the
+    collective guiding table at phase 11's size against the serial one;
+    a one-rank NCCL group through ``shard_render_fn`` against the plain
+    render, launch counts included; seconds per sharded step, which are
+    ranks sharing one card and no scaling figure;
+26. ``make_multiview_train_step`` at the flagship's full config (256x256,
+    spp 16, sppe 4, sppse 32, the 20,492-face scene, 3 views on 3 gloo
+    ranks) from the deformed occluder: loss and updated vertices against a
+    serial emulation of the same step (SHARD_REL_L2), beside the
+    emulation's own run-to-run spread within this process and across two
+    others; seconds per step;
+27. the main path of this slice: ``examples.flagship_recovery`` at full
+    width (3 views, the bench scene, ``flagship_deform`` as the start,
+    smoothed gradients, masked Adam with ``exponential_decay``) for
+    FLAGSHIP_ITERS iterations, every iteration with a finite loss and
+    gradient and K1 (both modes) and K2 launched, the vertex RMSE below its
+    start at the end; the loss and RMSE curve and seconds an iteration;
+    then K1 and K2 on the inputs of every distinct launch of one
+    iteration (three views), each against its plain version, timed and
+    counted for its bound: the kernels line's times are these.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -192,6 +220,35 @@ ENV_OPT_BOUNDARY = dict(width=32, height=32, spp=2, sppe=2, sppse=8)
 # card against CPU derivative images of run_ad and run_fd, relative L2,
 # plus the card's own run-to-run spread (read 6.3e-7 and 3.2e-7, PERF.md)
 HARNESS_REL_L2 = 1e-4
+# phases 25-27: the sharded steps and the flagship. Phase 25 runs phase 12's
+# boundary step over SHARD_RANKS gloo ranks sharing the card, split by
+# budget (spp 16) and by lanes (an spp no rank count divides); phase 26 the
+# multi-view step at the flagship's full config, one view a rank; phase 27
+# the flagship's recovery loop for FLAGSHIP_ITERS iterations (about 25 s on
+# the card, what the script's time limit leaves; the 100-plus-iteration run
+# goes through the example). A sharded gradient must equal its serial
+# emulation on the card within SHARD_REL_L2 relative L2 per leaf (and
+# GRAD_COS). Read 1.4e-6 to 2.0e-5, and once 2.8e-4 of unknown cause
+# (PERF.md); phase 26 prints the emulation's run-to-run spread within one
+# process and across processes, which read the same (1.4e-6 at most), so
+# the processes do not round apart. The bound stands 7x above that one
+# reading; a sum that double-counted the replicated cotangent would be off
+# by 50%, ranks that drew other lanes by the Monte-Carlo noise
+SHARD_REL_L2 = 2e-3
+SHARD_RANKS = 2
+SHARD_LANES_SPP = 15
+SHARD_KEY = 11
+MV_RANKS = 3
+MV_STEPS = 3
+MV_SPREAD_RUNS = 3      # runs of phase 26's emulation in each of 3 processes
+# the SGD rate of the checked train steps (phases 25, 26): a step of 1e3
+# times a gradient stands far above the float32 rounding of the parameter
+# it moves, so the updated params carry the gradient's digits (at a rate
+# of 1 the rounding alone read 1.3e-4 and 5.2e-4 relative L2, PERF.md)
+STEP_LR = 1e3
+FLAGSHIP_ITERS = 30
+FLAGSHIP_CAPTURE = 1    # the iteration whose K1 and K2 inputs phase 27 keeps
+RANK_TIMEOUT = 600      # seconds a phase's ranks may take, spawn included
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
 GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
@@ -1332,7 +1389,8 @@ def masked_texel_reads(dev, sc):
 
 
 def tolerant(intersect, err, tris, tally):
-    """``comparer``'s twin for rays that may be badly conditioned: lanes on
+    """``comparer``'s twin for rays that may be badly conditioned (``tris``
+    None: each launch's own tree's triangles): lanes on
     which K1 and ``k1_plain`` differ are counted into ``tally[label]``, and
     on those lanes K1 must equal its own walk in tensor code
     (``k1_walk_plain``), which differs from ``k1_plain`` only where a hit's
@@ -1363,7 +1421,9 @@ def tolerant(intersect, err, tris, tally):
             hk = type(hk)(*(getattr(hk, f)[keep] for f in hk._fields))
             hp = type(hp)(*(getattr(hp, f)[keep] for f in hp._fields))
             args = (bvh, *(x[keep].contiguous() for x in rays))
-        e, _ = (check_any_hits(f"{label} {mode}", args, tris, hk, hp)
+        e, _ = (check_any_hits(f"{label} {mode}", args,
+                               bvh_tris(args[0]) if tris is None else tris,
+                               hk, hp)
                 if any_hit else exact(f"{label} {mode}", hk, hp))
         err[mode].append((e, 0))
     return compare
@@ -1504,21 +1564,26 @@ def loader_phase(intersect, dev, tmp, fwd_launches):
     return launches, dt
 
 
-def capture_queries(intersect, fn):
-    """Run ``fn()`` with the inputs of its K1 and K2 launches recorded, one
-    record a distinct (mode, caller, rays, active rays): a checkpointed
+class QueryRecorder:
+    """While it stands, the inputs of K1's and K2's launches are recorded,
+    one record a distinct (mode, caller, rays, active rays): a checkpointed
     pass's recompute repeats its launches. The caller names the render
     term, the estimator and, after a slash, the scene query that launched
-    the kernel. Returns
-    (fn's result, [(mode, caller, kernel args)]), mode "closest", "any" or
+    the kernel. ``stop()`` ends the recording (a second call does nothing)
+    and returns [(mode, caller, kernel args)], mode "closest", "any" or
     "k2"; K1's args are (bvh, ray_o, ray_d, active, tmax), K2's (p0, e1,
     e2, ray_o, ray_d, active, tmax)."""
-    k1, k2 = intersect.k1_cuda, intersect.k2_cuda
-    seen = {}
 
+    def __init__(self, intersect):
+        self.intersect = intersect
+        self.k1, self.k2 = intersect.k1_cuda, intersect.k2_cuda
+        self.seen = {}
+        intersect.k1_cuda, intersect.k2_cuda = self.k1_rec, self.k2_rec
+
+    @staticmethod
     def caller():
         query = estimator = None
-        f = sys._getframe(2)
+        f = sys._getframe(3)
         while f is not None:
             mod, name = f.f_globals.get("__name__", ""), f.f_code.co_name
             if mod == "psdr_tpu_torch.scene.scene":
@@ -1532,42 +1597,65 @@ def capture_queries(intersect, fn):
             f = f.f_back
         return f"{estimator} / {query}"
 
-    def record(mode, args):
-        key = (mode, caller(), args[-4].shape[0], int(args[-2].sum()))
-        seen.setdefault(key, args)
+    def record(self, mode, args):
+        key = (mode, self.caller(), args[-4].shape[0], int(args[-2].sum()))
+        self.seen.setdefault(key, args)
 
-    def k1_rec(bvh, ray_o, ray_d, active, tmax, any_hit=False, counts=None):
+    def k1_rec(self, bvh, ray_o, ray_d, active, tmax, any_hit=False,
+               counts=None):
         args = (bvh, ray_o, ray_d, active, tmax)
-        record("any" if any_hit else "closest", args)
-        return k1(*args, any_hit=any_hit, counts=counts)
+        self.record("any" if any_hit else "closest", args)
+        return self.k1(*args, any_hit=any_hit, counts=counts)
 
-    def k2_rec(*args):
-        record("k2", args)
-        return k2(*args)
+    def k2_rec(self, *args):
+        self.record("k2", args)
+        return self.k2(*args)
 
-    intersect.k1_cuda, intersect.k2_cuda = k1_rec, k2_rec
+    def stop(self) -> list:
+        if self.intersect.k1_cuda == self.k1_rec:
+            self.intersect.k1_cuda, self.intersect.k2_cuda = self.k1, self.k2
+        return [(mode, label, args)
+                for (mode, label, _, _), args in self.seen.items()]
+
+
+def capture_queries(intersect, fn):
+    """(``fn()``, the records of ``QueryRecorder`` over its run)."""
+    recorder = QueryRecorder(intersect)
     try:
         out = fn()
     finally:
-        intersect.k1_cuda, intersect.k2_cuda = k1, k2
-    return out, [(mode, label, args)
-                 for (mode, label, _, _), args in seen.items()]
+        records = recorder.stop()
+    return out, records
 
 
-def trainer_shapes(intersect, records, tris, tree):
-    """Phase 22: K1 and K2 on one trainer step's own inputs (``records`` of
-    ``capture_queries``) on ``tree`` (its name), over the step's triangles
-    ``tris`` (p0, e1, e2): each against its plain version (K1 through
-    ``tolerant``), timed and counted for its bound. Returns ({shape: dict}
-    of K1, the same of K2, {mode: [(max |dt|, valid mismatches), ...]} with
-    K2's under "k2", {label: lanes on which K1 and k1_plain differ},
-    {mode: the shape with the most active rays})."""
+def bvh_tris(bvh):
+    """The triangles (p0, e1, e2), each (faces, 3), that K1 reads from the
+    leaf rows of ``bvh``, by original triangle id."""
+    P, L = bvh.num_leaves, bvh.leaf_size
+    slots = bvh.leaf_tris.reshape(P, 9, L).permute(0, 2, 1).reshape(P * L, 9)
+    perm = bvh.perm.long()
+    real = perm >= 0
+    tris = torch.zeros((int(perm.max()) + 1, 9), dtype=slots.dtype,
+                       device=slots.device)
+    tris[perm[real]] = slots[real]
+    return tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+
+
+def captured_shapes(intersect, records, tris, prefix):
+    """K1 and K2 on a step's own inputs (``records`` of ``QueryRecorder``),
+    each shape named ``prefix`` and its caller, over the step's triangles
+    ``tris`` (p0, e1, e2; None: those of each launch's tree): each against
+    its plain version (K1 through ``tolerant``), timed and counted for its
+    bound. Returns ({shape: dict} of K1, the same of K2, {mode: [(max |dt|,
+    valid mismatches), ...]} with K2's under "k2", {label: lanes on which
+    K1 and k1_plain differ}, {mode: the shape with the most active
+    rays})."""
     err = {"closest": [], "any": [], "k2": []}
     tally, k1_shapes, k2_shapes, main = {}, {}, {}, {}
     compare = tolerant(intersect, err, tris, tally)
     for mode, label, args in records:
         n, active = args[-4].shape[0], int(args[-2].sum())
-        name = f"trainer {tree}, {label}"
+        name = f"{prefix}, {label}"
         same = sum(k == name or k.startswith(f"{name} #")
                    for k in (k2_shapes if mode == "k2" else k1_shapes))
         if same:
@@ -1589,7 +1677,7 @@ def trainer_shapes(intersect, records, tris, tree):
 def trainer_phase(intersect, dev, tmp):
     """Phase 22: the trainer at full width (see the module docstring).
     Returns (the launch counts of the five timed steps, a dict of the
-    measures, and K1 and K2 on a step's own inputs as ``trainer_shapes``
+    measures, and K1 and K2 on a step's own inputs as ``captured_shapes``
     gives them for the refit tree and the rebuilt tree together, with the
     refit tree's shapes of the most active rays as the main ones)."""
     import dataclasses
@@ -1732,7 +1820,7 @@ def trainer_phase(intersect, dev, tmp):
 
     def captured(key, tree):
         """One step with its K1 and K2 inputs recorded, then K1 and K2 on
-        them (``trainer_shapes``)."""
+        them (``captured_shapes``)."""
         params = {grp: [{n: v.detach().clone() for n, v in e.items()}
                         for e in opt.params[grp]] for grp in GROUPS}
         _, records = capture_queries(intersect,
@@ -1741,8 +1829,9 @@ def trainer_phase(intersect, dev, tmp):
             flat = detach_flat(sc.build(params))
         log(f"  K1 and K2 on a step's own inputs, {tree}: {len(records)} "
             "distinct launches")
-        return trainer_shapes(intersect, records,
-                              (flat.tri.p0, flat.tri.e1, flat.tri.e2), tree)
+        return captured_shapes(intersect, records,
+                               (flat.tri.p0, flat.tri.e1, flat.tri.e2),
+                               f"trainer {tree}")
 
     k1_refit, k2_refit, err, tally, main = captured(20, "refit tree")
     torch.cuda.synchronize()
@@ -1923,6 +2012,330 @@ def env_opt_in_phase(intersect, dev):
     return out
 
 
+def rel_l2(a, b) -> float:
+    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def grad_close(phase, what, a, b, bound=GRAD_REL_L2) -> float:
+    """Raise unless gradient ``a`` is finite and, where ``b`` is not zero,
+    within ``bound`` relative L2 of ``b`` with a cosine of at least
+    GRAD_COS. Returns the relative L2 error."""
+    if not np.isfinite(a).all():
+        raise AssertionError(f"phase {phase} {what}: not finite")
+    if not np.abs(b).any():
+        return 0.0
+    err = rel_l2(a, b)
+    x, y = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    cos = float(x @ y / max(np.linalg.norm(x) * np.linalg.norm(y), 1e-300))
+    if not (err <= bound and cos >= GRAD_COS):
+        raise AssertionError(f"phase {phase} {what}: {err:.3g} relative L2, "
+                             f"cosine {cos:.6f} from the reference (bound "
+                             f"{bound:g})")
+    return err
+
+
+def sharded_phase(dev):
+    """Phase 25 (see the module docstring): ``testing.ranks.sharded_checks``
+    on SHARD_RANKS gloo ranks sharing the card, at phase 12's config.
+    Returns (launches of one budget-split step summed over the ranks,
+    seconds per sharded step by mode)."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.opt import leaf_items
+    from psdr_tpu_torch.parallel import run_ranks
+    from psdr_tpu_torch.parallel.sharding import (_budgets_divisible,
+                                                  per_device_render_fn)
+    from psdr_tpu_torch.testing import ranks
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    splits = (("budget", RENDERD["spp"]), ("lanes", SHARD_LANES_SPP))
+    # each split twice on each rank (a warm-up, then the timed step); the
+    # train step with one bucket twice, then per leaf
+    cases = tuple((mode, dict(RENDERD, spp=spp), DirectIntegrator, True,
+                   SHARD_KEY) for mode, spp in splits)
+    t0 = time.time()
+    outs = run_ranks(ranks.sharded_checks, SHARD_RANKS, "gloo",
+                     args=(dev.type, cases,
+                           (RENDERD, STEP_LR, SHARD_KEY, (False, False, True)),
+                           (SMALL_BOUNDARY, GUIDING, None), 2),
+                     timeout=RANK_TIMEOUT)
+    log(f"  {SHARD_RANKS} gloo ranks on the one card, spawned, run and "
+        f"joined in {time.time() - t0:.1f} s")
+    n = SHARD_RANKS
+    secs, serial_grads = {}, None
+    for mode, spp in splits:
+        sc = cbox_scene(**dict(RENDERD, spp=spp), device=dev)
+        if _budgets_divisible(sc.opts, n) != (mode == "budget"):
+            raise AssertionError(f"phase 25: spp {spp} does not take the "
+                                 f"{mode} split")
+        img_r, grads_r, _, launches_r = outs[0][mode]
+        for r in outs[1:]:
+            np.testing.assert_allclose(r[mode][0], img_r, rtol=1e-6,
+                                       err_msg="phase 25: ranks")
+        g = per_device_render_fn(DirectIntegrator(1, 1), sc, n, mode=mode)
+        p = params_from_numpy(sc.params(), dev, requires_grad=True)
+        key = threefry.PRNGKey(SHARD_KEY)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        img = sum(g(p, key, d) for d in range(n)) / n
+        ranks.sharded_loss(img).backward()
+        torch.cuda.synchronize()
+        ts = time.perf_counter() - ts
+        np.testing.assert_allclose(img_r, host(img), rtol=2e-5, atol=2e-6,
+                                   err_msg=f"phase 25 {mode}")
+        ref = [host(torch.zeros_like(x) if x.grad is None else x.grad)
+               for _, x in leaf_items(p)]
+        worst = max(grad_close(25, f"{mode} leaf {i}", a, b, SHARD_REL_L2)
+                    for i, (a, b) in enumerate(zip(grads_r, ref)))
+        require_launches(25, launches_r)
+        secs[mode] = max(r[mode][2] for r in outs)
+        log(f"  {mode} split (spp {spp}, sppe {RENDERD['sppe']}, sppse "
+            f"{RENDERD['sppse']}): image = serial emulation (rtol 2e-5, "
+            f"atol 2e-6), worst leaf {worst:.3g} relative L2 (bound "
+            f"{SHARD_REL_L2:g}); a sharded step {secs[mode]:.3f} s with {n} "
+            f"ranks sharing one card (not a scaling figure), the serial "
+            f"emulation {ts:.3f} s; launches a rank "
+            f"{[r[mode][3] for r in outs]}")
+        if mode == "budget":
+            serial_grads = ref
+
+    (la, pa), (lb, pb), (lc, pc) = outs[0]["steps"]
+    p0 = [host(x) for _, x in leaf_items(params_from_numpy(
+        cbox_scene(**RENDERD, device="cpu").params(), "cpu"))]
+    # the summed gradient each step applied, leaf by leaf (make_train_step's
+    # loss: the L2 to a black target)
+    ga, gb, gc = ([(a - q) / -STEP_LR for a, q in zip(p, p0)]
+                  for p in (pa, pb, pc))
+    spread = max(rel_l2(b, a) for a, b in zip(ga, gb) if np.abs(a).any())
+    diff = max(grad_close(25, "overlapped step", c, a, SHARD_REL_L2)
+               for a, c in zip(ga, gc))
+    sc = cbox_scene(**RENDERD, device=dev)
+    g = per_device_render_fn(DirectIntegrator(1, 1), sc, n)
+    p = params_from_numpy(sc.params(), dev, requires_grad=True)
+    img = sum(g(p, threefry.PRNGKey(SHARD_KEY), d) for d in range(n)) / n
+    torch.mean(img * img).backward()
+    to_serial = max(grad_close(25, "step against the emulation", a,
+                               host(torch.zeros_like(x) if x.grad is None
+                                    else x.grad), SHARD_REL_L2)
+                    for a, (_, x) in zip(ga, leaf_items(p)))
+    log(f"  make_train_step, sgd({STEP_LR:g}): loss {la:.6g} / {lb:.6g} / "
+        f"{lc:.6g} (one bucket, again, per leaf); the gradients applied, "
+        f"worst leaf: per leaf against one bucket {diff:.3g}, one bucket's "
+        f"own spread {spread:.3g}, against the serial emulation "
+        f"{to_serial:.3g} (relative L2)")
+    if not abs(lc - la) <= 1e-5 * la:
+        raise AssertionError("phase 25: the overlapped step's loss differs")
+
+    sc = ranks.guiding_scene(dev, SMALL_BOUNDARY)
+    serial = DirectIntegrator(1, 1)
+    serial.preprocess_secondary_edges(sc, 0, **GUIDING)
+    m_ser = host(serial.warpper[0].distrb.pmf)
+    m_col = outs[0]["guiding"][0]
+    np.testing.assert_allclose(m_col, m_ser, rtol=1e-5,
+                               atol=1e-6 * m_ser.max(),
+                               err_msg="phase 25: collective guiding mass")
+    log(f"  collective guiding table {GUIDING}: {int((m_ser > 0).sum())} "
+        f"cells with mass, largest |collective - serial| "
+        f"{np.abs(m_col - m_ser).max():.3g} of {m_ser.max():.3g}")
+
+    t0 = time.time()
+    one = run_ranks(ranks.one_rank_render, 1, "nccl", args=("cuda",),
+                    timeout=RANK_TIMEOUT)[0]
+    (img, grads, launches), (p_img, p_grads, p_launches) = (
+        one["sharded"], one["plain"])
+    np.testing.assert_allclose(img, p_img, rtol=2e-5, atol=2e-6,
+                               err_msg="phase 25: one NCCL rank")
+    worst = max(grad_close(25, "one NCCL rank", a, b, SHARD_REL_L2)
+                for a, b in zip(grads, p_grads))
+    if launches != p_launches:
+        raise AssertionError(f"phase 25: one NCCL rank differs from the plain "
+                             f"render ({worst:.3g}, {launches} vs "
+                             f"{p_launches})")
+    require_launches(25, launches)
+    log(f"  one NCCL rank: shard_render_fn = render_fn under fold_in(key, 0) "
+        f"(32 x 32 boundary step; worst leaf {worst:.3g}), launches equal "
+        f"{launches}; {time.time() - t0:.1f} s with the spawn")
+    total = {k: sum(r["budget"][3][k] for r in outs)
+             for k in outs[0]["budget"][3]}
+    return total, secs
+
+
+def flagship_start(device):
+    """(The flagship's full-width scene, its params with the occluder
+    deformed as the example starts it) on ``device``."""
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    from psdr_tpu_torch.testing.scenes import flagship_deform
+    sc = fr.build_scene(False, device)
+    p = params_from_numpy(sc.params(), device)
+    occ = p["meshes"][fr.OCCLUDER]
+    occ["vertex_positions"] = torch.as_tensor(
+        flagship_deform(host(occ["vertex_positions"])), device=device)
+    return sc, p
+
+
+def mv_emulation(targets, repeats: int, device) -> list:
+    """Phase 26's serial emulation in this process on ``device``,
+    ``repeats`` times:
+    rank d's view (d % views) under fold_in(PRNGKey(0), d), the mean of
+    the MV_RANKS losses, backward. Returns [(loss, occluder vertex
+    gradient)] a run."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    from psdr_tpu_torch.parallel.sharding import _select_sensor
+    dev = torch.device(device)
+    sc, p = flagship_start(dev)
+    sc.prepare_accel()
+    integ = DirectIntegrator(1, 1)
+    targets = [torch.as_tensor(t, device=dev) for t in targets]
+    v0 = p["meshes"][fr.OCCLUDER]["vertex_positions"]
+    out = []
+    for _ in range(repeats):
+        v = v0.clone().requires_grad_(True)
+        p["meshes"][fr.OCCLUDER]["vertex_positions"] = v
+        flat = sc.build(p)
+        total = 0.0
+        for d in range(MV_RANKS):
+            view = d % sc.num_sensors
+            img = integ.radiance_image(
+                sc, _select_sensor(flat, view), 0,
+                threefry.fold_in(threefry.PRNGKey(0), d), True)
+            total = total + torch.mean((img - targets[view]) ** 2)
+        total = total / MV_RANKS
+        total.backward()
+        out.append((total.item(), host(v.grad)))
+    return out
+
+
+def multiview_phase(dev):
+    """Phase 26 (see the module docstring). Returns (launches of one step
+    summed over the ranks, seconds per step)."""
+    import functools
+
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    from psdr_tpu_torch.opt import leaf_items
+    from psdr_tpu_torch.parallel import run_ranks
+    from psdr_tpu_torch.testing import ranks
+    sc = fr.build_scene(False, dev)
+    sc.prepare_accel()
+    truth = params_from_numpy(sc.params(), dev)
+    targets = [host(t) for t in fr.render_targets(sc, DirectIntegrator(1, 1),
+                                                   truth)]
+    t0 = time.time()
+    outs = run_ranks(ranks.multiview_step, MV_RANKS, "gloo",
+                     args=(flagship_start, targets, STEP_LR, 0, dev.type,
+                           MV_STEPS), timeout=RANK_TIMEOUT)
+    log(f"  {MV_RANKS} gloo ranks (one view each) on the one card, spawned, "
+        f"run and joined in {time.time() - t0:.1f} s")
+    _, p0 = flagship_start("cpu")
+    leaf = [i for i, (path, _) in enumerate(leaf_items(p0))
+            if path == ("meshes", fr.OCCLUDER, "vertex_positions")][0]
+    v0 = list(leaf_items(p0))[leaf][1].numpy()
+    got = outs[0]
+    update = (got["params"][leaf] - v0) / STEP_LR
+
+    # the emulation's own spread, run to run: MV_SPREAD_RUNS runs in this
+    # process and as many in each of two other processes
+    t0 = time.time()
+    here = mv_emulation(targets, MV_SPREAD_RUNS, dev)
+    there = run_ranks(functools.partial(mv_emulation, targets,
+                                        MV_SPREAD_RUNS, dev.type), 2, "gloo",
+                      timeout=RANK_TIMEOUT)
+    runs = [(0, g) for _, g in here] + [(1 + r, g) for r, out in
+                                        enumerate(there) for _, g in out]
+    within, across = [], []
+    for i, (pa, ga) in enumerate(runs):
+        for pb, gb in runs[i + 1:]:
+            (within if pa == pb else across).append(rel_l2(gb, ga))
+    to_rank = [rel_l2(update, -g) for _, g in runs]
+    loss, g = here[0]
+    log(f"  the serial emulation {len(runs)} times ({MV_SPREAD_RUNS} in each "
+        f"of 3 processes, {time.time() - t0:.1f} s): vertex gradient run "
+        f"against run, within a process median {np.median(within):.3g}, "
+        f"max {max(within):.3g}; across processes median "
+        f"{np.median(across):.3g}, max {max(across):.3g} (relative L2); "
+        f"losses {sorted({l for l, _ in here + [x for o in there for x in o]})}")
+    log(f"  loss {got['loss']:.6g} (serial emulation {loss:.6g}); the "
+        f"ranks' vertex update against each emulation run: median "
+        f"{np.median(to_rank):.3g}, min {min(to_rank):.3g}, max "
+        f"{max(to_rank):.3g} (bound {SHARD_REL_L2:g}, against this "
+        f"process's first)")
+    if not abs(got["loss"] - loss) <= 1e-5 * loss:
+        raise AssertionError("phase 26: the multi-view loss differs from its "
+                             "serial emulation")
+    grad_close(26, "vertex update", update, -g, SHARD_REL_L2)
+    for r in outs:
+        require_launches(26, r["launches"])
+    secs = float(np.median([max(ts) for ts in zip(*(r["seconds"]
+                                                    for r in outs))]))
+    samples = MV_RANKS * TRAIN["width"] * TRAIN["height"] * (
+        TRAIN["spp"] + TRAIN["sppe"] + TRAIN["sppse"])
+    log(f"  seconds per multi-view step {secs:.3f} ({MV_RANKS} ranks sharing "
+        f"one card, not a scaling figure; each step {samples} grad-samples); "
+        f"launches a rank a step "
+        f"{[r['launches'] for r in outs]}")
+    total_l = {k: sum(r["launches"][k] for r in outs)
+               for k in outs[0]["launches"]}
+    return total_l, secs
+
+
+def flagship_phase(intersect, dev, tmp):
+    """Phase 27: the ported ``flagship_recovery`` at full width for
+    FLAGSHIP_ITERS iterations, gated at every iteration, with the inputs
+    of iteration FLAGSHIP_CAPTURE's K1 and K2 launches (three views)
+    recorded; then K1 and K2 on them (``captured_shapes``). Returns
+    (launches of the run, its summary, the shapes as ``captured_shapes``
+    gives them)."""
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    os.makedirs(tmp)
+    prev = {k: 0 for k in intersect.LAUNCHES}
+    capture = {}
+
+    def on_iter(rec, g):
+        if rec["iter"] == FLAGSHIP_CAPTURE:
+            capture["records"] = capture.pop("recorder").stop()
+        elif rec["iter"] == FLAGSHIP_CAPTURE - 1:
+            capture["recorder"] = QueryRecorder(intersect)
+        now = dict(intersect.LAUNCHES)
+        step = {k: now[k] - prev[k] for k in now}
+        prev.update(now)
+        if not (np.isfinite(rec["loss"]) and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"phase 27: iteration {rec['iter']} not "
+                                 "finite")
+        require_launches(27, step)
+
+    intersect.reset_launch_counts()
+    try:
+        summary = fr.run(FLAGSHIP_ITERS, tmp, False, dev, on_iter=on_iter)
+    finally:
+        if "recorder" in capture:
+            capture.pop("recorder").stop()
+    launches = dict(intersect.LAUNCHES)
+    curve = [json.loads(s) for s in open(os.path.join(
+        tmp, "flagship_recovery_log.jsonl")).read().splitlines()]
+    log("  iteration, loss, vertex RMSE, Chamfer: " + "; ".join(
+        f"{r['iter']} {r['loss']:.5g} {r['vertex_rmse']:.5f} "
+        f"{r['chamfer']:.5f}" for r in curve if "iter" in r))
+    log(f"  {FLAGSHIP_ITERS} iterations, {summary['seconds_per_iter']:.3f} s "
+        f"an iteration (3 views), targets {curve[0]['target_seconds']:.2f} "
+        f"s; vertex RMSE {summary['rmse0']:.5f} -> "
+        f"{summary['rmse_final']:.5f} (x{summary['rmse_reduction']:.3f}), "
+        f"Chamfer {summary['chamfer0']:.5f} -> "
+        f"{summary['chamfer_final']:.5f} (x"
+        f"{summary['chamfer_reduction']:.3f}); launches {launches}")
+    if not summary["rmse_final"] < summary["rmse0"]:
+        raise AssertionError("phase 27: the vertex RMSE did not fall")
+    records = capture["records"]
+    log(f"  K1 and K2 on iteration {FLAGSHIP_CAPTURE}'s own inputs (three "
+        f"views): {len(records)} distinct launches")
+    return launches, summary, captured_shapes(intersect, records, None,
+                                              "flagship")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2090,13 +2503,13 @@ def main() -> int:
             f"card, {BENCH}")
         loaded_fwd, _ = loader_phase(intersect, dev,
                                      os.path.join(tmp, "bench"), launches)
-        # -- 22. the trainer at full width: this slice's main path --------
+        # -- 22. the trainer at full width: slice 7's main path -----------
         log(f"phase 22: the trainer, {TRAIN}, Optimizer on "
             f"Mesh[{OCCLUDER}].vertex_positions through "
             "render_fn(with_boundary=True)")
         train, _, (train_k1, train_k2, train_err, train_tally,
-                   train_main) = trainer_phase(intersect, dev,
-                                               os.path.join(tmp, "train"))
+                   _) = trainer_phase(intersect, dev,
+                                      os.path.join(tmp, "train"))
         shapes.update(train_k1)
         for mode in ("closest", "any"):
             err[mode] += train_err[mode]
@@ -2110,21 +2523,44 @@ def main() -> int:
         log("phase 24: PSDR_TPU_ENV_ALIAS=1 and PSDR_TPU_ENV_HIER=1, card "
             "vs CPU and env_bench_scene forward")
         env_opt = env_opt_in_phase(intersect, dev)
+        # -- 25. the sharded paths on the card ----------------------------
+        log(f"phase 25: shard_render_fn, make_train_step and the collective "
+            f"guiding table over {SHARD_RANKS} gloo ranks on the one card, "
+            f"{RENDERD}; one NCCL rank")
+        shard_launches, shard_secs = sharded_phase(dev)
+        # -- 26. the multi-view step at the flagship's config --------------
+        log(f"phase 26: make_multiview_train_step, {TRAIN}, 3 views on "
+            f"{MV_RANKS} gloo ranks")
+        mv_launches, mv_secs = multiview_phase(dev)
+        # -- 27. the flagship recovery: this slice's main path -------------
+        log(f"phase 27: examples.flagship_recovery at full width, "
+            f"{FLAGSHIP_ITERS} iterations")
+        flag_launches, _, (flag_k1, flag_k2, flag_err, flag_tally,
+                           flag_main) = flagship_phase(
+            intersect, dev, os.path.join(tmp, "flagship"))
+        shapes.update(flag_k1)
+        for mode in ("closest", "any"):
+            err[mode] += flag_err[mode]
+        k2_err = k2_err + flag_err["k2"]
+        log(f"  lanes on which K1 and k1_plain differ: {flag_tally}")
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
-    # launches: the trainer's five timed steps (phase 22, this slice's main
-    # path), the backward's three timed steps, the forward's three timed
-    # frames and the boundary step's three timed steps, the same three of
-    # the PathTracer (phases 15, 14, 16), env_bench_scene's two forwards
-    # and its backward (phases 18, 19), the loaded scene's forward (21) and
-    # env_bench_scene's forward under each opt-in table (24); K3, off the
-    # render path, its entry point's run in phase 7. ms, plain_ms and
-    # bound_ms of K1 and K2 are those of the trainer's step on its refit
-    # tree, on the launch of each mode with the most active rays; the other
-    # timed shapes stand under "shapes".
+    # launches: the flagship's recovery run (phase 27, this slice's main
+    # path), the trainer's five timed steps (phase 22), one sharded step of
+    # phase 25 (budget split) and one multi-view step of phase 26, each
+    # summed over its ranks, the backward's three timed steps, the forward's
+    # three timed frames and the boundary step's three timed steps, the same
+    # three of the PathTracer (phases 15, 14, 16), env_bench_scene's two
+    # forwards and its backward (phases 18, 19), the loaded scene's forward
+    # (21) and env_bench_scene's forward under each opt-in table (24); K3,
+    # off the render path, its entry point's run in phase 7. ms, plain_ms
+    # and bound_ms of K1 and K2 are those of the flagship's own launches
+    # (phase 27, one iteration's three views), on the launch of each mode
+    # with the most active rays; the other timed shapes stand under
+    # "shapes".
     kernels = []
     for mode in ("closest", "any"):
-        main = train_main[mode]
+        main = flag_main[mode]
         mine = {k: v for k, v in shapes.items()
                 if v["any_hit"] == (mode == "any")}
         kernels.append({
@@ -2132,7 +2568,10 @@ def main() -> int:
             "route": "cuda",
             "source": "psdr_tpu_torch/csrc/intersect.cu",
             "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-            "launches": train[mode],
+            "launches": flag_launches[mode],
+            "launches_trainer": train[mode],
+            "launches_sharded": shard_launches[mode],
+            "launches_multiview": mv_launches[mode],
             "launches_backward": bwd[mode],
             "launches_forward": launches[mode],
             "launches_boundary": bnd[mode],
@@ -2149,10 +2588,11 @@ def main() -> int:
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
             "valid_mismatches": sum(n for _, n in err[mode]),
-            # phases 20 and 22: lanes on which K1 equals its walk in tensor
+            # phases 20, 22 and 27: lanes on which K1 equals its walk in tensor
             # code and not k1_plain (the cull-margin rule), by shape
             "lanes_unlike_k1_plain": {
-                k: v for k, v in {**env_tally, **train_tally}.items()
+                k: v for k, v in {**env_tally, **train_tally,
+                                  **flag_tally}.items()
                 if shapes[k.split(" ", 1)[1]]["any_hit"] == (mode == "any")},
             "ms": mine[main]["ms"],
             "plain_ms": mine[main]["plain_ms"],
@@ -2165,7 +2605,10 @@ def main() -> int:
         "name": "ray_intersect_brute (K2)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/brute.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
-        "launches": train["k2"], "launches_backward": bwd["k2"],
+        "launches": flag_launches["k2"], "launches_trainer": train["k2"],
+        "launches_sharded": shard_launches["k2"],
+        "launches_multiview": mv_launches["k2"],
+        "launches_backward": bwd["k2"],
         "launches_forward": launches["k2"],
         "launches_boundary": bnd["k2"],
         "launches_path_backward": pt_bwd["k2"],
@@ -2180,11 +2623,11 @@ def main() -> int:
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
         # the median launch
-        **{k: train_k2[train_main["k2"]][k]
+        **{k: flag_k2[flag_main["k2"]][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2,
-                   **env_k2, **train_k2}})
+                   **env_k2, **train_k2, **flag_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
@@ -2198,6 +2641,9 @@ def main() -> int:
         "launches_env_path_forward": env_pt_fwd["k3"],
         "launches_env_path_backward": env_bwd["k3"],
         "launches_trainer": train["k3"],
+        "launches_flagship": flag_launches["k3"],
+        "launches_sharded": shard_launches["k3"],
+        "launches_multiview": mv_launches["k3"],
         "launches_loaded_forward": loaded_fwd["k3"],
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),

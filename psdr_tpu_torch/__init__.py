@@ -6,9 +6,10 @@ render and the gradients (interior and boundary terms, guiding) of
 ``DirectIntegrator`` and ``PathTracer``, the AOV integrator, diffuse and
 rough-conductor materials, image textures, authored vertex normals, area
 lights and the environment map, the XML loader with OBJ and EXR IO, the
-masked-Adam ``opt.Optimizer`` and the AD-vs-FD harness (``testing``), with
-the intersection kernels (``accel/intersect.py``, ``csrc/*.cu``) written by
-hand for Hopper.
+masked-Adam ``opt.Optimizer`` and the AD-vs-FD harness (``testing``), the
+sharded render and train steps on ``torch.distributed`` (``parallel``) and
+the six examples (``examples``), with the intersection kernels
+(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper.
 """
 __version__ = "0.1.0"
 

@@ -8,8 +8,10 @@ own key from ``split``. Under ``RenderOptions.resolve_remat`` each chunk is
 checkpointed: the backward re-runs the chunk's forward (same key, so the
 same uniforms and the same hits) instead of keeping its intermediates. The
 boundary terms are zero in the primal (``x - x.detach()``) and carry only a
-gradient. Lane sharding is not ported and raises ``NotImplementedError``
-(ROADMAP item 18).
+gradient. ``shard=(rank, n_ranks)`` restricts every term to that rank's
+contiguous slice of its lane domain (``shard_lane_range``); the partial
+images of all ranks sum to the full-budget estimator
+(``parallel/sharding.py``).
 """
 from __future__ import annotations
 
@@ -118,23 +120,40 @@ def _checkpointed(fn):
 
 
 def scan_lane_chunks(run_lanes, n: int, num_pixels: int, key: torch.Tensor,
-                     pass_lanes: int, device, remat: bool = False
-                     ) -> torch.Tensor:
+                     pass_lanes: int, device, lane_range=None,
+                     remat: bool = False) -> torch.Tensor:
     """Run ``run_lanes(lane (m,), key) -> (num_pixels, 3)`` over the
-    wavefront in chunks of ``pass_lanes`` and sum the images. ``remat``
-    checkpoints each chunk."""
-    chunk = min(pass_lanes, n)
-    n_chunks = -(-n // chunk)
+    wavefront in chunks of ``pass_lanes`` and sum the images.
+    ``lane_range=(start, count)`` sweeps only that slice of the lane domain
+    (a rank's share, ``shard_lane_range``): its chunk keys are split over
+    its own chunk count, and lanes >= n are masked inside ``run_lanes``.
+    ``remat`` checkpoints each chunk."""
+    start, count = (0, n) if lane_range is None else lane_range
+    chunk = min(pass_lanes, count)
+    n_chunks = -(-count // chunk)
     if remat:
         run_lanes = _checkpointed(run_lanes)
     if n_chunks == 1:
-        return run_lanes(torch.arange(n, device=device), key)
+        return run_lanes(start + torch.arange(count, device=device), key)
     keys = threefry.split(key, n_chunks)
     img = torch.zeros((num_pixels, 3), device=device)
     for c in range(n_chunks):
-        lane = c * chunk + torch.arange(chunk, device=device)
+        lane = start + c * chunk + torch.arange(chunk, device=device)
         img = img + run_lanes(lane, keys[c])
     return img
+
+
+def shard_lane_range(n: int, shard) -> tuple[int, int]:
+    """The contiguous lane slice of rank ``d`` of ``n_dev`` over [0, n):
+    ``shard=(d, n_dev)`` -> (start, count); ``shard=None`` -> (0, n). Each
+    rank takes ceil(n / n_dev) lanes; the last rank's lanes >= n are
+    masked, so the ranks' partial images sum to the full-budget estimator
+    for any n."""
+    if shard is None:
+        return 0, n
+    d, n_dev = shard
+    count = -(-n // n_dev)
+    return d * count, count
 
 
 def _pix_hash(idx: torch.Tensor, word: int) -> torch.Tensor:
@@ -158,9 +177,6 @@ class Integrator:
     # -- interior -------------------------------------------------------------
     def render_interior(self, scene: Scene, flat: FlatScene, sensor_id: int,
                         key: torch.Tensor, shard=None) -> torch.Tensor:
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
         opts = scene.opts
         num_pixels = opts.num_pixels
         spp = opts.spp
@@ -168,7 +184,8 @@ class Integrator:
         if spp == 0:
             return torch.zeros((num_pixels, 3), device=dev)
         n = num_pixels * spp
-        chunk = min(opts.pass_lanes, n)
+        start, count = shard_lane_range(n, shard)
+        chunk = min(opts.pass_lanes, count)
         pix_order_np = tiled_pixel_order(opts.width, opts.height)
         pix_order = torch.as_tensor(pix_order_np, device=dev).long()
         if opts.sampler not in ("sobol", "stratified", "independent"):
@@ -183,11 +200,12 @@ class Integrator:
                  if (opts.stratify_primary and opts.sampler == "stratified"
                      and a > 1) else None)
         # pixel-aligned chunks: each pixel's spp lanes are adjacent, which
-        # the NEE visibility reuse and the per-chunk reduction rely on
-        aligned = chunk % spp == 0
+        # the NEE visibility reuse and the per-chunk reduction rely on; a
+        # rank's slice must then start and end on a pixel too
+        aligned = chunk % spp == 0 and count % spp == 0 and start % spp == 0
         film = torch.tensor([opts.width, opts.height], dtype=torch.float32,
                             device=dev)
-        remat = opts.resolve_remat(n)
+        remat = opts.resolve_remat(count)
 
         def lane_values(lane, key_c, prior_rows_c=None):
             pos = torch.clamp(lane // spp, max=num_pixels - 1)
@@ -249,24 +267,25 @@ class Integrator:
                                         num_pixels)
 
             img = scan_lane_chunks(run_lanes, n, num_pixels, key,
-                                   opts.pass_lanes, dev, remat=remat)
+                                   opts.pass_lanes, dev,
+                                   lane_range=(start, count), remat=remat)
             return img / spp
 
         # each chunk reduces to a dense (chunk/spp, 3) block of pixels in
         # tile order; one gather puts them back in pixel order
         ppc = chunk // spp
-        n_chunks = -(-n // chunk)
+        n_chunks = -(-count // chunk)
         prior_rows = None
         if opts.resolve_camera_prior(spp):
             prior_rows = camera_prior_rows(flat, sensor_id, pix_order, opts)
 
         def chunk_block(c, key_c):
-            lane = c * chunk + torch.arange(chunk, device=dev)
+            lane = start + c * chunk + torch.arange(chunk, device=dev)
             pr_c = None
             if prior_rows is not None:
                 # a slice that would run past the end starts earlier, as
                 # jax.lax.dynamic_slice clamps it
-                s = min(c * ppc, prior_rows.shape[0] - ppc)
+                s = min(start // spp + c * ppc, prior_rows.shape[0] - ppc)
                 pr_c = prior_rows[s:s + ppc]
             value, _ = lane_values(lane, key_c, pr_c)
             return value.reshape(ppc, spp, 3).sum(dim=1)
@@ -277,9 +296,15 @@ class Integrator:
         keys = [key] if n_chunks == 1 else threefry.split(key, n_chunks)
         tile_img = torch.cat([chunk_block(c, keys[c])
                               for c in range(n_chunks)])
-        # pixel p sits at tile position inv_order[p]
+        # pixel p sits at tile position inv_order[p]; this slice's blocks
+        # cover positions [start / spp, start / spp + rows)
         inv_order = torch.as_tensor(np.argsort(pix_order_np), device=dev)
-        return tile_img[inv_order] / spp
+        rows = tile_img.shape[0]
+        rel = inv_order - start // spp
+        in_range = (rel >= 0) & (rel < rows)
+        img = torch.where(in_range[..., None],
+                          tile_img[torch.clamp(rel, 0, rows - 1)], 0.0)
+        return img / spp
 
     # -- primary boundary ------------------------------------------------------
     def render_primary_edges(self, scene: Scene, flat: FlatScene,
@@ -289,9 +314,6 @@ class Integrator:
         zero in the primal: radiance difference across a sampled screen-space
         edge point times its normal velocity ``x_dot_n``, the only factor
         that carries a gradient."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
         opts = scene.opts
         num_pixels = opts.num_pixels
         dev = scene.device
@@ -340,9 +362,11 @@ class Integrator:
 
         # halved chunk: run_lanes doubles its lane count (the concatenated
         # -/+ rays), which keeps a chunk's tensors at pass_lanes
+        lane_range = shard_lane_range(n, shard)
         return scan_lane_chunks(run_lanes, n, num_pixels, key,
                                 max(1, opts.pass_lanes // 2), dev,
-                                remat=opts.resolve_remat(n))
+                                lane_range=lane_range,
+                                remat=opts.resolve_remat(lane_range[1]))
 
     # -- secondary boundary: overridden by integrators that support it ---------
     def render_secondary_edges(self, scene: Scene, flat: FlatScene,
@@ -355,7 +379,11 @@ class Integrator:
                        key: torch.Tensor, with_boundary: bool,
                        shard=None) -> torch.Tensor:
         """Interior render plus, with ``with_boundary``, the primary- and
-        secondary-edge boundary terms -> (num_pixels, 3)."""
+        secondary-edge boundary terms -> (num_pixels, 3).
+
+        ``shard=(rank, n_ranks)`` restricts every term to that rank's lane
+        slice; the ranks' partial images then sum to the full-budget
+        estimator (``parallel/sharding.py``'s ``lanes`` mode)."""
         keys = threefry.split(key, 3)
         img = self.render_interior(scene, flat, sensor_id, keys[0], shard)
         if with_boundary and scene.opts.sppe > 0:

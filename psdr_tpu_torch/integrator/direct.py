@@ -11,7 +11,8 @@ forward render and under autograd:
   normal-velocity term dot(n, u2) as ``result - result.detach()``. Sparse
   valid lanes are compacted (``_compact_boundary_lanes``) before the tail;
 * ``preprocess_secondary_edges``: Monte-Carlo cell masses for the 3D
-  hypercube that guides the edge samples (``self.warpper``).
+  hypercube that guides the edge samples (``self.warpper``), serially or
+  over the ranks of a ``parallel.DeviceMesh``.
 
 All masked divisions route through ``_mdiv`` so masked-out lanes never
 divide by zero, nor carry 0 * inf = NaN into a gradient.
@@ -43,7 +44,8 @@ from ..scene.scene import (FlatScene, Scene, detach_flat,
                            sample_boundary_segment_direct,
                            sample_emitter_position, scene_le)
 from ..sensor.perspective import sample_direct, sample_primary_ray
-from .base import Integrator, accumulate_image, scan_lane_chunks
+from .base import (Integrator, accumulate_image, scan_lane_chunks,
+                   shard_lane_range)
 
 
 def _stratify2(u2: torch.Tensor, rng: RngStream, which: int) -> torch.Tensor:
@@ -164,7 +166,7 @@ def _emitter_segment_valid(scene: Scene, flat: FlatScene):
 
 
 def _boundary_pass(scene: Scene, key: torch.Tensor, salt: int, warp,
-                   prepass_valid, tail) -> torch.Tensor:
+                   prepass_valid, tail, shard=None) -> torch.Tensor:
     """One secondary boundary pass over ``num_pixels * sppse`` lanes ->
     (num_pixels, 3), the frame every edge-sampled estimator shares.
 
@@ -187,7 +189,8 @@ def _boundary_pass(scene: Scene, key: torch.Tensor, salt: int, warp,
     gate keeps its own threshold): unbiased still; below that every valid
     lane is kept once with weight 1 and the pass is exact. The stream's
     order is part of the contract: the samples, then the compaction keys,
-    then whatever the tail draws."""
+    then whatever the tail draws. ``shard=(rank, n_ranks)`` runs only that
+    rank's slice of the lanes (``shard_lane_range``)."""
     opts = scene.opts
     num_pixels = opts.num_pixels
     dev = scene.device
@@ -231,22 +234,29 @@ def _boundary_pass(scene: Scene, key: torch.Tensor, salt: int, warp,
         return eval_tail(sample3[idx], pdf0[idx], live_c, rng,
                          weight_t=weight)
 
+    lane_range = shard_lane_range(n, shard)
     return scan_lane_chunks(run_lanes, n, num_pixels, key, opts.pass_lanes,
-                            dev, remat=opts.resolve_remat(n))
+                            dev, lane_range=lane_range,
+                            remat=opts.resolve_remat(lane_range[1]))
 
 
 def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
-                   eval_value):
+                   eval_value, rank_streams: bool = False):
     """Monte-Carlo cell masses of a boundary estimator's guiding hypercube:
     ``reso`` = (r0, r1, r2, samples per cell); each of ``nrounds`` rounds
     puts every cell's samples through ``eval_value(flat_det, sample3, rng)
     -> (n, 3)`` magnitudes and adds the per-cell sums of their largest
     channel. The rounds are a loop without a graph and the per-cell sum an
-    ``index_add_`` (atomic adds on the card). ``mesh`` (the JAX package's
-    lane-sharded build) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "lane sharding is not ported (ROADMAP item 18)")
+    ``index_add_`` (atomic adds on the card).
+
+    ``mesh`` (a ``parallel.DeviceMesh``) splits the cell x sample lanes into
+    one contiguous slice a rank, and the per-cell masses are summed over
+    the ranks, so every rank holds the same table. Each rank draws the
+    whole domain's uniforms and keeps its slice: a lane sees the serial
+    build's uniform and the table equals the serial one up to the order of
+    the sums. With ``rank_streams`` (an estimator that draws more per lane,
+    the indirect one) each rank's lanes draw from ``fold_in(key, rank)``
+    instead: the table is the serial one in distribution only."""
     if nrounds <= 0:
         raise ValueError("nrounds must be positive")
     reso = tuple(int(r) for r in reso)
@@ -255,21 +265,34 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
     num_cells = hc.num_cells
     spp_cell = reso[3]
     n = num_cells * spp_cell
+    # a rank's slice; the last one's lanes past n add to an overflow cell
+    start, count = shard_lane_range(
+        n, None if mesh is None else (mesh.rank, mesh.size))
+    lanes = start + torch.arange(count, device=dev)
+    idx = torch.where(lanes < n, lanes // spp_cell, num_cells)
+    base = hc.cells[torch.clamp(idx, max=num_cells - 1)].float()
 
     with torch.no_grad():
         flat = detach_flat(scene.flat)
-        idx = torch.arange(n, device=dev) // spp_cell
-        base = hc.cells[idx].float()
-        mass = torch.zeros((num_cells,), device=dev)
+        mass = torch.zeros((num_cells + 1,), device=dev)
         keys = threefry.split(threefry.PRNGKey(seed), nrounds)
         for r in range(nrounds):
-            rng = RngStream(keys[r], device=dev)
-            sample3 = (base + rng.next_3d(n)) * hc.unit
-            value0 = scrub_nonfinite(eval_value(flat, sample3, rng))
+            if rank_streams and mesh is not None:
+                rng = RngStream(threefry.fold_in(keys[r], mesh.rank),
+                                device=dev)
+                u3 = rng.next_3d(count)
+            else:
+                rng = RngStream(keys[r], device=dev)
+                u3 = rng.next_3d(max(n, start + count))[start:start + count]
+            value0 = scrub_nonfinite(eval_value(flat, (base + u3) * hc.unit,
+                                                rng))
             if spp_cell > 1:
                 value0 = value0 / spp_cell
             mass = mass + torch.zeros_like(mass).index_add_(
                 0, idx, value0.amax(dim=-1))
+        mass = mass[:num_cells]
+        if mesh is not None:
+            mesh.all_reduce(mass)
         if nrounds > 1:
             mass = mass / nrounds
     return hypercube_set_mass(hc, mass)
@@ -486,9 +509,6 @@ class DirectIntegrator(Integrator):
                                shard=None) -> torch.Tensor:
         """The secondary-edge (shadow) boundary term -> (num_pixels, 3),
         zero in the primal."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
         def tail(sample3_t, rng):
             # the emitter-first trace, the opposite closest hit, the camera
             # any-hit, the BSDF and the AD term
@@ -496,7 +516,8 @@ class DirectIntegrator(Integrator):
                                              sample3_t, ad=True)]
 
         return _boundary_pass(scene, key, 2, self.warpper.get(sensor_id),
-                              _emitter_segment_valid(scene, flat), tail)
+                              _emitter_segment_valid(scene, flat), tail,
+                              shard)
 
     def eval_secondary_edge(self, scene: Scene, flat: FlatScene,
                             sensor_id: int, sample3: torch.Tensor, ad: bool):
@@ -616,7 +637,9 @@ class DirectIntegrator(Integrator):
                                    mesh=None) -> None:
         """Build the secondary-edge guiding hypercube of ``sensor_id`` into
         ``self.warpper`` from ``eval_secondary_edge(ad=False)``
-        (``_guiding_table``)."""
+        (``_guiding_table``); with ``mesh`` (a ``parallel.DeviceMesh``) the
+        lanes are split over its ranks and the masses summed, equal to the
+        serial build's."""
         def eval_value(flat, sample3, rng):
             return self.eval_secondary_edge(scene, flat, sensor_id, sample3,
                                             ad=False)[1]

@@ -322,35 +322,34 @@ class PathTracer(Integrator):
         unbiased. The separate per-estimator passes run when a sub-pass is
         replaced on the instance (a test seam) or under
         ``PSDR_TPU_FUSED_BOUNDARY=0`` (read at call time)."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
         fused = (self.camera_depth > 1
                  and "render_camera_edges" not in self.__dict__
                  and "render_indirect_edges" not in self.__dict__
                  and os.environ.get("PSDR_TPU_FUSED_BOUNDARY", "1") == "1")
         if fused:
             img = self._render_boundary_fused(scene, flat, sensor_id, key,
-                                              "emitter")
+                                              "emitter", shard)
             if self.max_depth > 1:
                 img = img + self._render_boundary_fused(
                     scene, flat, sensor_id, threefry.fold_in(key, 7),
-                    "direction")
+                    "direction", shard)
             return img
         helper = DirectIntegrator(1, 1)
         helper.warpper = self.warpper
-        img = helper.render_secondary_edges(scene, flat, sensor_id, key)
+        img = helper.render_secondary_edges(scene, flat, sensor_id, key,
+                                            shard)
         if self.max_depth > 1:
             img = img + self.render_indirect_edges(
-                scene, flat, sensor_id, threefry.fold_in(key, 7))
+                scene, flat, sensor_id, threefry.fold_in(key, 7), shard)
         if self.camera_depth > 1:
             # sensor-subpath estimators: (s >= 2, t = 1) and (s >= 2, t >= 2)
             img = img + self.render_camera_edges(
-                scene, flat, sensor_id, threefry.fold_in(key, 11), "emitter")
+                scene, flat, sensor_id, threefry.fold_in(key, 11), "emitter",
+                shard)
             if self.max_depth > 1:
                 img = img + self.render_camera_edges(
                     scene, flat, sensor_id, threefry.fold_in(key, 13),
-                    "direction")
+                    "direction", shard)
         return img
 
     @staticmethod
@@ -377,9 +376,6 @@ class PathTracer(Integrator):
         signal), so the warp gets a uniform floor: any density > 0 on the
         integrand's support keeps both terms unbiased, and the floor only
         dilutes the s = 1 guiding slightly."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
         warp = (self.warpper if far == "emitter" else self.ind_warpper).get(
             sensor_id)
         if warp is not None:
@@ -391,7 +387,8 @@ class PathTracer(Integrator):
                 scene, flat, sensor_id, sample3_t, rng, far, include_s1=True)
 
         return _boundary_pass(scene, key, 2 if far == "emitter" else 3, warp,
-                              self._prepass_valid(scene, flat, far), tail)
+                              self._prepass_valid(scene, flat, far), tail,
+                              shard)
 
     def render_camera_edges(self, scene: Scene, flat: FlatScene,
                             sensor_id: int, key: torch.Tensor, far: str,
@@ -399,16 +396,14 @@ class PathTracer(Integrator):
         """Boundary contributions whose receiver is seen through >= 1 extra
         bounce (sensor subpath length 2..camera_depth); each walk depth
         splats its own camera connection. Unguided."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
 
         def tail(sample3_t, rng):
             return self.eval_secondary_edge_camera(scene, flat, sensor_id,
                                                    sample3_t, rng, far)
 
         return _boundary_pass(scene, key, 5 if far == "emitter" else 6, None,
-                              self._prepass_valid(scene, flat, far), tail)
+                              self._prepass_valid(scene, flat, far), tail,
+                              shard)
 
     def eval_secondary_edge_camera(self, scene: Scene, flat: FlatScene,
                                    sensor_id: int, sample3: torch.Tensor,
@@ -563,9 +558,6 @@ class PathTracer(Integrator):
                               sensor_id: int, key: torch.Tensor,
                               shard=None) -> torch.Tensor:
         """The direction-sampled (indirect) secondary boundary term."""
-        if shard is not None:
-            raise NotImplementedError(
-                "lane sharding is not ported (ROADMAP item 18)")
 
         def tail(sample3_t, rng):
             return [self.eval_secondary_edge_indirect(scene, flat, sensor_id,
@@ -573,7 +565,7 @@ class PathTracer(Integrator):
 
         return _boundary_pass(scene, key, 3, self.ind_warpper.get(sensor_id),
                               self._prepass_valid(scene, flat, "direction"),
-                              tail)
+                              tail, shard)
 
     def eval_secondary_edge_indirect(self, scene: Scene, flat: FlatScene,
                                      sensor_id: int, sample3: torch.Tensor,
@@ -666,10 +658,15 @@ class PathTracer(Integrator):
         """Guiding table for the indirect boundary term into
         ``self.ind_warpper``: Monte-Carlo cell masses of |value| over the
         (edge, direction) cube, from
-        ``eval_secondary_edge_indirect(ad=False)`` (``_guiding_table``)."""
+        ``eval_secondary_edge_indirect(ad=False)`` (``_guiding_table``).
+        With ``mesh`` (a ``parallel.DeviceMesh``) the lanes are split over
+        its ranks and the masses summed; the estimator draws per lane in
+        its far-side walk, so each rank's lanes draw from ``fold_in(key,
+        rank)``, and the table equals the serial one in distribution, not
+        bit for bit."""
         def eval_value(flat, sample3, rng):
             return self.eval_secondary_edge_indirect(
                 scene, flat, sensor_id, sample3, rng, ad=False)[1]
 
-        self.ind_warpper[sensor_id] = _guiding_table(scene, reso, nrounds,
-                                                     seed, mesh, eval_value)
+        self.ind_warpper[sensor_id] = _guiding_table(
+            scene, reso, nrounds, seed, mesh, eval_value, rank_streams=True)

@@ -12,10 +12,17 @@ out in tensor code, in optax's order of operations (``eps_root`` 0):
 (``torch.optim.Adam`` rounds differently: ``sqrt(nu) / sqrt(1 - b2^t)``
 and a step of ``lr / (1 - b1^t)``.) Frozen leaves get no update and keep
 zero moments, as under ``set_to_zero``.
+
+The sharded steps (``parallel/sharding.py``) and the examples take a few of
+optax's functional transforms, each an ``(init, update)`` pair over a whole
+params tree with ``update(grads, state, params) -> (updates, state)`` and
+``apply_updates(params, updates)``: ``adam`` (a constant rate or a schedule
+such as ``exponential_decay``), ``sgd`` and ``masked`` (another transform's
+updates times a mask, entry by entry).
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -69,11 +76,10 @@ def leaf_items(tree):
                 yield (group, i, name), entry[name]
 
 
-def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-                nu: torch.Tensor, count: int, lr: float, b1: float = 0.9,
-                b2: float = 0.999, eps: float = 1e-8):
-    """One Adam step of ``p`` in place, in optax's arithmetic, after
-    ``count`` earlier steps. Returns the new (mu, nu)."""
+def _adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                    count: int, b1: float, b2: float, eps: float):
+    """optax's ``scale_by_adam`` after ``count`` earlier steps: the
+    bias-corrected direction and the new (mu, nu)."""
     t = count + 1
     # optax's bias corrections: float32 powers of the float32 betas
     bc1 = 1.0 - np.float32(b1) ** np.float32(t)
@@ -81,11 +87,108 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     with torch.no_grad():
         mu = (1.0 - b1) * g + b1 * mu
         nu = (1.0 - b2) * (g * g) + b2 * nu
-        # divisors as tensors on p's device: CUDA divides by a host scalar
+        # divisors as tensors on g's device: CUDA divides by a host scalar
         # as a product with its reciprocal
-        c1, c2 = (torch.tensor(float(c), device=p.device) for c in (bc1, bc2))
-        p.sub_(lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)))
+        c1, c2 = (torch.tensor(float(c), device=g.device) for c in (bc1, bc2))
+        return (mu / c1) / (torch.sqrt(nu / c2) + eps), mu, nu
+
+
+def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                nu: torch.Tensor, count: int, lr: float, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8):
+    """One Adam step of ``p`` in place, in optax's arithmetic, after
+    ``count`` earlier steps. Returns the new (mu, nu)."""
+    direction, mu, nu = _adam_direction(g, mu, nu, count, b1, b2, eps)
+    with torch.no_grad():
+        p.sub_(lr * direction)
     return mu, nu
+
+
+# -- functional transforms ----------------------------------------------------
+
+class GradientTransformation(NamedTuple):
+    """optax's pair: ``init(params) -> state`` and ``update(grads, state,
+    params=None) -> (updates, state)``."""
+    init: Callable
+    update: Callable
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of params-shaped trees (dicts and lists)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a params-shaped tree, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def apply_updates(params, updates):
+    """``optax.apply_updates``: params + updates, leaf by leaf."""
+    return tree_map(lambda p, u: (p + u).detach(), params, updates)
+
+
+def sgd(learning_rate: float) -> GradientTransformation:
+    """``optax.sgd(learning_rate)``: the update is -lr g."""
+    def update(grads, state, params=None):
+        return tree_map(lambda g: g * (-learning_rate), grads), state
+    return GradientTransformation(lambda params: {}, update)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adam``: ``learning_rate`` a number or a schedule ``count ->
+    rate``, read at the count of earlier updates."""
+    def init(params):
+        return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    def update(grads, state, params=None):
+        t = state["count"]
+        out = [_adam_direction(g, m, v, t, b1, b2, eps) for g, m, v in zip(
+            *(tree_leaves(x) for x in (grads, state["mu"], state["nu"])))]
+        rate = learning_rate(t) if callable(learning_rate) else learning_rate
+        return (tree_unflatten(grads, [d * (-rate) for d, _, _ in out]),
+                {"count": t + 1,
+                 "mu": tree_unflatten(grads, [m for _, m, _ in out]),
+                 "nu": tree_unflatten(grads, [v for _, _, v in out])})
+    return GradientTransformation(init, update)
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float) -> Callable[[int], float]:
+    """``optax.exponential_decay`` (no staircase, no delay):
+    ``count -> init_value * decay_rate ** (count / transition_steps)`` in
+    float32."""
+    def schedule(count: int) -> float:
+        p = np.float32(count) / np.float32(transition_steps)
+        return float(np.float32(init_value)
+                     * np.float32(decay_rate) ** np.float32(p))
+    return schedule
+
+
+def masked(inner: GradientTransformation, mask) -> GradientTransformation:
+    """``inner``'s updates times ``mask`` (a params-shaped tree of 0/1
+    tensors or numbers) entry by entry: the entrywise mask the examples
+    chain after Adam."""
+    def update(grads, state, params=None):
+        updates, state = inner.update(grads, state, params)
+        return tree_map(lambda u, m: u * m, updates, mask), state
+    return GradientTransformation(inner.init, update)
 
 
 class Optimizer:

@@ -278,6 +278,10 @@ class Scene:
         return self._flat_cache
 
     @property
+    def num_sensors(self) -> int:
+        return len(self.sensors)
+
+    @property
     def bsdf_kinds(self):
         return tuple(b.kind for b in self.bsdfs)
 

@@ -4,11 +4,16 @@ case, several blockings, tiny and all-inactive launches), the default
 device, and a small render, a small gradient, the boundary gradient, the
 compaction, the guiding masses, the PathTracer's gradients, the
 gradient of a rough conductor under an environment map, an optimizer step
-and a scene loaded from files on the card against the same on the CPU.
+and a scene loaded from files on the card against the same on the CPU;
+and the sharded steps over gloo ranks sharing the card and a one-rank
+NCCL group against their serial emulation on the card, and the flagship
+recovery loop.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -494,3 +499,144 @@ def test_loaded_scene_on_card_matches_cpu(cuda, tmp_path):
     close = np.isclose(card, cpu, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= 0.99
     assert abs(card.mean() - cpu.mean()) / cpu.mean() < 1e-4
+
+
+# -- the sharded steps and the flagship (chip_smoke.py phases 25-27) -----------
+
+def _rel_l2(a, b):
+    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+def _grad_close(a, b):
+    """A gradient leaf computed in another process against its reference
+    on the card: finite and, where the reference is not zero, within 1e-2
+    relative L2 and a cosine of 0.999, the card-against-CPU bound of this
+    file (the card's atomic sums differ run to run; a double-counted
+    reduction is off by 50%)."""
+    assert np.isfinite(a).all()
+    if np.abs(b).any():
+        x, y = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+        assert _rel_l2(x, y) <= 1e-2
+        assert x @ y / (np.linalg.norm(x) * np.linalg.norm(y)) >= 0.999
+
+
+def test_sharded_render_on_card_matches_serial(cuda):
+    """Phase 25's check at the CPU suite's sizes: two gloo ranks share the
+    card; each case of ``testing.ranks.sharded_cases`` equals the serial
+    emulation on the card (image rtol 2e-5, atol 2e-6; gradient per leaf
+    under ``_grad_close``); the overlapped and one-bucket train steps agree
+    as closely; the collective direct guiding table equals the serial one
+    (rtol 1e-5)."""
+    from psdr_tpu_torch.opt import leaf_items
+    from psdr_tpu_torch.parallel import run_ranks
+    from psdr_tpu_torch.parallel.sharding import per_device_render_fn
+    from psdr_tpu_torch.testing import ranks
+    out = run_ranks(ranks.sharded_checks, 2, args=("cuda",), timeout=900)[0]
+    for name, kw, integ, with_boundary, seed in ranks.sharded_cases():
+        img, grads = out[name][:2]
+        sc = cbox_scene(**kw, device=cuda)
+        g = per_device_render_fn(integ(), sc, 2, with_boundary=with_boundary)
+        p = params_from_numpy(sc.params(), cuda, requires_grad=True)
+        key = threefry.PRNGKey(seed)
+        ref = (g(p, key, 0) + g(p, key, 1)) / 2
+        ranks.sharded_loss(ref).backward()
+        np.testing.assert_allclose(img, ref.detach().cpu().numpy(),
+                                   rtol=2e-5, atol=2e-6, err_msg=name)
+        for a, (_, x) in zip(grads, leaf_items(p)):
+            _grad_close(a, np.zeros_like(a) if x.grad is None
+                        else x.grad.cpu().numpy())
+    (la, pa), (lb, pb) = out["steps"]
+    assert abs(la - lb) <= 1e-5 * la
+    p0 = [x.numpy() for _, x in leaf_items(params_from_numpy(
+        cbox_scene(24, 24, spp=8, device="cpu").params(), "cpu"))]
+    for a, b, q in zip(pa, pb, p0):
+        _grad_close(a - q, b - q)
+    sc = ranks.guiding_scene(cuda)
+    serial = DirectIntegrator(1, 1)
+    serial.preprocess_secondary_edges(sc, 0, ranks.GUIDING["reso"],
+                                      ranks.GUIDING["nrounds"],
+                                      ranks.GUIDING["seed"])
+    ref = serial.warpper[0].distrb.pmf.cpu().numpy()
+    np.testing.assert_allclose(out["guiding"][0], ref, rtol=1e-5,
+                               atol=1e-6 * ref.max())
+
+
+def test_nccl_one_rank_render_equals_plain(cuda):
+    """A one-rank NCCL group (the only NCCL a one-card machine can run):
+    ``shard_render_fn`` with the boundary terms equals the plain render
+    under ``fold_in(key, 0)`` (image rtol 2e-5, atol 2e-6; gradient per
+    leaf under ``_grad_close``) with the same K1 and K2 launch counts."""
+    from psdr_tpu_torch.parallel import run_ranks
+    from psdr_tpu_torch.testing import ranks
+    out = run_ranks(ranks.one_rank_render, 1, backend="nccl",
+                    args=("cuda",), timeout=900)[0]
+    (img, grads, launches), (p_img, p_grads, p_launches) = (
+        out["sharded"], out["plain"])
+    np.testing.assert_allclose(img, p_img, rtol=2e-5, atol=2e-6)
+    for a, b in zip(grads, p_grads):
+        _grad_close(a, b)
+    assert launches == p_launches
+    assert launches["closest"] > 0 and launches["any"] > 0
+    assert launches["k2"] > 0
+
+
+def test_multiview_step_on_card_matches_serial(cuda):
+    """Phase 26's check at 16 x 16: two views on two gloo ranks sharing the
+    card, one ``sgd(1e3)`` step (a rate at which each step stands far
+    above the float32 rounding of the parameter it moves): the loss within
+    1e-5 and each leaf's update over the rate under ``_grad_close`` against
+    the serial emulation's gradient on the card."""
+    from psdr_tpu_torch.opt import leaf_items
+    from psdr_tpu_torch.parallel import run_ranks
+    from psdr_tpu_torch.testing import ranks
+    n_views, lr, seed = 2, 1e3, 3
+    sc = ranks.multiview_scene(n_views, device=cuda)
+    sc.prepare_accel()
+    p = params_from_numpy(sc.params(), cuda, requires_grad=True)
+    integ = DirectIntegrator(1, 1)
+    with torch.no_grad():
+        flat = sc.build(p)
+        targets = [integ.radiance_image(sc, flat, s,
+                                        threefry.PRNGKey(900 + s), False)
+                   .cpu().numpy() for s in range(n_views)]
+    out = run_ranks(ranks.multiview_step, 2,
+                    args=(functools.partial(ranks.multiview_start, n_views),
+                          targets, lr, seed, "cuda"), timeout=900)[0]
+    loss, p1 = out["loss"], out["params"]
+
+    def serial():
+        q = params_from_numpy(sc.params(), cuda, requires_grad=True)
+        flat = sc.build(q)
+        total = 0.0
+        for d in range(2):
+            img = integ.radiance_image(
+                sc, flat._replace(sensors=(flat.sensors[d % n_views],)), 0,
+                threefry.fold_in(threefry.PRNGKey(seed), d), True)
+            total = total + torch.mean((img - torch.as_tensor(
+                targets[d % n_views], device=cuda)) ** 2)
+        total = total / 2
+        total.backward()
+        return total.item(), [
+            np.zeros(x.shape, np.float32) if x.grad is None
+            else x.grad.cpu().numpy() for _, x in leaf_items(q)]
+
+    ref_loss, g1 = serial()
+    assert abs(loss - ref_loss) <= 1e-5 * ref_loss
+    for a, (_, x), g in zip(p1, leaf_items(p), g1):
+        _grad_close((a - x.detach().cpu().numpy()) / lr, -g)
+
+
+def test_flagship_recovery_on_card_lowers_rmse(cuda, tmp_path):
+    """Phase 27 at the ``--small`` size: three iterations on the card, a
+    finite loss and gradient each, the vertex RMSE below its start, and
+    the example's files written."""
+    from psdr_tpu_torch.examples import flagship_recovery
+    seen = []
+    summary = flagship_recovery.run(
+        3, str(tmp_path), True, cuda,
+        on_iter=lambda rec, g: seen.append(
+            np.isfinite(rec["loss"]) and bool(torch.isfinite(g).all())))
+    assert seen == [True] * 3
+    assert summary["rmse_final"] < summary["rmse0"]
+    assert (tmp_path / "recovered_occluder.obj").stat().st_size > 0

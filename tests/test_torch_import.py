@@ -22,7 +22,9 @@ def test_import_without_jax():
     guiding preprocess and a boundary render with its backward on the CPU
     at 8x8; and the materials and lights: a rough conductor under an
     environment map, a textured quad and an AOV; and the loader, the EXR
-    codecs, an optimizer step and the harness."""
+    codecs, an optimizer step and the harness; and the sharding module,
+    its launcher and the six examples, with a lane-sliced render of one
+    rank's share and an update of the functional Adam."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -34,7 +36,12 @@ def test_import_without_jax():
         " 'bsdf.ggx', 'bsdf.roughconductor', 'emitter.envmap',"
         " 'integrator.field', 'core.bitmap', 'scene.loader', 'opt',"
         " 'testing.harness', 'testing.differential', 'profiling',"
-        " 'core.exr', 'core.piz', 'core.b44'):\n"
+        " 'core.exr', 'core.piz', 'core.b44', 'parallel',"
+        " 'parallel.sharding', 'parallel.launch', 'testing.ranks',"
+        " 'examples.render_simple',"
+        " 'examples.validate_gradients', 'examples.inverse_albedo',"
+        " 'examples.inverse_geometry', 'examples.multiview_inverse',"
+        " 'examples.flagship_recovery'):\n"
         "    assert 'psdr_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
@@ -103,6 +110,16 @@ def test_import_without_jax():
         "assert o.state['count'] == 1\n"
         "assert testing.run_ad(sc, DirectIntegrator(1, 1),"
         " 'mesh_transform').shape == (8, 8, 3)\n"
+        "from psdr_tpu_torch.parallel.sharding import per_device_render_fn\n"
+        "sc = cbox_scene(8, 8, spp=3, device='cpu')\n"
+        "g = per_device_render_fn(DirectIntegrator(1, 1), sc, 2,"
+        " with_boundary=False)\n"
+        "p = params_from_numpy(sc.params(), device='cpu')\n"
+        "assert g(p, threefry.PRNGKey(0), 1).shape == (64, 3)\n"
+        "a = opt.adam(opt.exponential_decay(1e-2, 10, 0.05))\n"
+        "u, st = a.update(p, a.init(p), p)\n"
+        "assert st['count'] == 1 and len(opt.tree_leaves(u))"
+        " == len(opt.tree_leaves(p))\n"
         "assert not any(k in ('jax', 'psdr_tpu')"
         " or k.startswith(('jax.', 'psdr_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n")

@@ -118,6 +118,53 @@ def test_adam_updates_match_optax():
         assert torch.equal(now, was) != (path in selected), path
 
 
+@pytest.mark.parametrize("which", ["adam", "adam-decay", "sgd", "masked"])
+def test_functional_transforms_match_optax(which):
+    """The transforms the sharded steps and the examples take from optax
+    (``opt.adam`` with a rate or ``exponential_decay``, ``sgd``, ``masked``
+    after Adam): three updates of a params tree from identical gradients,
+    updates and moments equal optax's to 1e-6 relative; the schedule's
+    rates to 1e-6 at counts 0 to 20."""
+    from psdr_tpu_torch import opt as t_opt
+    sched, j_sched = (t_opt.exponential_decay(1e-2, 10, 0.05),
+                      optax.exponential_decay(1e-2, 10, 0.05))
+    for c in range(21):
+        np.testing.assert_allclose(sched(c), float(j_sched(c)), rtol=1e-6)
+    rng = np.random.default_rng(1)
+    tree = {"meshes": [{"to_world": rng.normal(size=(4, 4)),
+                        "vertex_positions": rng.normal(size=(12, 3))}],
+            "bsdfs": [{"reflectance": rng.normal(size=(1, 1, 3))}]}
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+    mask = jax.tree.map(lambda x: np.zeros_like(x), tree)
+    mask["meshes"][0]["vertex_positions"][:] = 1.0
+    t_tx, j_tx = {
+        "adam": (t_opt.adam(5e-2), optax.adam(5e-2)),
+        "adam-decay": (t_opt.adam(sched), optax.adam(j_sched)),
+        "sgd": (t_opt.sgd(0.5), optax.sgd(0.5)),
+        "masked": (t_opt.masked(t_opt.adam(5e-2),
+                                params_from_numpy(mask, **CPU)),
+                   optax.chain(optax.adam(5e-2), optax.GradientTransformation(
+                       lambda p: optax.EmptyState(),
+                       lambda u, s, p=None: (jax.tree.map(
+                           lambda a, m: a * m, u, mask), s))))}[which]
+    tp, jp = params_from_numpy(tree, **CPU), jax.tree.map(jnp.asarray, tree)
+    ts, jst = t_tx.init(tp), j_tx.init(jp)
+    for _ in range(3):
+        g = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(
+            np.float32), tree)
+        tu, ts = t_tx.update(params_from_numpy(g, **CPU), ts, tp)
+        ju, jst = j_tx.update(jax.tree.map(jnp.asarray, g), jst, jp)
+        tp, jp = t_opt.apply_updates(tp, tu), optax.apply_updates(jp, ju)
+        for (_, a), b in zip(leaf_items(tu), jax.tree.leaves(ju)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-9)
+    if which != "sgd":
+        j_adam = jst[0] if which == "masked" else jst
+        mu = [x for _, x in leaf_items(ts["mu"])]
+        for a, b in zip(mu, jax.tree.leaves(j_adam[0].mu)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
 def test_step_matches_jax_value_and_grad():
     """``Optimizer.step`` on sphere_light_scene(16, 16, spp=2): the loss to
     1e-5 and the selected leaves' gradients within 1e-2 relative L2 and

@@ -43,6 +43,7 @@ from psdr_tpu_torch.integrator import path as t_path
 from psdr_tpu_torch.scene import scene as t_scene
 from psdr_tpu_torch.sensor import perspective as t_persp
 from psdr_tpu_torch.testing import scenes as t_scenes
+from psdr_tpu_torch.testing.ranks import LocalRank
 
 from scenes import cbox_scene as j_cbox
 from scenes import sphere_light_scene as j_sphere
@@ -531,7 +532,9 @@ def test_indirect_guiding_mass_matches_jax_and_guided_renderD_is_finite():
     1e-3 (atol 1e-3 of the largest cell: a cell holds a few samples, and one
     that changes its hit moves it); a guided renderD under the JAX table
     (carried across by ``hypercube_from_numpy`` with its cmf) is finite, as
-    is its fused twin; ``mesh=`` raises."""
+    is its fused twin. A one-rank ``mesh=`` builds the serial direct table
+    and, from its rank's own stream, a finite indirect one (over several
+    ranks ``tests/test_torch_parallel.py`` holds both)."""
     js, ts = _pair(j_gi, t_scenes.gi_shadow_scene, width=12, height=12,
                    spp=4, sppe=2, sppse=8)
     ji, ti = JPath(2), TPath(2)
@@ -553,9 +556,15 @@ def test_indirect_guiding_mass_matches_jax_and_guided_renderD_is_finite():
     ti.preprocess_secondary_edges(ts, 0, (2, 2, 2, 2), seed=1)
     assert ti.warpper[0].num_cells == 8
 
-    for build in (ti.preprocess_indirect_edges, ti.preprocess_secondary_edges):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            build(ts, 0, (4, 4, 4, 2), mesh=object())
+    one, mesh = TPath(2), LocalRank(None, 0, 1, ts.device)
+    one.preprocess_secondary_edges(ts, 0, (2, 2, 2, 2), seed=1, mesh=mesh)
+    np.testing.assert_array_equal(_np(one.warpper[0].distrb.pmf),
+                                  _np(ti.warpper[0].distrb.pmf))
+    one.preprocess_indirect_edges(ts, 0, (4, 4, 4, 2), nrounds=2, seed=3,
+                                  mesh=mesh)
+    m1 = _np(one.ind_warpper[0].distrb.pmf)
+    assert m1.shape == (64,) and np.isfinite(m1).all() and (m1 >= 0).all()
+    assert m1.sum() > 0.0
     with pytest.raises(ValueError):
         ti.preprocess_indirect_edges(ts, 0, (4, 4, 4, 2), nrounds=0)
 
@@ -692,13 +701,25 @@ def test_replaced_sub_pass_takes_the_unfused_path(monkeypatch):
 
 
 def test_lane_sharding_raises():
-    """``shard=`` of every PathTracer pass raises until lane sharding is
-    ported; nothing quietly renders the whole wavefront instead."""
+    """``shard=`` of every PathTracer pass: one rank's slice of all the
+    lanes is the unsharded pass, gradient and all; the slices of two ranks
+    render (zero in the primal) with finite gradients. Over gloo ranks
+    ``tests/test_torch_parallel.py`` holds the sums."""
     ts = t_scenes.cbox_scene(8, 8, spp=1, sppse=4, occluder_subdiv=1, **CPU)
     integ, key = TPath(2, camera_depth=2), threefry.PRNGKey(1)
     for term, extra in ((integ.render_secondary_edges, ()),
                         (integ.render_indirect_edges, ()),
                         (integ.render_camera_edges, ("emitter",)),
                         (integ._render_boundary_fused, ("direction",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            term(ts, ts.flat, 0, key, *extra, shard=(0, 2))
+        grads = []
+        for shard in (None, (0, 1), (0, 2), (1, 2)):
+            p = params_from_numpy(ts.params(), **CPU, requires_grad=True)
+            img = term(ts, ts.build(p), 0, key, *extra, shard=shard)
+            assert not bool(img.any())
+            img.sum().backward()
+            grads.append([x.grad for m in p["meshes"] for x in m.values()
+                          if x.grad is not None])
+        assert grads[0] and all(torch.isfinite(g).all() for gs in grads
+                                for g in gs)
+        for a, b in zip(grads[0], grads[1]):
+            assert torch.equal(a, b)

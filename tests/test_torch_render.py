@@ -115,12 +115,13 @@ def test_scene_build_matches_jax():
 
 
 def test_unported_options_raise():
-    """What the port still leaves out raises NotImplementedError instead of
-    doing something else, and names its place in ROADMAP.md's queue: lane
-    sharding (``shard=`` of every term), the lane-sharded guiding build
-    (``mesh=``), an emitter or a BSDF of an unknown kind (in the build, and
-    so in render_fn and renderD). The boundary options (sppe/sppse > 0)
-    build and render, and the 1D vertex offset, once left out, is a leaf."""
+    """What the port leaves out raises NotImplementedError instead of doing
+    something else: an emitter or a BSDF of an unknown kind (in the build,
+    and so in render_fn and renderD). Options once left out now run: the
+    boundary options (sppe/sppse > 0) build and render, the 1D vertex
+    offset is a leaf, and lane sharding (``shard=`` of every term, the
+    ``mesh=`` of the guiding build) renders one rank's slice of all the
+    lanes as the unsharded call does."""
     from psdr_tpu_torch.integrator.direct import _emitter_meta
 
     ts = t_cbox(width=8, height=8, spp=1, sppe=1, sppse=1, occluder_subdiv=1,
@@ -131,12 +132,15 @@ def test_unported_options_raise():
     assert integ.renderD(ts).shape == (8, 8, 3)
     for term in (integ.render_interior, integ.render_primary_edges,
                  integ.render_secondary_edges):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            term(ts, flat, 0, key, shard=(0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        integ.radiance_image(ts, flat, 0, key, True, shard=(0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        integ.preprocess_secondary_edges(ts, 0, (2, 2, 2, 1), mesh=object())
+        assert torch.equal(term(ts, flat, 0, key, shard=(0, 1)),
+                           term(ts, flat, 0, key))
+    assert torch.equal(integ.radiance_image(ts, flat, 0, key, True,
+                                            shard=(0, 1)),
+                       integ.radiance_image(ts, flat, 0, key, True))
+    from psdr_tpu_torch.testing.ranks import LocalRank
+    integ.preprocess_secondary_edges(ts, 0, (2, 2, 2, 1),
+                                     mesh=LocalRank(None, 0, 1, ts.device))
+    assert integ.warpper[0].num_cells == 8
 
     from psdr_tpu_torch.shape import primitives
     quad = primitives.make_quad(enable_vertex_offset=True)
