@@ -141,7 +141,7 @@ Every phase passes or the script exits nonzero:
     serial emulation of the same step (SHARD_REL_L2), beside the
     emulation's own run-to-run spread within this process and across two
     others; seconds per step;
-27. the main path of this slice: ``examples.flagship_recovery`` at full
+27. the main path of slice 8: ``examples.flagship_recovery`` at full
     width (3 views, the bench scene, ``flagship_deform`` as the start,
     smoothed gradients, masked Adam with ``exponential_decay``) for
     FLAGSHIP_ITERS iterations, every iteration with a finite loss and
@@ -149,7 +149,26 @@ Every phase passes or the script exits nonzero:
     start at the end; the loss and RMSE curve and seconds an iteration;
     then K1 and K2 on the inputs of every distinct launch of one
     iteration (three views), each against its plain version, timed and
-    counted for its bound: the kernels line's times are these.
+    counted for its bound;
+28. the main path of this slice, the forward renders as captured CUDA
+    graphs (``psdr_tpu_torch/program.py``), each against the eager render
+    at the same key: (a) ``DirectIntegrator(1, 1).render_program`` (phase
+    5's config, the scene rebuilt from the params inside the program), (b)
+    the same under ``PathTracer(3)`` (phase 14's), (c) ``renderC`` on
+    ``env_bench_scene`` (phase 18's) and (d) ``renderD`` with no parameter
+    under grad at phase 12's config, every boundary estimator's forward
+    and the compacted sweeps in it. For each: capture seconds, graph nodes
+    and pool bytes; one replay's launch counts equal to the eager frame's
+    (8 / 24 / 8 for a, 24 / 40 / 8 for b); replays at seeds 0, 1, 0 against
+    the eager image of each seed (bit for bit where the eager render
+    repeats itself bit for bit, else within REPLAY_SPREAD_X times its
+    run-to-run spread and phase 4's gates) and seed 1 against seed 0,
+    which must lie as far apart as the eager renders of the two seeds (no
+    key baked in); eager frames and replays timed as
+    phase 5 times frames, one of each profiled (device busy, idle share,
+    host launch calls); peak memory with the program cached. The kernels
+    line's ``launches`` are these replays'; its ``ms``, ``plain_ms`` and
+    ``bound_ms`` those of the shapes that (a) replays (phases 3 and 6).
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -180,6 +199,10 @@ RTOL = 1e-5              # hit t, as tests/test_bvh.py:43-50
 IMG_RTOL, IMG_ATOL = 1e-4, 1e-5   # per-pixel, as tests/test_torch_render.py
 IMG_CLOSE_FRAC = 0.99
 IMG_MEAN_REL = 1e-4
+# a replay whose eager render does not repeat itself bit for bit (the
+# atomic sums of Scene.build's vertex normals, of a boundary pass) stays
+# within this multiple of the eager render's own run-to-run spread
+REPLAY_SPREAD_X = 8.0
 BENCH = dict(width=512, height=512, spp=64, occluder_subdiv=5)
 BWD = dict(BENCH, spp=16)   # bench.py's backward config
 # scripts/bench_renderD.py's config: the boundary step
@@ -2336,6 +2359,208 @@ def flagship_phase(intersect, dev, tmp):
                                               "flagship")
 
 
+def image_gates(a, b):
+    """(share of pixels within rtol IMG_RTOL, atol IMG_ATOL; relative
+    difference of the means) of images ``a`` against ``b``."""
+    a, b = a.reshape(-1, 3).cpu().numpy(), b.reshape(-1, 3).cpu().numpy()
+    share = float(np.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL)
+                  .all(axis=-1).mean())
+    return share, abs(a.mean() - b.mean()) / abs(b.mean())
+
+
+def program_frame(fn):
+    """One profiled run of ``fn``: (wall ms, device-busy ms, device kernels,
+    host launch calls: ``cudaLaunchKernel``, ``cuLaunchKernel``,
+    ``cudaGraphLaunch`` and their kind)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    calls = sum(e.count for e in events
+                if not str(e.device_type).endswith("CUDA")
+                and "Launch" in e.key and e.key.startswith("cu"))
+    return wall, busy, sum(e.count for e in kern), calls
+
+
+def program_configs(dev):
+    """Phase 28's configurations a-d, each as (label, eager(seed),
+    replay(seed), the program after the first replay, the launches of a
+    frame: phases 5, 14, 18 and 12's): eager runs the render op by op with
+    a host key, replay through its program with the key on the card."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene, env_bench_scene
+
+    def forward(integ, label, expect):
+        sc = cbox_scene(**BENCH, device=dev)
+        params = params_from_numpy(sc.params(), device=dev)
+        render = integ.render_fn(sc, with_boundary=False, detached=True)
+        prog = integ.render_program(sc, with_boundary=False, detached=True)
+        return (label, lambda s: render(params, threefry.PRNGKey(s)),
+                lambda s: prog(params, threefry.PRNGKey(s, device=dev)),
+                lambda: prog, expect)
+
+    def cached(integ, sc, label, boundary, expect):
+        def eager(s):
+            flat = sc.flat if boundary else detach_flat(sc.flat)
+            with torch.no_grad():
+                return integ.radiance_image(sc, flat, 0, threefry.PRNGKey(s),
+                                            boundary)
+        replay = ((lambda s: integ.renderD(sc, seed=s)) if boundary
+                  else (lambda s: integ.renderC(sc, seed=s)))
+        return (label, eager, replay,
+                lambda: next(iter(integ._radiance_jits.values())), expect)
+
+    yield forward(DirectIntegrator(1, 1), "a: DirectIntegrator(1, 1) "
+                  "render_program, cbox 512x512 spp 64",
+                  {"closest": 8, "any": 24, "k2": 8, "k3": 0})
+    yield forward(PathTracer(3), "b: PathTracer(3) render_program, cbox "
+                  "512x512 spp 64", {"closest": 24, "any": 40, "k2": 8,
+                                     "k3": 0})
+    yield cached(DirectIntegrator(1, 1), env_bench_scene(**ENV_BENCH,
+                                                         device=dev),
+                 "c: DirectIntegrator(1, 1) renderC, env_bench_scene 512x512 "
+                 "spp 64", False, {"closest": 8, "any": 24, "k2": 8, "k3": 0})
+    yield cached(DirectIntegrator(1, 1), cbox_scene(**RENDERD, device=dev),
+                 "d: DirectIntegrator(1, 1) renderD, cbox 256x256 spp 16 "
+                 "sppe 8 sppse 64", True,
+                 {"closest": 4, "any": 10, "k2": 4, "k3": 0})
+
+
+def program_phase(intersect, dev):
+    """Phase 28: the forward renders as captured programs (configurations
+    a-d, ``program_configs``). For each: the eager render at seeds 0, 0
+    (its own run-to-run spread) and 1, and its launch counts; the program
+    built and captured (capture seconds, graph nodes, pool bytes); one
+    replay's launch counts against the eager frame's; replays at seeds 0,
+    1, 0, each against the eager image of its seed (bit for bit where the
+    eager render repeats itself bit for bit, else within REPLAY_SPREAD_X
+    times its spread and phase 4's gates) and seed 1 against seed 0,
+    which must lie as far apart as in the eager renders; eager frames and
+    replays timed as phase 5 times
+    frames, one of each profiled; peak memory with the program in the
+    cache. Returns ({label: summary}, the launch counts of the replays at
+    seeds 0, 1, 0 summed over a-d)."""
+    out = {}
+    total = {k: 0 for k in intersect.LAUNCHES}
+    for label, eager, replay, program, expect in program_configs(dev):
+        log(f"  {label}")
+        e0 = eager(0).reshape(-1, 3)                     # warm-up
+        torch.cuda.synchronize()
+        intersect.reset_launch_counts()
+        e0b = eager(0).reshape(-1, 3)
+        torch.cuda.synchronize()
+        eager_launches = dict(intersect.LAUNCHES)
+        e1 = eager(1).reshape(-1, 3)
+        spread = float((e0 - e0b).abs().max())
+        if not (torch.isfinite(e0).all() and float(e0.mean()) > 0.0):
+            raise AssertionError(f"phase 28: {label}: eager image not "
+                                 "finite or black")
+        if eager_launches != expect:
+            raise AssertionError(f"phase 28: {label}: eager launches "
+                                 f"{eager_launches}, expected {expect}")
+        t0 = time.perf_counter()
+        r0 = replay(0).reshape(-1, 3)      # warm-up, capture and a replay
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        prog = program()
+        if not prog.captured:
+            raise AssertionError(f"phase 28: {label}: no graph captured")
+        intersect.reset_launch_counts()
+        r0 = replay(0).reshape(-1, 3)
+        torch.cuda.synchronize()
+        replay_launches = dict(intersect.LAUNCHES)
+        r1 = replay(1).reshape(-1, 3)
+        r0b = replay(0).reshape(-1, 3)
+        torch.cuda.synchronize()
+        for k in total:
+            total[k] += intersect.LAUNCHES[k]
+        if replay_launches != eager_launches:
+            raise AssertionError(f"phase 28: {label}: a replay launched "
+                                 f"{replay_launches}, the eager frame "
+                                 f"{eager_launches}")
+        diffs = {}
+        for name, r, e in (("seed 0", r0, e0), ("seed 1", r1, e1),
+                           ("seed 0 again", r0b, e0)):
+            d = float((r - e).abs().max())
+            share, mean_rel = image_gates(r, e)
+            diffs[name] = d
+            ok = (torch.equal(r, e) if spread == 0.0
+                  else (d <= REPLAY_SPREAD_X * spread
+                        and share >= IMG_CLOSE_FRAC
+                        and mean_rel < IMG_MEAN_REL))
+            if not ok:
+                raise AssertionError(
+                    f"phase 28: {label}: the replay at {name} differs from "
+                    f"the eager render by {d} (eager spread {spread}; "
+                    f"{share} of pixels within rtol {IMG_RTOL}, means "
+                    f"{mean_rel})")
+        # a key baked in at the capture would replay seed 0's image at
+        # seed 1: the replays' mean gap between the seeds must be the eager
+        # renders' (far above the run-to-run spread)
+        seed_gap = float((r1 - r0).abs().mean())
+        eager_gap = float((e1 - e0).abs().mean())
+        if not (seed_gap > 0.5 * eager_gap and eager_gap > 100.0 * spread):
+            raise AssertionError(f"phase 28: {label}: seeds 1 and 0 are "
+                                 f"{seed_gap} apart a pixel in the replays, "
+                                 f"{eager_gap} in the eager renders (spread "
+                                 f"{spread}): a key was baked in")
+        times = {}
+        for name, fn in (("eager", eager), ("replay", replay)):
+            fn(1)                                          # warm-up
+            torch.cuda.synchronize()
+            ts = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                fn(2 + i)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            times[name] = ts
+        torch.cuda.reset_peak_memory_stats()
+        replay(5)
+        torch.cuda.synchronize()
+        peak, reserved = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.memory_reserved())
+        prof = {name: program_frame(lambda: fn(9))
+                for name, fn in (("eager", eager), ("replay", replay))}
+        summary = {
+            "bit_for_bit": spread == 0.0, "eager_spread": spread,
+            "replay_vs_eager": diffs, "seed_gap": seed_gap,
+            "eager_seed_gap": eager_gap,
+            "launches": replay_launches,
+            "first_call_s": first_s, "capture_s": prog.capture_seconds,
+            "nodes": prog.nodes, "pool_bytes": prog.pool_bytes,
+            "eager_s": float(np.median(times["eager"])),
+            "replay_s": float(np.median(times["replay"])),
+            "peak_allocated_bytes": peak, "reserved_bytes": reserved,
+            **{f"{name}_{k}": v for name, (wall, busy, kern, calls)
+               in prof.items() for k, v in (
+                   ("profiled_wall_ms", wall), ("busy_ms", busy),
+                   ("idle", 1.0 - busy / wall), ("kernels", kern),
+                   ("host_launch_calls", calls))}}
+        log(f"    eager frames {', '.join(f'{t:.4f}' for t in times['eager'])}"
+            f" s, replays {', '.join(f'{t:.4f}' for t in times['replay'])} s;"
+            f" first call (warm-up, capture, replay) {first_s:.3f} s, capture"
+            f" {prog.capture_seconds:.3f} s, {prog.nodes} graph nodes, pool "
+            f"{prog.pool_bytes / 2**30:.3f} GiB; replay = eager "
+            f"{'bit for bit' if spread == 0.0 else f'within {max(diffs.values()):.3g} (spread {spread:.3g})'}"
+            f"; seeds 0 / 1 {seed_gap:.4g} apart a pixel (eager "
+            f"{eager_gap:.4g}); launches "
+            f"{replay_launches}")
+        log(f"    {json.dumps(summary)}")
+        out[label] = summary
+    return out, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2536,17 +2761,22 @@ def main() -> int:
         log(f"phase 27: examples.flagship_recovery at full width, "
             f"{FLAGSHIP_ITERS} iterations")
         flag_launches, _, (flag_k1, flag_k2, flag_err, flag_tally,
-                           flag_main) = flagship_phase(
+                           _) = flagship_phase(
             intersect, dev, os.path.join(tmp, "flagship"))
         shapes.update(flag_k1)
         for mode in ("closest", "any"):
             err[mode] += flag_err[mode]
         k2_err = k2_err + flag_err["k2"]
         log(f"  lanes on which K1 and k1_plain differ: {flag_tally}")
+    # -- 28. the forward renders as captured programs: this slice's main path
+    log("phase 28: the forward renders as captured CUDA graphs "
+        "(render_program, renderC, renderD), replay against eager")
+    programs, prog_launches = program_phase(intersect, dev)
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
-    # launches: the flagship's recovery run (phase 27, this slice's main
-    # path), the trainer's five timed steps (phase 22), one sharded step of
+    # launches: the replays of phase 28 (seeds 0, 1, 0 of each of its four
+    # programs, this slice's main path), the flagship's recovery run (phase
+    # 27), the trainer's five timed steps (phase 22), one sharded step of
     # phase 25 (budget split) and one multi-view step of phase 26, each
     # summed over its ranks, the backward's three timed steps, the forward's
     # three timed frames and the boundary step's three timed steps, the same
@@ -2554,13 +2784,15 @@ def main() -> int:
     # forwards and its backward (phases 18, 19), the loaded scene's forward
     # (21) and env_bench_scene's forward under each opt-in table (24); K3,
     # off the render path, its entry point's run in phase 7. ms, plain_ms
-    # and bound_ms of K1 and K2 are those of the flagship's own launches
-    # (phase 27, one iteration's three views), on the launch of each mode
-    # with the most active rays; the other timed shapes stand under
-    # "shapes".
+    # and bound_ms of K1 and K2 are those of the main path's shapes, which
+    # phase 28's configuration a replays: the first 2^21-lane camera chunk
+    # in tile order (K1 closest), its shadow sweep (K1 any) and the
+    # 2^21-lane emitter-first sweep (K2, phase 6); the other timed shapes,
+    # the flagship's own launches among them, stand under "shapes".
     kernels = []
     for mode in ("closest", "any"):
-        main = flag_main[mode]
+        main = {"closest": "tiled camera chunk",
+                "any": "tiled shadow sweep"}[mode]
         mine = {k: v for k, v in shapes.items()
                 if v["any_hit"] == (mode == "any")}
         kernels.append({
@@ -2568,7 +2800,8 @@ def main() -> int:
             "route": "cuda",
             "source": "psdr_tpu_torch/csrc/intersect.cu",
             "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-            "launches": flag_launches[mode],
+            "launches": prog_launches[mode],
+            "launches_flagship": flag_launches[mode],
             "launches_trainer": train[mode],
             "launches_sharded": shard_launches[mode],
             "launches_multiview": mv_launches[mode],
@@ -2605,7 +2838,9 @@ def main() -> int:
         "name": "ray_intersect_brute (K2)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/brute.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
-        "launches": flag_launches["k2"], "launches_trainer": train["k2"],
+        "launches": prog_launches["k2"],
+        "launches_flagship": flag_launches["k2"],
+        "launches_trainer": train["k2"],
         "launches_sharded": shard_launches["k2"],
         "launches_multiview": mv_launches["k2"],
         "launches_backward": bwd["k2"],
@@ -2622,9 +2857,8 @@ def main() -> int:
         "launches_env_hier_forward": env_opt["hier"][0]["k2"],
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
-        # the median launch
-        **{k: flag_k2[flag_main["k2"]][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        # the main path's emitter-first sweep (phase 6)
+        **{k: k2_ms[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2,
                    **env_k2, **train_k2, **flag_k2}})
@@ -2642,6 +2876,7 @@ def main() -> int:
         "launches_env_path_backward": env_bwd["k3"],
         "launches_trainer": train["k3"],
         "launches_flagship": flag_launches["k3"],
+        "launches_programs": prog_launches["k3"],
         "launches_sharded": shard_launches["k3"],
         "launches_multiview": mv_launches["k3"],
         "launches_loaded_forward": loaded_fwd["k3"],
@@ -2649,6 +2884,7 @@ def main() -> int:
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
         "library_ms": None, **k3_ms})
+    log(json.dumps({"programs": programs}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ lights and the environment map, the XML loader with OBJ and EXR IO, the
 masked-Adam ``opt.Optimizer`` and the AD-vs-FD harness (``testing``), the
 sharded render and train steps on ``torch.distributed`` (``parallel``) and
 the six examples (``examples``), with the intersection kernels
-(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper.
+(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper, and
+the forward renders as captured CUDA graphs (``program.py``; renderC,
+renderD and ``render_program``), their random keys on the device.
 """
 __version__ = "0.1.0"
 

@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .hoist import const
+
 
 class Discrete(NamedTuple):
     """Unnormalized pmf + inclusive cmf."""
@@ -288,8 +290,7 @@ def hier2d_sample_reuse(h: Hier2D, samples: torch.Tensor, resolution):
         ix = ix * ax + i
         iy = iy * ay + j
         ny_nodes = ny_nodes * ay
-    reso = torch.tensor(tuple(resolution), dtype=torch.float32,
-                        device=u0.device)
+    reso = const(tuple(resolution), torch.float32, u0.device)
     # cap the in-cell fractions at 1 - 2^-10 so that cell + frac cannot
     # round up across the cell border in float32 (hier2d_host allows at
     # most 4096 cells an axis). As in the JAX package, the cap puts the top
@@ -353,8 +354,7 @@ def hypercube_init(resolution, mass: torch.Tensor | None = None,
         raise ValueError(f"mass has {mass.shape[0]} cells, the grid {n}")
     return HyperCube(distrb=discrete_init(mass), cells=cells,
                      resolution=reso,
-                     unit=1.0 / torch.tensor(reso, dtype=torch.float32,
-                                             device=device))
+                     unit=1.0 / const(reso, torch.float32, device))
 
 
 def hypercube_set_mass(hc: HyperCube, mass: torch.Tensor) -> HyperCube:
@@ -392,7 +392,7 @@ def hypercube_sample_reuse(hc: HyperCube, samples: torch.Tensor
 
 def hypercube_pdf(hc: HyperCube, p: torch.Tensor) -> torch.Tensor:
     """Density at points p (..., ndim) in [0,1)^ndim."""
-    reso = torch.tensor(hc.resolution, dtype=torch.int32, device=p.device)
+    reso = const(hc.resolution, torch.int32, p.device)
     ip = torch.floor(p * reso.to(p.dtype)).to(torch.int32)
     valid = torch.all((ip >= 0) & (ip < reso), dim=-1)
     idx = ip[..., 0]

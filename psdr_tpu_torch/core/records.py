@@ -113,6 +113,14 @@ def detach_tree(x):
     return _map_tensors(torch.Tensor.detach, x)
 
 
+def any_requires_grad(x) -> bool:
+    """Whether a tensor of ``x`` (a tree as ``detach_tree`` takes)
+    requires grad."""
+    found = []
+    _map_tensors(lambda t: found.append(t.requires_grad), x)
+    return any(found)
+
+
 @dataclass(frozen=True)
 class RenderOptions:
     """Render configuration; field names and defaults as in the JAX

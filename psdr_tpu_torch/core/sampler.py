@@ -16,7 +16,11 @@ _M32 = 0xFFFFFFFF
 
 class RngStream:
     """Each ``next_*`` call derives a fresh subkey by folding an
-    incrementing counter into the base key, then draws on ``device``.
+    incrementing counter into the base key, then draws on ``device``. A
+    base key in the tensor-word mode (``threefry.on_device``) derives its
+    subkeys a block at a time, ``split(key, n)`` in one vectorised hash,
+    whose row i is ``fold_in(key, i)``: the same keys for a fraction of the
+    launches.
 
     The interior renderer attaches the lane structure that downstream
     samplers use: ``vis_spp`` (lanes per pixel, for NEE visibility reuse)
@@ -25,19 +29,27 @@ class RngStream:
     the (a, b) jitter grid and the per-pixel NEE and BSDF rotations of the
     stratified sampler)."""
 
+    BLOCK = 8   # subkeys a tensor-word stream derives at once
+
     def __init__(self, key: torch.Tensor, salt: int | None = None,
                  device=None):
         self.key = threefry.fold_in(key, salt) if salt is not None else key
         self.device = device
         self._i = 0
+        self._block = None
         self.vis_spp: int | None = None
         self.ld: tuple | None = None
         self.strata: tuple | None = None
 
     def _subkey(self) -> torch.Tensor:
-        k = threefry.fold_in(self.key, self._i)
+        i = self._i
         self._i += 1
-        return k
+        if not threefry.on_device(self.key):
+            return threefry.fold_in(self.key, i)
+        if self._block is None or i >= self._block.shape[0]:
+            n = self.BLOCK * (i // self.BLOCK + 1)
+            self._block = threefry.split(self.key, n)
+        return self._block[i]
 
     def next_1d(self, shape) -> torch.Tensor:
         if isinstance(shape, int):

@@ -3,11 +3,21 @@
 on, the jax default).
 
 A key is a ``(2,)`` int64 tensor holding two uint32 words; ``split`` returns
-``(n, 2)``. Keys live on the host: deriving one is scalar work, so
-``PRNGKey``, ``fold_in`` and ``split`` run in plain Python integers, and
-only the draws (``uniform``, ``randint``) run as tensor code on the device
-the caller names. uint32 arithmetic is emulated in int64 with
-``& 0xFFFFFFFF`` after every operation that can carry.
+``(n, 2)``. A key has two modes, one Threefry (``_hash``) under both:
+
+* host words, a key on the CPU: deriving one is scalar work, so
+  ``PRNGKey``, ``fold_in`` and ``split`` run in plain Python integers, and
+  only the draws (``uniform``, ``randint``) run as tensor code on the device
+  the caller names; reading the words back costs a host read;
+* tensor words, a key on a CUDA device (or any key inside
+  ``tensor_words()``): the words stay 0-dim tensors on the key's device and
+  every derivation and draw is tensor code there, so nothing reads back to
+  the host and a captured program (``program.py``) takes its key as an
+  input instead of baking the words in. ``split`` derives n keys in one
+  vectorised hash; row i of ``split(key, n)`` is ``fold_in(key, i)``.
+
+uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF`` after every
+operation that can carry.
 
 Follows jax/_src/prng.py (``threefry_seed``, ``_threefry2x32_lowering``,
 ``iota_2x32_shape``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
@@ -16,6 +26,8 @@ Follows jax/_src/prng.py (``threefry_seed``, ``_threefry2x32_lowering``,
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -51,35 +63,77 @@ def _hash_ints(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
     return _hash(k0, k1, x0, x1, lambda v: v & _M32, _int_rotl)
 
 
-def _words(key) -> tuple[int, int]:
-    k = [int(v) for v in torch.as_tensor(key).reshape(-1).tolist()]
-    if len(k) != 2:
+_TENSOR_WORDS = contextvars.ContextVar("tensor_words", default=False)
+
+
+@contextlib.contextmanager
+def tensor_words():
+    """Run every key, CPU keys included, in the tensor-word mode inside the
+    block: how the CPU rehearses a captured program's key handling."""
+    token = _TENSOR_WORDS.set(True)
+    try:
+        yield
+    finally:
+        _TENSOR_WORDS.reset(token)
+
+
+def on_device(key: torch.Tensor) -> bool:
+    """Whether ``key`` runs in the tensor-word mode."""
+    return key.device.type != "cpu" or _TENSOR_WORDS.get()
+
+
+def _words(key):
+    """The key's two uint32 words: Python ints (host words) or 0-dim int64
+    views of the key (tensor words; every key this module makes holds words
+    in [0, 2^32), so they need no mask and cost no launch)."""
+    if tuple(key.shape) != (2,):
         raise ValueError(f"a key holds 2 words, got shape {tuple(key.shape)}")
-    return k[0] & _M32, k[1] & _M32
+    if on_device(key):
+        return key[0], key[1]
+    k0, k1 = key.tolist()
+    return int(k0) & _M32, int(k1) & _M32
 
 
-def _key(k0: int, k1: int) -> torch.Tensor:
-    return torch.tensor([k0, k1], dtype=torch.int64)
+def _key(k0: int, k1: int, device=None) -> torch.Tensor:
+    return torch.tensor([k0, k1], dtype=torch.int64, device=device)
 
 
-def PRNGKey(seed: int) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: words (0, seed)."""
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: words (0, seed), on
+    ``device`` (the CPU by default)."""
     seed = int(seed)
     if not -(1 << 31) <= seed < (1 << 31):
         raise ValueError("seed must fit in int32")
-    return _key(0, seed & _M32)
+    return _key(0, seed & _M32, device)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of counters (0, data) under key."""
-    return _key(*_hash_ints(*_words(key), 0, int(data) & _M32))
+    k0, k1 = _words(key)
+    if on_device(key):
+        return torch.stack(_hash(k0, k1, 0, int(data) & _M32,
+                                 lambda v: v & _M32, _tensor_rotl))
+    return _key(*_hash_ints(k0, k1, 0, int(data) & _M32))
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (fold-like form): row i hashes counters (0, i)."""
     k0, k1 = _words(key)
+    if on_device(key):
+        i = torch.arange(num, dtype=torch.int64, device=key.device)
+        return torch.stack(_hash(k0, k1, torch.zeros_like(i), i,
+                                 lambda v: v & _M32, _tensor_rotl), dim=-1)
     return torch.tensor([list(_hash_ints(k0, k1, 0, i)) for i in range(num)],
                         dtype=torch.int64)
+
+
+def _bits(k0, k1, n: int, device) -> torch.Tensor:
+    """32 random bits for each of ``n`` counters under words (k0, k1);
+    tensor words of shape (m, 1) draw m rows in one hash."""
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = _hash(k0, k1, torch.zeros_like(lo), lo,
+                   lambda v: v & _M32, _tensor_rotl)
+    return b0 ^ b1
 
 
 def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
@@ -90,12 +144,8 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     if n >= (1 << 32):
         raise NotImplementedError("draws of 2^32 or more elements")
     k0, k1 = _words(key)
-    if device is None:
-        device = key.device
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = _hash(k0, k1, torch.zeros_like(lo), lo,
-                   lambda v: v & _M32, _tensor_rotl)
-    return (b0 ^ b1).reshape(shape)
+    return _bits(k0, k1, n, key.device if device is None else device
+                 ).reshape(shape)
 
 
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
@@ -113,9 +163,16 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int,
     if not (-(1 << 31) <= minval < (1 << 31)
             and -(1 << 31) <= maxval < (1 << 31)):
         raise ValueError("randint bounds must fit in int32")
-    k_hi, k_lo = split(key, 2)
-    hi = random_bits(k_hi, shape, device)
-    lo = random_bits(k_lo, shape, device)
+    k = split(key, 2)    # rows: the keys of the high and the low draw
+    if on_device(key):
+        # both draws in one hash, a row each
+        shape = tuple(shape)
+        hi, lo = _bits(k[:, 0:1], k[:, 1:2], math.prod(shape),
+                       key.device if device is None else device
+                       ).reshape((2,) + shape)
+    else:
+        hi = random_bits(k[0], shape, device)
+        lo = random_bits(k[1], shape, device)
     span = 1 if maxval <= minval else (maxval - minval) & _M32
     mult = (1 << 16) % span
     mult = ((mult * mult) & _M32) % span

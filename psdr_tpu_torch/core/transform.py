@@ -81,5 +81,5 @@ def transform_dir(mat, d):
 
 def inverse(mat):
     if isinstance(mat, torch.Tensor):
-        return torch.linalg.inv(mat)
+        return torch.linalg.inv_ex(mat).inverse
     return np.linalg.inv(mat)

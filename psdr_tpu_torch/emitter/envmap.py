@@ -21,8 +21,9 @@ import torch
 from ..core import transform as xform
 from ..core.bitmap import Bitmap, eval_bitmap, from_array
 from ..core.constants import Epsilon, InvPi, InvTwoPi, Pi, TwoPi
-from ..core.distribution import (AliasTable, Discrete, Hier2D, HyperCube,
-                                 alias_table_host, hier2d_host,
+from ..core.hoist import const
+from ..core.distribution import (Discrete, HyperCube, alias_table_host,
+                                 hier2d_host,
                                  hypercube_init, hypercube_pdf,
                                  hypercube_sample_reuse)
 from ..core.math import (dot, ray_intersect_scene_aabb, rgb2luminance,
@@ -105,7 +106,8 @@ def _host_mass_grid(radiance, gw, gh, gw_f, gh_f):
 
 # keyed by (id(radiance), shape, grid, kind): the radiance snapshot lives
 # on the host Scene object and is replaced (not mutated) on param updates.
-# Each entry holds its snapshot, so an id cannot be reused under it.
+# Each entry (table, snapshot, {device: table there}) holds its snapshot, so
+# an id cannot be reused under it.
 _FROZEN_CACHE: dict = {}
 
 
@@ -116,6 +118,25 @@ def _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, kind: str):
     ``"alias"``: an ``AliasTable``, O(1) sampling but a non-monotone map
     from u to cell, which loses that stratification; ``"hier"``: a
     ``Hier2D``, monotone in both sample axes."""
+    return _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind)[0]
+
+
+def _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, kind: str, dev):
+    """``_frozen_tables``' table with its arrays on ``dev``, uploaded once a
+    table and device: the scene build of a captured program reads it
+    here, filled by the program's warm-up call."""
+    entry = _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind)
+    dev = torch.device(dev)
+    if dev not in entry[2]:
+        def up(x):
+            if isinstance(x, tuple):
+                return tuple(up(v) for v in x)
+            return torch.as_tensor(x, device=dev)
+        entry[2][dev] = type(entry[0])(*(up(v) for v in entry[0]))
+    return entry[2][dev]
+
+
+def _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind: str):
     key = (id(host_radiance), tuple(host_radiance.shape), gw, gh, kind)
     hit = _FROZEN_CACHE.get(key)
     if hit is None:
@@ -134,11 +155,11 @@ def _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, kind: str):
             pmf = mass.astype(np.float32)
             cmf = np.maximum.accumulate(np.cumsum(mass).astype(np.float32))
             table = Discrete(pmf=pmf, cmf=cmf, total=cmf[-1])
-        hit = (table, host_radiance)
+        hit = (table, host_radiance, {})
         if len(_FROZEN_CACHE) > 8:
             _FROZEN_CACHE.clear()
         _FROZEN_CACHE[key] = hit
-    return hit[0]
+    return hit
 
 
 def _segment_max(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -193,25 +214,18 @@ def configure_envmap(params: dict, lower: torch.Tensor, upper: torch.Tensor,
     placeholder = dict(
         cells=torch.zeros((0, 2), dtype=torch.int32, device=dev),
         resolution=(gw, gh),
-        unit=1.0 / torch.tensor((gw, gh), dtype=torch.float32, device=dev))
+        unit=1.0 / const((gw, gh), torch.float32, dev))
     if use_alias:
-        at = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "alias")
-        hc = HyperCube(distrb=None, alias=AliasTable(
-            packed=torch.as_tensor(at.packed, device=dev),
-            pmf=torch.as_tensor(at.pmf, device=dev),
-            total=torch.as_tensor(at.total, device=dev)), **placeholder)
+        at = _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, "alias",
+                               dev)
+        hc = HyperCube(distrb=None, alias=at, **placeholder)
     elif use_hier:
-        ht = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "hier")
-        hc = HyperCube(distrb=None, hier=Hier2D(
-            levels=tuple(torch.as_tensor(t, device=dev) for t in ht.levels),
-            pmf=torch.as_tensor(ht.pmf, device=dev),
-            total=torch.as_tensor(ht.total, device=dev)), **placeholder)
+        ht = _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, "hier",
+                               dev)
+        hc = HyperCube(distrb=None, hier=ht, **placeholder)
     elif use_frozen_cmf:
-        d = _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, "cmf")
-        cmf = torch.as_tensor(d.cmf, device=dev)
-        hc = HyperCube(
-            distrb=Discrete(pmf=torch.as_tensor(d.pmf, device=dev), cmf=cmf,
-                            total=cmf[-1]), **placeholder)
+        d = _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, "cmf", dev)
+        hc = HyperCube(distrb=d._replace(total=d.cmf[-1]), **placeholder)
     elif (gw, gh) == (gw_f, gh_f):
         # reference-parity grid: one bilinear tap per (half-texel) cell
         hc = hypercube_init((gw, gh), _grid_mass(data.detach(), gw, gh))
@@ -230,7 +244,7 @@ def configure_envmap(params: dict, lower: torch.Tensor, upper: torch.Tensor,
         hc = hypercube_init((gw, gh), pooled.reshape(gw * gh))
     to_world = params["to_world"]
     return EnvmapState(data=data, scale=params["scale"], to_world=to_world,
-                       from_world=torch.linalg.inv(to_world),
+                       from_world=torch.linalg.inv_ex(to_world).inverse,
                        cell_distrb=hc, lower=lower, upper=upper)
 
 

@@ -12,6 +12,13 @@ gradient. ``shard=(rank, n_ranks)`` restricts every term to that rank's
 contiguous slice of its lane domain (``shard_lane_range``); the partial
 images of all ranks sum to the full-budget estimator
 (``parallel/sharding.py``).
+
+renderC and renderD run through a per-integrator cache of ``Program``s
+(``program.py``: a CUDA graph captured once and replayed), keyed as the
+JAX package keys its compiled programs; ``render_program`` is
+``render_fn`` as a program over ``(params, key)``. Nothing a render reads
+from host data is made inside it: the tile order is cached on the scene
+and the small constants in ``core/hoist.py``.
 """
 from __future__ import annotations
 
@@ -24,9 +31,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core import threefry
 from ..core.constants import RayEpsilon
 from ..core.gather import gather_rows
+from ..core.hoist import const, memo
 from ..core.math import ray_intersect_triangle, scrub_nonfinite
-from ..core.records import Ray, RenderOptions
+from ..core.records import Ray, RenderOptions, any_requires_grad
 from ..core.sampler import RngStream, ld_2d
+from ..program import Program
 from ..scene.scene import (FlatScene, Scene, _closest_hit, detach_flat,
                            ray_test)
 from ..sensor.perspective import sample_primary_edge, sample_primary_ray
@@ -44,8 +53,7 @@ def camera_prior_rows(flat: FlatScene, sensor_id: int, pix_order: torch.Tensor,
     dev = pix_order.device
     base = torch.stack([(pix_order % opts.width).float(),
                         (pix_order // opts.width).float()], dim=-1)
-    film = torch.tensor([opts.width, opts.height], dtype=torch.float32,
-                        device=dev)
+    film = const((opts.width, opts.height), torch.float32, dev)
     ray = sample_primary_ray(flat_det.sensors[sensor_id], (base + 0.5) / film)
     hit = _closest_hit(flat_det, ray, torch.ones(pix_order.shape,
                                                  dtype=torch.bool, device=dev))
@@ -87,6 +95,17 @@ def tiled_pixel_order(width: int, height: int, tile: int = 32) -> np.ndarray:
     order = np.lexsort((xx.ravel() % tile, yy.ravel() % tile,
                         xx.ravel() // tile, yy.ravel() // tile))
     return (yy.ravel() * width + xx.ravel())[order].astype(np.int32)
+
+
+def tile_orders(scene: Scene, width: int, height: int, device):
+    """``tiled_pixel_order`` and its inverse (pixel p sits at tile position
+    ``inv[p]``) as int64 tensors on ``device``, made once per film and
+    device and kept on the scene."""
+    def make():
+        order = tiled_pixel_order(width, height)
+        return (torch.as_tensor(order, device=device).long(),
+                torch.as_tensor(np.argsort(order), device=device))
+    return memo(scene, ("tile_orders", width, height, str(device)), make)
 
 
 def tile_pos_to_pixel(pos: torch.Tensor, width: int, height: int,
@@ -156,9 +175,10 @@ def shard_lane_range(n: int, shard) -> tuple[int, int]:
     return d * count, count
 
 
-def _pix_hash(idx: torch.Tensor, word: int) -> torch.Tensor:
+def _pix_hash(idx: torch.Tensor, word) -> torch.Tensor:
     """Per-pixel 32-bit hash of (pixel id, word), as the JAX package's
-    scramble words (uint32 in int64)."""
+    scramble words (uint32 in int64); ``word`` is an int or a 0-dim
+    tensor."""
     h = (idx & _M32) ^ word
     h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
     h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
@@ -186,8 +206,8 @@ class Integrator:
         n = num_pixels * spp
         start, count = shard_lane_range(n, shard)
         chunk = min(opts.pass_lanes, count)
-        pix_order_np = tiled_pixel_order(opts.width, opts.height)
-        pix_order = torch.as_tensor(pix_order_np, device=dev).long()
+        pix_order, inv_order = tile_orders(scene, opts.width, opts.height,
+                                           dev)
         if opts.sampler not in ("sobol", "stratified", "independent"):
             raise ValueError(f"unknown sampler {opts.sampler!r}")
         # stratify the subpixel jitter over an a x b grid when spp
@@ -203,8 +223,7 @@ class Integrator:
         # the NEE visibility reuse and the per-chunk reduction rely on; a
         # rank's slice must then start and end on a pixel too
         aligned = chunk % spp == 0 and count % spp == 0 and start % spp == 0
-        film = torch.tensor([opts.width, opts.height], dtype=torch.float32,
-                            device=dev)
+        film = const((opts.width, opts.height), torch.float32, dev)
         remat = opts.resolve_remat(count)
 
         def lane_values(lane, key_c, prior_rows_c=None):
@@ -223,9 +242,12 @@ class Integrator:
                 # it; only its counter slot matters
                 rng._subkey()
                 # XOR-scrambled (0,2)-sequence for the subpixel jitter and
-                # the first NEE/BSDF samples, one scramble pair each per pixel
+                # the first NEE/BSDF samples, one scramble pair each per
+                # pixel; the words stay 0-dim tensors on the key's device
+                # (a CPU scalar in the card's ops where the key is a host
+                # key)
                 w = threefry.randint(rng._subkey(), (6,), 0,
-                                     np.iinfo(np.int32).max).tolist()
+                                     np.iinfo(np.int32).max)
                 s_idx = lane % spp
                 jitter = ld_2d(s_idx, _pix_hash(idx, w[0]),
                                _pix_hash(idx, w[1]))
@@ -238,15 +260,14 @@ class Integrator:
                 s_idx = lane % spp
                 cell = torch.stack([(s_idx % sa).float(),
                                     (s_idx // sa).float()], dim=-1)
-                jitter = (cell + jitter) / torch.tensor(
-                    [sa, sb], dtype=torch.float32, device=dev)
+                jitter = (cell + jitter) / const((sa, sb), torch.float32, dev)
                 # per-pixel rotations of the stratum index for the NEE and
                 # the BSDF sample, independent hashes of the pixel, so that
                 # subpixel and light strata decorrelate across pixels
                 # ("padded" stratified sampling); the (sa, sb) grid rides
                 # along so _stratify2 shares this factorization
                 w = threefry.randint(rng._subkey(), (2,), 0,
-                                     np.iinfo(np.int32).max).tolist()
+                                     np.iinfo(np.int32).max)
                 rng.strata = (s_idx, spp, (sa, sb),
                               _pix_hash(idx, w[0]) % spp,
                               _pix_hash(idx, w[1]) % spp)
@@ -298,7 +319,6 @@ class Integrator:
                               for c in range(n_chunks)])
         # pixel p sits at tile position inv_order[p]; this slice's blocks
         # cover positions [start / spp, start / spp + rows)
-        inv_order = torch.as_tensor(np.argsort(pix_order_np), device=dev)
         rows = tile_img.shape[0]
         rel = inv_order - start // spp
         in_range = (rel >= 0) & (rel < rows)
@@ -413,20 +433,77 @@ class Integrator:
                                            with_boundary)
         return f
 
+    def render_program(self, scene: Scene, sensor_id: int = 0,
+                       with_boundary: bool = False,
+                       detached: bool = True) -> Program:
+        """``render_fn`` as a ``Program`` over ``(params, key)``: captured
+        on the first call on CUDA tensors and replayed after (the JAX
+        package's ``jax.jit(integrator.render_fn(scene, with_boundary=False,
+        detached=True))``, its forward benchmark). The params and the key
+        lie on one device; ``threefry.PRNGKey(seed, device=...)`` makes the
+        key there. Only the forward: under ``torch.no_grad()``."""
+        return Program(self.render_fn(scene, sensor_id, with_boundary,
+                                      detached),
+                       name=f"{type(self).__name__}.render_program")
+
+    def _jit_radiance(self, scene: Scene, sensor_id: int,
+                      with_boundary: bool) -> dict:
+        """Per-integrator program cache: renderC and renderD run one
+        ``Program`` per (scene, flat, opts, sensor, boundary, detached),
+        as the JAX package runs one compiled program per combination."""
+        cache = getattr(self, "_radiance_jits", None)
+        if cache is None:
+            cache = self._radiance_jits = {}
+        return cache
+
+    def _jit_radiance_call(self, scene: Scene, sensor_id: int,
+                           with_boundary: bool, detached: bool,
+                           key: torch.Tensor) -> torch.Tensor:
+        """``radiance_image`` through the cached ``Program`` of this
+        combination. The program closes over ``scene.flat`` (the cache key
+        tracks its identity, so a rebuilt scene gets a new program) and
+        takes only the key, which moves to the scene's device first. The
+        cache is cleared when it holds more than 16 programs; dropping a
+        program frees its graph and pool."""
+        cache = self._jit_radiance(scene, sensor_id, with_boundary)
+        flat = scene.flat
+        k = (id(scene), id(flat), scene.opts, sensor_id, with_boundary,
+             detached)
+        f = cache.get(k)
+        if f is None:
+            if len(cache) > 16:
+                cache.clear()
+
+            def run(key_):
+                fl = detach_flat(flat) if detached else flat
+                return self.radiance_image(scene, fl, sensor_id, key_,
+                                           with_boundary)
+
+            f = cache[k] = Program(run, name=f"{type(self).__name__}."
+                                             "_jit_radiance")
+        return f(key.to(scene.device))
+
     def renderC(self, scene: Scene, sensor_id: int = 0,
                 seed: int = 0) -> torch.Tensor:
-        """Forward render at the current params -> (H, W, 3)."""
-        with torch.no_grad():
-            img = self.radiance_image(scene, detach_flat(scene.flat),
-                                      sensor_id, threefry.PRNGKey(seed), False)
+        """Forward render at the current params -> (H, W, 3), through the
+        program cache (``_jit_radiance_call``)."""
+        img = self._jit_radiance_call(scene, sensor_id, False, True,
+                                      threefry.PRNGKey(seed))
         return img.reshape(scene.opts.height, scene.opts.width, 3)
 
     def renderD(self, scene: Scene, sensor_id: int = 0,
                 seed: int = 0) -> torch.Tensor:
         """Primal of the differentiable render at the current params (the
         recompute path; the boundary terms are zero in the primal and add
-        only their gradient) -> (H, W, 3). It carries a graph where the
-        scene's params require grad."""
-        img = self.radiance_image(scene, scene.flat, sensor_id,
-                                  threefry.PRNGKey(seed), True)
+        only their gradient) -> (H, W, 3). Where no parameter of the scene
+        requires grad it runs through the program cache, as the JAX
+        package's jitted primal does; where one does, it runs eagerly and
+        the image carries the graph to those parameters (the gradient
+        programs are not captured)."""
+        key = threefry.PRNGKey(seed)
+        flat = scene.flat
+        if any_requires_grad(flat):
+            img = self.radiance_image(scene, flat, sensor_id, key, True)
+        else:
+            img = self._jit_radiance_call(scene, sensor_id, True, False, key)
         return img.reshape(scene.opts.height, scene.opts.width, 3)

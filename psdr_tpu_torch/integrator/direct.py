@@ -31,6 +31,7 @@ from ..core.distribution import (hypercube_init, hypercube_sample_reuse,
                                  hypercube_set_mass)
 from ..core.frame import to_local, to_world
 from ..core.gather import select_rows
+from ..core.hoist import const
 from ..core.math import (bilinear, cross, dot, norm, normalize,
                          ray_intersect_triangle, scrub_nonfinite, sqr,
                          squared_norm)
@@ -70,8 +71,7 @@ def _stratify2(u2: torch.Tensor, rng: RngStream, which: int) -> torch.Tensor:
     s_idx, spp, (a, b), rot_nee, rot_bsdf = rng.strata
     s = (s_idx + (rot_nee if which == 0 else rot_bsdf)) % spp
     cell = torch.stack([(s % a).float(), (s // a).float()], dim=-1)
-    return (cell + u2) / torch.tensor([a, b], dtype=torch.float32,
-                                      device=u2.device)
+    return (cell + u2) / const((a, b), torch.float32, u2.device)
 
 
 def _mdiv(a, b, mask):

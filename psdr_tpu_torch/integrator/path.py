@@ -192,11 +192,15 @@ class PathTracer(Integrator):
         if flat.envmap is not None:
             active = active & (its.bsdf_id >= 0)
 
-        # every draw of a depth folds (depth, draw id) from one subkey
-        depth_base = rng._subkey()
+        # every draw of a depth folds (depth, draw id) from one subkey; row
+        # i of split(k, n) is fold_in(k, i), so each level of keys is one
+        # hash (one vectorised hash in the tensor-word mode)
+        D = self.max_depth
+        depth_keys = threefry.split(rng._subkey(), D)
 
         def depth_body(state, kd, first: bool, last: bool):
             its, beta, active, result = state
+            kd = threefry.split(kd, 2)
             # --- NEE via an occlusion test ---
             if first and rng.ld is not None:
                 # the first bounce's samples ride the pixel's scrambled
@@ -204,7 +208,7 @@ class PathTracer(Integrator):
                 # own, so leaving it out moves no other draw
                 u2 = _stratify2(None, rng, which=0)
             else:
-                u2 = threefry.uniform(threefry.fold_in(kd, 0), (n, 2), dev)
+                u2 = threefry.uniform(kd[0], (n, 2), dev)
                 if first:
                     u2 = _stratify2(u2, rng, which=0)
             ps = sample_emitter_position(flat, offsets, emeta, its.p, u2,
@@ -255,7 +259,7 @@ class PathTracer(Integrator):
                                           beta * contrib, 0.0)
 
             # --- BSDF continuation ---
-            u3 = threefry.uniform(threefry.fold_in(kd, 1), (n, 3), dev)
+            u3 = threefry.uniform(kd[1], (n, 3), dev)
             if first:
                 u3 = torch.cat([_stratify2(u3[:, 0:2], rng, which=1),
                                 u3[:, 2:]], dim=1)
@@ -302,11 +306,10 @@ class PathTracer(Integrator):
                 its = its_b
             return its, beta, active, result
 
-        D = self.max_depth
         state = (its, beta, active, result)
         for d in range(D):
-            state = depth_body(state, threefry.fold_in(depth_base, d),
-                               first=(d == 0), last=(d == D - 1))
+            state = depth_body(state, depth_keys[d], first=(d == 0),
+                               last=(d == D - 1))
         return state[3]
 
     # -- boundary terms ------------------------------------------------------

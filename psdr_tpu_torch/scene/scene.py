@@ -28,6 +28,7 @@ from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.frame import make_frame, to_local
 from ..core.frame import to_world as frame_to_world
 from ..core.gather import gather_rows, select_rows
+from ..core.hoist import const, memo, upload
 from ..core.math import (bilinear, dot, norm, normalize,
                          ray_intersect_triangle, rgb2luminance, safe_sqrt,
                          sign_eps, squared_norm)
@@ -309,7 +310,8 @@ class Scene:
         for mesh, mp in zip(self.meshes, params["meshes"]):
             vp = mesh.world_positions(mp)
             info, _ = compute_triangle_info(
-                vp, torch.as_tensor(mesh.faces, device=dev), mesh.num_vertices)
+                vp, upload(mesh, mesh.faces, dev, torch.int64),
+                mesh.num_vertices)
             if mesh.use_vertex_normals:
                 # authored normals override the recomputed area-weighted
                 # shading normals; geometric normals and edge silhouettes
@@ -354,11 +356,11 @@ class Scene:
                 envmap = envmap._replace(
                     cell_distrb=envmap.cell_distrb._replace(
                         distrb=d, alias=None, hier=None))
-            bits = torch.tensor([[bool(i & (1 << j)) for j in range(3)]
-                                 for i in range(8)], device=dev)
+            bits = const([[bool(i & (1 << j)) for j in range(3)]
+                          for i in range(8)], torch.bool, dev)
             corners = torch.where(bits, upper, lower)
             bound_info, _ = compute_triangle_info(
-                corners, torch.tensor(_BOUND_FACES, device=dev), 8)
+                corners, const(_BOUND_FACES, torch.int64, dev), 8)
             tri_infos_all = tri_infos + [bound_info]
         else:
             tri_infos_all = tri_infos
@@ -368,8 +370,8 @@ class Scene:
         for i, mesh in enumerate(self.meshes):
             nf = mesh.num_faces
             if mesh.uv is not None:
-                uvs = torch.as_tensor(mesh.uv, device=dev)
-                uvi = torch.as_tensor(mesh.uv_idx, device=dev).long()
+                uvs = upload(mesh, mesh.uv, dev)
+                uvi = upload(mesh, mesh.uv_idx, dev, torch.int64)
                 uv0_l.append(uvs[uvi[:, 0]])
                 uv1_l.append(uvs[uvi[:, 1]])
                 uv2_l.append(uvs[uvi[:, 2]])
@@ -452,20 +454,18 @@ class Scene:
         accel = None
         if (self._bvh_topo is not None
                 and self._bvh_topo.num_faces == tri.p0.shape[0]):
-            accel = refit_bvh(self._bvh_topo, tri.p0, tri.e1, tri.e2)
+            topo = self._bvh_topo
+            topo = topo._replace(perm=upload(self, topo.perm, dev),
+                                 skip=upload(self, topo.skip, dev))
+            accel = refit_bvh(topo, tri.p0, tri.e1, tri.e2)
 
         # static emitter-face index set
-        em_rows = [np.arange(face_offset[i], face_offset[i + 1])
-                   for i, mesh in enumerate(self.meshes)
-                   if mesh.emitter_id >= 0]
-        if envmap is not None:
-            em_rows.append(np.arange(face_offset[-1], face_offset[-1] + 12))
-        em_tri_idx = None
-        if em_rows:
-            em_cat = np.concatenate(em_rows)
-            # past a few thousand faces the full accel path wins again
-            if em_cat.shape[0] <= 8192:
-                em_tri_idx = torch.as_tensor(em_cat, device=dev)
+        em_meshes = tuple(i for i, mesh in enumerate(self.meshes)
+                          if mesh.emitter_id >= 0)
+        em_tri_idx = memo(self, ("em_tri_idx", str(dev), tuple(face_offset),
+                                 em_meshes, envmap is not None),
+                          lambda: _emitter_faces(face_offset, em_meshes,
+                                                 envmap is not None, dev))
 
         if tri.p0.shape[0] >= (1 << 24):
             # face ids ride the f32 face table exactly only below 2^24
@@ -496,6 +496,22 @@ class Scene:
         return ("Scene[\n  # Sensors\n  " + "\n  ".join(map(repr, self.sensors))
                 + "\n  # BSDFs\n  " + "\n  ".join(map(repr, self.bsdfs))
                 + "\n  # Meshes\n  " + "\n  ".join(map(repr, self.meshes)) + "\n]")
+
+
+def _emitter_faces(face_offset, em_meshes, with_envmap: bool, dev):
+    """The global face ids of all emitter geometry as an int64 tensor, or
+    None when there is none or more than 8192 faces (past a few thousand
+    faces the full accel path wins again)."""
+    em_rows = [np.arange(face_offset[i], face_offset[i + 1])
+               for i in em_meshes]
+    if with_envmap:
+        em_rows.append(np.arange(face_offset[-1], face_offset[-1] + 12))
+    if not em_rows:
+        return None
+    em_cat = np.concatenate(em_rows)
+    if em_cat.shape[0] > 8192:
+        return None
+    return torch.as_tensor(em_cat, device=dev)
 
 
 def _host_tree(tree):

@@ -15,6 +15,7 @@ from ..core import transform as xform
 from ..core.constants import EdgeEpsilon, Epsilon, ShadowEpsilon
 from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.gather import gather_rows
+from ..core.hoist import const
 from ..core.math import dot, norm, normalize
 from ..core.records import (PrimaryEdgeSample, Ray, SensorDirectSample,
                             detach_tree)
@@ -75,17 +76,19 @@ def configure_sensor(cam: PerspectiveCamera, to_world: torch.Tensor,
     width, height = int(resolution[0]), int(resolution[1])
     aspect = width / height
     dev = to_world.device
-    camera_to_sample = torch.as_tensor(
+    camera_to_sample = const(
         xform.scale(np.array([-0.5, -0.5 * aspect, 1.0]))
         @ xform.translate(np.array([-1.0, -1.0 / aspect, 0.0]))
         @ xform.perspective(cam.fov_x, cam.near_clip, cam.far_clip),
-        device=dev)
-    sample_to_camera = torch.linalg.inv(camera_to_sample)
-    world_to_sample = camera_to_sample @ torch.linalg.inv(to_world)
+        None, dev)
+    # inv_ex: inv's singularity check would read back to the host
+    sample_to_camera = torch.linalg.inv_ex(camera_to_sample).inverse
+    world_to_sample = (camera_to_sample
+                       @ torch.linalg.inv_ex(to_world).inverse)
     sample_to_world = to_world @ sample_to_camera
 
     def pt(*v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        return const(v, torch.float32, dev)
 
     camera_pos = xform.transform_pos(to_world, pt(0.0, 0.0, 0.0))
     camera_dir = xform.transform_dir(to_world, pt(0.0, 0.0, 1.0))
@@ -167,8 +170,8 @@ def sample_direct(state: SensorState, p: torch.Tensor) -> SensorDirectSample:
     read detached throughout."""
     width, height = state.resolution
     q = xform.transform_pos(state.world_to_sample.detach(), p)[..., :2]
-    iq = torch.floor(q * torch.tensor([width, height], dtype=q.dtype,
-                                      device=q.device)).to(torch.int32)
+    iq = torch.floor(q * const((width, height), q.dtype,
+                               q.device)).to(torch.int32)
     valid = ((iq[..., 0] >= 0) & (iq[..., 0] < width)
              & (iq[..., 1] >= 0) & (iq[..., 1] < height))
     pixel_idx = torch.where(valid, iq[..., 1] * width + iq[..., 0], -1)
@@ -207,8 +210,8 @@ def sample_primary_edge(state: SensorState,
     p = p_.detach()
     x_dot_n = dot(p_, en)
 
-    ip = torch.floor(p * torch.tensor([width, height], dtype=p.dtype,
-                                      device=p.device)).to(torch.int32)
+    ip = torch.floor(p * const((width, height), p.dtype,
+                               p.device)).to(torch.int32)
     onscreen = ((ip[..., 0] >= 0) & (ip[..., 0] < width)
                 & (ip[..., 1] >= 0) & (ip[..., 1] < height))
     pix = torch.where(ok & onscreen, ip[..., 1] * width + ip[..., 0], -1)

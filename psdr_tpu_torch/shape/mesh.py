@@ -15,6 +15,7 @@ from ..core import warp
 from ..core.constants import EdgeEpsilon
 from ..core.distribution import Discrete, discrete_sample_reuse
 from ..core.gather import select_rows
+from ..core.hoist import upload
 from ..core.math import bilinear, cross, norm, normalize
 from ..core.records import PositionSample
 
@@ -146,7 +147,6 @@ class Mesh:
         self.num_faces = int(self.faces.shape[0])
         self.edge_indices = (build_edges(self.faces) if self.enable_edges
                              else np.zeros((0, 5), np.int32))
-        self._edge_table = None   # (edge_indices, device, its int64 tensor)
         self.vertex_positions = self.vertices
         self.enable_vertex_offset = bool(enable_vertex_offset)
         self.vertex_offset = (np.zeros((self.num_vertices,), np.float32)
@@ -158,14 +158,7 @@ class Mesh:
     def edge_table(self, device) -> torch.Tensor:
         """``edge_indices`` as int64 on ``device``: static topology, so it is
         uploaded once and again only after ``edge_indices`` is replaced."""
-        device = torch.device(device)
-        cached = self._edge_table
-        if (cached is None or cached[0] is not self.edge_indices
-                or cached[1] != device):
-            cached = (self.edge_indices, device,
-                      torch.as_tensor(self.edge_indices, device=device).long())
-            self._edge_table = cached
-        return cached[2]
+        return upload(self, self.edge_indices, device, torch.int64)
 
     def params(self) -> dict:
         p = {"vertex_positions": self.vertex_positions,
@@ -189,8 +182,8 @@ class Mesh:
     def _composite(self, to_world: torch.Tensor) -> torch.Tensor:
         """``to_world_left @ to_world @ to_world_right``."""
         dev = to_world.device
-        return (torch.as_tensor(self.to_world_left, device=dev) @ to_world
-                @ torch.as_tensor(self.to_world_right, device=dev))
+        return (upload(self, self.to_world_left, dev) @ to_world
+                @ upload(self, self.to_world_right, dev))
 
     def world_positions(self, params: dict) -> torch.Tensor:
         vp = params["vertex_positions"]
@@ -200,7 +193,7 @@ class Mesh:
             # normals, themselves a differentiable function of the raw
             # positions, before the world transform
             _, vn = compute_triangle_info(
-                vp, torch.as_tensor(self.faces, device=vp.device),
+                vp, upload(self, self.faces, vp.device, torch.int64),
                 self.num_vertices)
             vp = vp + off[:, None] * vn
         return xform.transform_pos(self._composite(params["to_world"]), vp)
@@ -211,11 +204,11 @@ class Mesh:
         ``to_world``'s linear part (differentiable in ``to_world``; the raw
         normals are authored data, not a function of the positions)."""
         m = self._composite(params["to_world"])
-        n = torch.as_tensor(self.normals, device=m.device) @ torch.linalg.inv(
-            m[:3, :3])
+        n = (upload(self, self.normals, m.device)
+             @ torch.linalg.inv_ex(m[:3, :3]).inverse)
         n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
                             min=1e-20)
-        ni = torch.as_tensor(self.normal_idx, device=m.device).long()
+        ni = upload(self, self.normal_idx, m.device, torch.int64)
         return n[ni[:, 0]], n[ni[:, 1]], n[ni[:, 2]]
 
     def shift_vertices(self) -> None:

@@ -23,6 +23,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..convert import params_from_numpy
 from ..core import threefry
+from ..program import Program
 from .differential import apply_perturbation
 
 
@@ -33,13 +34,14 @@ def _image(scene, acc, npass: int) -> np.ndarray:
 
 def run_orig(scene, integrator, npass: int = 1,
              sensor_id: int = 0) -> np.ndarray:
-    """npass-averaged forward render -> (H, W, 3)."""
-    render = integrator.render_fn(scene, sensor_id, with_boundary=False)
+    """npass-averaged forward render -> (H, W, 3), through one
+    ``Program`` (captured once on the card, as the JAX package jits it)."""
+    render = Program(integrator.render_fn(scene, sensor_id,
+                                          with_boundary=False), "run_orig")
     params = params_from_numpy(scene.params(), device=scene.device)
     acc = 0.0
-    with torch.no_grad():
-        for i in range(npass):
-            acc = acc + render(params, threefry.PRNGKey(i))
+    for i in range(npass):
+        acc = acc + render(params, threefry.PRNGKey(i, device=scene.device))
     return _image(scene, acc, npass)
 
 

@@ -7,7 +7,7 @@ gradient of a rough conductor under an environment map, an optimizer step
 and a scene loaded from files on the card against the same on the CPU;
 and the sharded steps over gloo ranks sharing the card and a one-rank
 NCCL group against their serial emulation on the card, and the flagship
-recovery loop.
+recovery loop; and the captured render programs against the eager renders.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -640,3 +640,83 @@ def test_flagship_recovery_on_card_lowers_rmse(cuda, tmp_path):
     assert seen == [True] * 3
     assert summary["rmse_final"] < summary["rmse0"]
     assert (tmp_path / "recovered_occluder.obj").stat().st_size > 0
+
+
+# -- the captured programs (psdr_tpu_torch/program.py) ---------------------------
+
+def _eager_renderC(integ, sc, seed):
+    from psdr_tpu_torch.scene.scene import detach_flat
+    with torch.no_grad():
+        return integ.radiance_image(sc, detach_flat(sc.flat), 0,
+                                    threefry.PRNGKey(seed), False).reshape(
+                                        sc.opts.height, sc.opts.width, 3)
+
+
+@pytest.mark.parametrize("integ", ["direct", "path"])
+def test_program_replay_equals_eager_at_each_seed(cuda, integ):
+    """renderC through its captured program (64x64, spp 4, 1,292
+    triangles) equals the eager render with a host key bit for bit at
+    seeds 0, 1, 0 (no build in the program: no atomic sum), seed 1 differs
+    from seed 0 (no key baked in), and one replay launches what the eager
+    frame launches."""
+    sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=cuda)
+    it = DirectIntegrator(1, 1) if integ == "direct" else PathTracer(2)
+    want = {s: _eager_renderC(it, sc, s) for s in (0, 1)}
+    intersect.reset_launch_counts()
+    _eager_renderC(it, sc, 0)
+    eager = dict(intersect.LAUNCHES)
+    it.renderC(sc, seed=0)                      # warm-up, capture, replay
+    (prog,) = it._radiance_jits.values()
+    assert prog.captured and prog.nodes > 0 and prog.pool_bytes > 0
+    intersect.reset_launch_counts()
+    imgs = [it.renderC(sc, seed=s) for s in (0, 1, 0)]
+    torch.cuda.synchronize()
+    assert {k: 3 * v for k, v in eager.items()} == intersect.LAUNCHES
+    for s, img in zip((0, 1, 0), imgs):
+        assert torch.equal(img, want[s])
+    assert float((imgs[1] - imgs[0]).abs().mean()) > 1e-3
+
+
+def test_render_program_matches_render_fn(cuda):
+    """``render_program`` (the scene rebuilt from the params inside the
+    graph) against ``render_fn(detached=True)``: equal up to the atomic
+    sums of the build's vertex normals."""
+    from psdr_tpu_torch.profiling import render_timed
+    sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=cuda)
+    integ = DirectIntegrator(1, 1)
+    p = params_from_numpy(sc.params(), device=cuda)
+    prog = integ.render_program(sc)
+    for s in (0, 1):
+        want = integ.render_fn(sc, with_boundary=False, detached=True)(
+            p, threefry.PRNGKey(s))
+        got = prog(p, threefry.PRNGKey(s, device=cuda))
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="was built for"):
+        prog(p, threefry.PRNGKey(0, device=cuda).to(torch.int32))
+    # render_timed waits for the replay: its image is renderC's
+    img, secs = render_timed(integ, sc, seed=2)
+    assert secs > 0 and torch.equal(img, integ.renderC(sc, seed=2))
+
+
+def test_program_capture_of_host_data_fails_loudly(cuda):
+    """A body that copies host data cannot be captured: the call raises
+    (the warm-up ran once, nothing runs eagerly in the capture's place),
+    every later call raises without running the body, and the card stays
+    usable."""
+    from psdr_tpu_torch.program import Program
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        return x + torch.tensor([1.0], device=x.device)
+
+    prog = Program(body, "host data")
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match="capture"):
+        prog(x)
+    n = len(calls)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        prog(x)
+    assert len(calls) == n and not prog.captured
+    assert float((x * 2).sum()) == 8.0

@@ -24,7 +24,8 @@ def test_import_without_jax():
     environment map, a textured quad and an AOV; and the loader, the EXR
     codecs, an optimizer step and the harness; and the sharding module,
     its launcher and the six examples, with a lane-sliced render of one
-    rank's share and an update of the functional Adam."""
+    rank's share and an update of the functional Adam; and the programs
+    and the hoisted device constants."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -38,7 +39,7 @@ def test_import_without_jax():
         " 'testing.harness', 'testing.differential', 'profiling',"
         " 'core.exr', 'core.piz', 'core.b44', 'parallel',"
         " 'parallel.sharding', 'parallel.launch', 'testing.ranks',"
-        " 'examples.render_simple',"
+        " 'program', 'core.hoist', 'examples.render_simple',"
         " 'examples.validate_gradients', 'examples.inverse_albedo',"
         " 'examples.inverse_geometry', 'examples.multiview_inverse',"
         " 'examples.flagship_recovery'):\n"

@@ -1,7 +1,10 @@
 """The port's random streams equal jax.random's bit for bit: keys,
 fold_in, split, float32 uniform and int32 randint (threefry2x32 with
-jax_threefry_partitionable on), the scrambled (0,2)-sequence and the
-per-pixel scramble hash."""
+jax_threefry_partitionable on), in both key modes (host words, and the
+tensor words a captured program runs on, ``threefry.tensor_words``), the
+scrambled (0,2)-sequence and the per-pixel scramble hash."""
+import contextlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -60,6 +63,55 @@ def test_rng_stream_matches_jax():
         a = np.asarray(getattr(jr, draw)(257))
         b = getattr(tr, draw)(257).numpy()
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", list(range(10)))
+def test_tensor_words_equal_jax_and_host_words(seed):
+    """The tensor-word mode (0-dim words on the key's device, every
+    derivation tensor code) against jax.random and the host-word path:
+    keys, fold_in, split, uniform and randint bit for bit."""
+    jk, hk = jax.random.PRNGKey(seed), threefry.PRNGKey(seed)
+    ju = jax.random.fold_in(jk, 11)
+    want = {"fold_in": [jax.random.fold_in(jk, d) for d in (0, 7, 2**31 - 1)],
+            "split": [jax.random.split(jk, 5), jax.random.split(ju, 3)],
+            "uniform": np.asarray(jax.random.uniform(ju, (333, 3))),
+            "randint": [np.asarray(jax.random.randint(jk, (6,), 0, 2**31 - 1,
+                                                      jnp.int32)),
+                        np.asarray(jax.random.randint(ju, (9, 2), -5, 1000,
+                                                      jnp.int32))]}
+    for mode in ("host", "tensor"):
+        with (threefry.tensor_words() if mode == "tensor"
+              else contextlib.nullcontext()):
+            tu = threefry.fold_in(hk, 11)
+            got = {"fold_in": [threefry.fold_in(hk, d)
+                               for d in (0, 7, 2**31 - 1)],
+                   "split": [threefry.split(hk, 5), threefry.split(tu, 3)],
+                   "uniform": threefry.uniform(tu, (333, 3)).numpy(),
+                   "randint": [threefry.randint(hk, (6,), 0, 2**31 - 1),
+                               threefry.randint(tu, (9, 2), -5, 1000)]}
+        for j, t in zip(want["fold_in"] + want["split"],
+                        got["fold_in"] + got["split"]):
+            _key_eq(j, t)
+        np.testing.assert_array_equal(want["uniform"].view(np.int32),
+                                      got["uniform"].view(np.int32))
+        for j, t in zip(want["randint"], got["randint"]):
+            np.testing.assert_array_equal(j, t.numpy())
+
+
+def test_rng_stream_tensor_words_match_jax():
+    """A tensor-word stream derives its subkeys a block at a time
+    (``split``, whose row i is ``fold_in``'s): 20 draws, past two blocks,
+    equal the host stream's and JAX's."""
+    jr = jsampler.RngStream(jax.random.PRNGKey(4), salt=2)
+    hr = tsampler.RngStream(threefry.PRNGKey(4), salt=2)
+    with threefry.tensor_words():
+        tr = tsampler.RngStream(threefry.PRNGKey(4), salt=2)
+        draws = [tr.next_2d(65).numpy() for _ in range(20)]
+    assert tr._block.shape == (3 * tsampler.RngStream.BLOCK, 2)
+    for b in draws:
+        a = np.asarray(jr.next_2d(65))
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        np.testing.assert_array_equal(hr.next_2d(65).numpy(), b)
 
 
 def test_ld_2d_equal():
