@@ -110,7 +110,10 @@ Every phase passes or the script exits nonzero:
     then K1 and K2 on one step's own inputs (every distinct launch) on the
     refit tree, each against its plain version, timed and counted for its
     bound; ``refit_quality`` timed, one accel rebuild forced, one step on
-    the new tree, and K1 and K2 again on a step's inputs there;
+    the new tree, the step as a program captured on the refit tree, which
+    the rebuild makes capture again and whose replay then equals the eager
+    step on the new tree (``gate_replay``), and K1 and K2 again on a
+    step's inputs there;
 23. the trainer and the harness on the card against the CPU at 32x32 (spp
     8, sppe 2, sppse 8): one optimizer step (loss, every selected leaf's
     gradient under phase 10's bounds, the Adam update equal given equal
@@ -130,26 +133,31 @@ Every phase passes or the script exits nonzero:
     on the card (rtol 2e-5, atol 2e-6) and each gradient leaf within
     SHARD_REL_L2 of it (the rank bodies are ``testing.ranks``'s, as the
     tests run them); ``make_train_step`` under ``sgd(STEP_LR)`` with
-    ``overlap=True`` against ``overlap=False`` and the emulation; the
-    collective guiding table at phase 11's size against the serial one;
-    a one-rank NCCL group through ``shard_render_fn`` against the plain
-    render, launch counts included; seconds per sharded step, which are
-    ranks sharing one card and no scaling figure;
+    ``overlap=True`` against ``overlap=False`` and the emulation (over
+    gloo its forward and backward are a ``VJPProgram``'s two graphs and
+    its update a third, the all-reduces between them); the collective
+    guiding table at phase 11's size against the serial one; a one-rank
+    NCCL group through ``shard_render_fn`` against the plain render,
+    launch counts included, and its ``make_train_step`` captured whole,
+    all-reduces inside, against the plain gradient, then timed against the
+    split form (``testing.ranks.step_forms``, FORM_REPS calls each in
+    turns at ONE_RANK_SCENE and RENDERD); seconds per sharded step, which
+    are ranks sharing one card and no scaling figure;
 26. ``make_multiview_train_step`` at the flagship's full config (256x256,
     spp 16, sppe 4, sppse 32, the 20,492-face scene, 3 views on 3 gloo
     ranks) from the deformed occluder: loss and updated vertices against a
     serial emulation of the same step (SHARD_REL_L2), beside the
     emulation's own run-to-run spread within this process and across two
-    others; seconds per step;
+    others; seconds per step (each rank's step a program for its loss and
+    gradients and one for its update, the all-reduces between them);
 27. the main path of slice 8: ``examples.flagship_recovery`` at full
     width (3 views, the bench scene, ``flagship_deform`` as the start,
     smoothed gradients, masked Adam with ``exponential_decay``) for
     FLAGSHIP_ITERS iterations, every iteration with a finite loss and
     gradient and K1 (both modes) and K2 launched, the vertex RMSE below its
-    start at the end; the loss and RMSE curve and seconds an iteration;
-    then K1 and K2 on the inputs of every distinct launch of one
-    iteration (three views), each against its plain version, timed and
-    counted for its bound;
+    start at the end; the loss and RMSE curve and seconds an iteration
+    (each iteration a replay of the step's program, the first with its
+    warm-up and capture);
 28. the main path of this slice, the forward renders as captured CUDA
     graphs (``psdr_tpu_torch/program.py``), each against the eager render
     at the same key: (a) ``DirectIntegrator(1, 1).render_program`` (phase
@@ -167,8 +175,32 @@ Every phase passes or the script exits nonzero:
     key baked in); eager frames and replays timed as
     phase 5 times frames, one of each profiled (device busy, idle share,
     host launch calls); peak memory with the program cached. The kernels
-    line's ``launches`` are these replays'; its ``ms``, ``plain_ms`` and
-    ``bound_ms`` those of the shapes that (a) replays (phases 3 and 6).
+    line's ``launches_forward_programs`` are these replays'; its ``ms``,
+    ``plain_ms`` and ``bound_ms`` those of the shapes that (a) replays
+    (phases 3 and 6);
+29. the main path of this slice, the gradient programs as captured CUDA
+    graphs, each against its eager step (``gradient_configs``): (e)
+    ``DirectIntegrator(1, 1).grad_program`` (``bench.py``'s jitted
+    ``value_and_grad``) at phase 9's config, (f) the same under
+    ``PathTracer(3)`` (phase 15's), (g) with every boundary term at phase
+    12's, (h) one flagship iteration (``flagship_recovery
+    .make_train_step``: three views, smoothing, masked Adam on its
+    schedule) at phase 27's config, its eager step's K1 and K2 launches
+    held against their plain versions, timed and counted for their bound,
+    its replayed vertices against the update of the replay's own gradient
+    at counts 0 and 1 (UPDATE_ULPS, UPDATE_REL),
+    (i) phase 22's trainer as its value-and-gradient program and
+    ``Optimizer._jit_update``, (j) phase 11's guiding build. For each:
+    capture seconds, graph nodes and pool bytes; a replay's launch counts
+    equal to the eager step's (2 / 6 / 2 for e, 6 / 10 / 2 for f, 4 / 10
+    / 4 for g, 3 / 8 / 3 for i); replays at seeds 0, 1, 0 against the
+    eager step of each seed, the loss and every gradient leaf within
+    REPLAY_SPREAD_X times the eager step's run-to-run spread and the
+    card-vs-CPU bounds, seeds 0 and 1 as far apart as eager; the output
+    buffers at fixed addresses; eager steps and replays timed (median of
+    3), one of each profiled (device busy, idle share, host launch calls:
+    one a program), no ``indexing_backward`` kernel in a replay's top
+    ten. The kernels line's ``launches`` are these replays'.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -203,6 +235,12 @@ IMG_MEAN_REL = 1e-4
 # atomic sums of Scene.build's vertex normals, of a boundary pass) stays
 # within this multiple of the eager render's own run-to-run spread
 REPLAY_SPREAD_X = 8.0
+# phase 29 (h): a replayed flagship update against the same update run
+# eagerly on the replay's own gradient, vertex by vertex: within
+# UPDATE_ULPS ulps of the vertex plus UPDATE_REL of the step's largest
+# move (the smoothing's atomic sums round in any order; a wrong count or
+# rate moves the vertices by a part of the rate itself)
+UPDATE_ULPS, UPDATE_REL = 4.0, 1e-5
 BENCH = dict(width=512, height=512, spp=64, occluder_subdiv=5)
 BWD = dict(BENCH, spp=16)   # bench.py's backward config
 # scripts/bench_renderD.py's config: the boundary step
@@ -270,8 +308,12 @@ MV_SPREAD_RUNS = 3      # runs of phase 26's emulation in each of 3 processes
 # of 1 the rounding alone read 1.3e-4 and 5.2e-4 relative L2, PERF.md)
 STEP_LR = 1e3
 FLAGSHIP_ITERS = 30
-FLAGSHIP_CAPTURE = 1    # the iteration whose K1 and K2 inputs phase 27 keeps
 RANK_TIMEOUT = 600      # seconds a phase's ranks may take, spawn included
+# phase 25's one NCCL rank: its train step's scene, and the calls of each
+# step form timed (in turns) there and at RENDERD
+ONE_RANK_SCENE = dict(width=32, height=32, spp=4, sppe=2, sppse=16,
+                      occluder_subdiv=3)
+FORM_REPS = 7
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
 GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
@@ -1621,6 +1663,8 @@ class QueryRecorder:
         return f"{estimator} / {query}"
 
     def record(self, mode, args):
+        if torch.cuda.is_current_stream_capturing():
+            return      # a capture's launches are its warm-up's again
         key = (mode, self.caller(), args[-4].shape[0], int(args[-2].sum()))
         self.seen.setdefault(key, args)
 
@@ -1857,6 +1901,13 @@ def trainer_phase(intersect, dev, tmp):
                                f"trainer {tree}")
 
     k1_refit, k2_refit, err, tally, main = captured(20, "refit tree")
+    # the step as a program, captured on the refit tree: the rebuild below
+    # makes it capture again (Program(retrace_on=...)), and its replay then
+    # equals the eager step on the new tree
+    from psdr_tpu_torch.program import Program, value_and_grad
+    prog = Program(value_and_grad(loss_fn), "trainer step", grad=True,
+                   retrace_on=lambda: sc.accel_version)
+    prog(opt.params, threefry.PRNGKey(30, device=dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q = sc.refit_quality(opt.params)
@@ -1874,6 +1925,21 @@ def trainer_phase(intersect, dev, tmp):
         f"{t_rebuild:.3f} s, a new Morton order, quality now {q2:.5f}; a "
         f"step on the new tree {dt_new:.3f} s, loss {loss_new:.6g}, launches "
         f"{launches_new}")
+    got = prog(opt.params, threefry.PRNGKey(30, device=dev))
+    with torch.enable_grad():
+        want = [_floats(prog.fn(opt.params, threefry.PRNGKey(30)))
+                for _ in range(2)]
+    spread = max(rel_l2(host(y), host(x)) for x, y in zip(*want))
+    if prog.captures != 2:
+        raise AssertionError(f"phase 22: the step program captured "
+                             f"{prog.captures} times across the rebuild, "
+                             "not 2")
+    d = gate_replay(22, "the step program after the rebuild", _floats(got),
+                    want[0], spread)
+    log(f"  the step as a program: captured on the refit tree, captured "
+        f"again after the rebuild; its replay within {d:.3g} relative L2 "
+        f"of the eager step on the new tree (eager spread {spread:.3g})")
+    del prog, got, want
     k1_new, k2_new, err_new, tally_new, _ = captured(21, "rebuilt tree")
     for mode in err:
         err[mode] += err_new[mode]
@@ -2163,7 +2229,8 @@ def sharded_phase(dev):
         f"{np.abs(m_col - m_ser).max():.3g} of {m_ser.max():.3g}")
 
     t0 = time.time()
-    one = run_ranks(ranks.one_rank_render, 1, "nccl", args=("cuda",),
+    one = run_ranks(ranks.one_rank_render, 1, "nccl",
+                    args=("cuda", (ONE_RANK_SCENE, RENDERD), FORM_REPS),
                     timeout=RANK_TIMEOUT)[0]
     (img, grads, launches), (p_img, p_grads, p_launches) = (
         one["sharded"], one["plain"])
@@ -2179,6 +2246,39 @@ def sharded_phase(dev):
     log(f"  one NCCL rank: shard_render_fn = render_fn under fold_in(key, 0) "
         f"(32 x 32 boundary step; worst leaf {worst:.3g}), launches equal "
         f"{launches}; {time.time() - t0:.1f} s with the spawn")
+    (s_loss, s_grads, s_launches), (p_loss, p_grads, p_launches) = (
+        one["step"], one["step_plain"])
+    progs = one["step_programs"]
+    if len(progs) != 1 or not progs[0][0]:
+        raise AssertionError(f"phase 25: one NCCL rank's train step is not "
+                             f"one captured program: {progs}")
+    worst = max(grad_close(25, "one NCCL rank's captured step", a, b,
+                           SHARD_REL_L2) for a, b in zip(s_grads, p_grads))
+    if (abs(s_loss - p_loss) > 1e-5 * p_loss or s_launches != p_launches):
+        raise AssertionError(f"phase 25: one NCCL rank's captured step: loss "
+                             f"{s_loss} vs {p_loss}, launches {s_launches} "
+                             f"vs {p_launches}")
+    log(f"  one NCCL rank's make_train_step, captured whole with its "
+        f"all-reduces ({progs[0][1]} graph nodes, capture "
+        f"{progs[0][2]:.3f} s): its replay applies the plain gradient "
+        f"(worst leaf {worst:.3g} relative L2), loss {s_loss:.6g}, launches "
+        f"{s_launches}")
+    forms = {}
+    for kw, whole, split, (l_whole, l_split) in one["forms"]:
+        if not abs(l_split - l_whole) <= 1e-5 * l_whole:
+            raise AssertionError(f"phase 25: one NCCL rank's step forms at "
+                                 f"{kw}: loss {l_whole} whole, {l_split} "
+                                 "split")
+        label = f"{kw['width']}x{kw['height']}"
+        forms[label] = {"whole_s": whole, "split_s": split,
+                        "whole_median_s": float(np.median(whole)),
+                        "split_median_s": float(np.median(split))}
+        log(f"  one NCCL rank's make_train_step at {kw}: whole form (one "
+            f"program) {', '.join(f'{t:.5f}' for t in whole)} s, median "
+            f"{np.median(whole):.5f}; split form (three programs, eager "
+            f"all-reduces) {', '.join(f'{t:.5f}' for t in split)} s, median "
+            f"{np.median(split):.5f}; losses {l_whole:.6g} / {l_split:.6g}")
+    log(f"    {json.dumps({'step_forms': forms})}")
     total = {k: sum(r["budget"][3][k] for r in outs)
              for k in outs[0]["budget"][3]}
     return total, secs
@@ -2308,21 +2408,14 @@ def multiview_phase(dev):
 
 def flagship_phase(intersect, dev, tmp):
     """Phase 27: the ported ``flagship_recovery`` at full width for
-    FLAGSHIP_ITERS iterations, gated at every iteration, with the inputs
-    of iteration FLAGSHIP_CAPTURE's K1 and K2 launches (three views)
-    recorded; then K1 and K2 on them (``captured_shapes``). Returns
-    (launches of the run, its summary, the shapes as ``captured_shapes``
-    gives them)."""
+    FLAGSHIP_ITERS iterations, each iteration a replay of its step program
+    (the first one's warm-up and capture included), gated at every
+    iteration. Returns (launches of the run, its summary)."""
     from psdr_tpu_torch.examples import flagship_recovery as fr
     os.makedirs(tmp)
     prev = {k: 0 for k in intersect.LAUNCHES}
-    capture = {}
 
     def on_iter(rec, g):
-        if rec["iter"] == FLAGSHIP_CAPTURE:
-            capture["records"] = capture.pop("recorder").stop()
-        elif rec["iter"] == FLAGSHIP_CAPTURE - 1:
-            capture["recorder"] = QueryRecorder(intersect)
         now = dict(intersect.LAUNCHES)
         step = {k: now[k] - prev[k] for k in now}
         prev.update(now)
@@ -2332,19 +2425,19 @@ def flagship_phase(intersect, dev, tmp):
         require_launches(27, step)
 
     intersect.reset_launch_counts()
-    try:
-        summary = fr.run(FLAGSHIP_ITERS, tmp, False, dev, on_iter=on_iter)
-    finally:
-        if "recorder" in capture:
-            capture.pop("recorder").stop()
+    summary = fr.run(FLAGSHIP_ITERS, tmp, False, dev, on_iter=on_iter)
     launches = dict(intersect.LAUNCHES)
     curve = [json.loads(s) for s in open(os.path.join(
         tmp, "flagship_recovery_log.jsonl")).read().splitlines()]
     log("  iteration, loss, vertex RMSE, Chamfer: " + "; ".join(
         f"{r['iter']} {r['loss']:.5g} {r['vertex_rmse']:.5f} "
         f"{r['chamfer']:.5f}" for r in curve if "iter" in r))
+    its = [r["seconds"] for r in curve if "iter" in r]
     log(f"  {FLAGSHIP_ITERS} iterations, {summary['seconds_per_iter']:.3f} s "
-        f"an iteration (3 views), targets {curve[0]['target_seconds']:.2f} "
+        f"an iteration (3 views; the first, warm-up and capture of its "
+        f"program included, {its[0]:.3f} s, the median replayed one "
+        f"{float(np.median(its[1:])):.4f} s), targets "
+        f"{curve[0]['target_seconds']:.2f} "
         f"s; vertex RMSE {summary['rmse0']:.5f} -> "
         f"{summary['rmse_final']:.5f} (x{summary['rmse_reduction']:.3f}), "
         f"Chamfer {summary['chamfer0']:.5f} -> "
@@ -2352,11 +2445,7 @@ def flagship_phase(intersect, dev, tmp):
         f"{summary['chamfer_reduction']:.3f}); launches {launches}")
     if not summary["rmse_final"] < summary["rmse0"]:
         raise AssertionError("phase 27: the vertex RMSE did not fall")
-    records = capture["records"]
-    log(f"  K1 and K2 on iteration {FLAGSHIP_CAPTURE}'s own inputs (three "
-        f"views): {len(records)} distinct launches")
-    return launches, summary, captured_shapes(intersect, records, None,
-                                              "flagship")
+    return launches, summary
 
 
 def image_gates(a, b):
@@ -2368,10 +2457,11 @@ def image_gates(a, b):
     return share, abs(a.mean() - b.mean()) / abs(b.mean())
 
 
-def program_frame(fn):
+def program_frame(fn, top=None):
     """One profiled run of ``fn``: (wall ms, device-busy ms, device kernels,
     host launch calls: ``cudaLaunchKernel``, ``cuLaunchKernel``,
-    ``cudaGraphLaunch`` and their kind)."""
+    ``cudaGraphLaunch`` and their kind). ``top``, a list, receives the ten
+    kernels with the most device time, by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2386,6 +2476,9 @@ def program_frame(fn):
     calls = sum(e.count for e in events
                 if not str(e.device_type).endswith("CUDA")
                 and "Launch" in e.key and e.key.startswith("cu"))
+    if top is not None:
+        top.extend(e.key for e in sorted(
+            kern, key=lambda e: -e.self_device_time_total)[:10])
     return wall, busy, sum(e.count for e in kern), calls
 
 
@@ -2559,6 +2652,409 @@ def program_phase(intersect, dev):
         log(f"    {json.dumps(summary)}")
         out[label] = summary
     return out, total
+
+
+def _grad_steps(integ, sc, target, boundary):
+    """(eager(seed), replay(seed), [its program], None, None) of
+    ``grad_program`` on ``sc`` (laid out as ``gradient_configs``' makers
+    give them): eager runs the program's body op by op with a host key,
+    replay the program with the key on the card; each returns (loss,
+    gradient tree)."""
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    dev = sc.device
+    prog = integ.grad_program(sc, target, with_boundary=boundary)
+    params = params_from_numpy(sc.params(), device=dev)
+
+    def eager(s):
+        with torch.enable_grad():
+            return prog.fn(params, threefry.PRNGKey(s))
+    return (eager, lambda s: prog(params, threefry.PRNGKey(s, device=dev)),
+            [prog], None, None)
+
+
+def _trainer_steps(dev):
+    """Phase 29 (i): phase 22's trainer (the flagship's config, one view,
+    the textured bench scene, the occluder from ``flagship_deform``) as two
+    programs: the loss's value and gradient in the occluder's vertices,
+    then ``Optimizer._jit_update``. Eager runs both bodies op by op. Each
+    returns (loss, gradient, the updated first moment, the updated
+    vertices); the vertices are not gated against eager (a first Adam step
+    is the rate times the gradient's sign, which a gradient entry near 0
+    may flip), but the replay's must equal the update's body run on the
+    replay's own gradient bit for bit."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.opt import Optimizer
+    from psdr_tpu_torch.program import Program, value_and_grad
+    from psdr_tpu_torch.testing.scenes import flagship_deform
+    import dataclasses
+    sc = textured_cbox(TRAIN, dev)
+    sc.opts = dataclasses.replace(sc.opts, sppe=TRAIN["sppe"],
+                                  sppse=TRAIN["sppse"])
+    integ = DirectIntegrator(1, 1)
+    sc.prepare_accel()
+    target = integ.render_program(sc)(params_from_numpy(sc.params(), dev),
+                                      threefry.PRNGKey(1000, device=dev))
+    mesh = sc.meshes[OCCLUDER]
+    mesh.vertex_positions = flagship_deform(np.asarray(mesh.vertex_positions))
+    opt = Optimizer(sc, [f"Mesh[{OCCLUDER}].vertex_positions"], lr=1e-2)
+    render = integ.render_fn(sc, with_boundary=True)
+    path = ("meshes", OCCLUDER, "vertex_positions")
+
+    def loss(v, key):
+        live = {g: [dict(e) for e in opt.params[g]] for g in opt.params}
+        live["meshes"][OCCLUDER]["vertex_positions"] = v
+        return torch.mean((render(live, key) - target) ** 2)
+
+    grad = Program(value_and_grad(loss), "trainer value_and_grad",
+                   grad=True, retrace_on=lambda: sc.accel_version)
+    v0 = opt.params["meshes"][OCCLUDER]["vertex_positions"]
+    state = [[opt.state["mu"][path]], [opt.state["nu"][path]],
+             opt.state["count"]]
+
+    def eager(s):
+        with torch.enable_grad():
+            value, g = grad.fn(v0, threefry.PRNGKey(s))
+        with torch.no_grad():
+            new, mu, _, _ = opt._update([v0], [g], *state)
+        return value, g, mu[0], new[0]
+
+    def replay(s):
+        value, g = grad(v0, threefry.PRNGKey(s, device=dev))
+        new, mu, _, _ = opt._jit_update([v0], [g], *state)
+        return value, g, mu[0], new[0]
+
+    def check(out):
+        with torch.no_grad():
+            new = opt._update([v0], [out[1]], *state)[0][0]
+        if not torch.equal(out[3], new):
+            raise AssertionError("phase 29 (i): the update program's "
+                                 "vertices differ from its body's")
+    return eager, replay, [grad, opt._jit_update], 3, check
+
+
+def _flagship_steps(dev):
+    """Phase 29 (h): one flagship iteration at phase 27's config (three
+    views, smoothing, masked Adam on ``exponential_decay``) through
+    ``flagship_recovery.make_train_step``: (eager(seed), replay(seed),
+    [its program], 3, check), each returning (loss, raw gradient, the
+    occluder's first moment, its updated vertices; those are not gated
+    against eager, as in (i)). ``check`` holds a replay's vertices to the
+    masked update run eagerly on the smoothed replay gradient, then
+    replays once more from that replay's own state (count 1, where the
+    bias corrections and the schedule's rate differ): its loss to 1e-5 of
+    the eager step's from the same state, its gradient and first moment
+    within the card-vs-CPU bounds (``grad_close``), its vertices held to
+    the update of its own gradient as at count 0."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    from psdr_tpu_torch.opt import (adam, apply_updates, exponential_decay,
+                                    masked, tree_map)
+    sc, params = flagship_start(dev)
+    sc.prepare_accel()
+    integ = DirectIntegrator(1, 1)
+    truth = tree_map(lambda x: x, params)
+    truth["meshes"] = list(truth["meshes"])
+    truth["meshes"][fr.OCCLUDER] = dict(
+        truth["meshes"][fr.OCCLUDER], vertex_positions=torch.as_tensor(
+            np.asarray(sc.meshes[fr.OCCLUDER].vertex_positions),
+            device=dev))
+    targets = fr.render_targets(sc, integ, truth)
+    mask = tree_map(torch.zeros_like, params)
+    mask["meshes"][fr.OCCLUDER]["vertex_positions"] = torch.ones_like(
+        params["meshes"][fr.OCCLUDER]["vertex_positions"])
+    optimizer = masked(adam(exponential_decay(1e-2, FLAGSHIP_ITERS, 0.05)),
+                       mask)
+    state = optimizer.init(params)
+    v = params["meshes"][fr.OCCLUDER]["vertex_positions"]
+    smooth = fr.laplacian_smoother(sc.meshes[fr.OCCLUDER].faces,
+                                   v.shape[0], dev)
+    step = fr.make_train_step(sc, fr.make_loss(sc, integ, targets), smooth,
+                              optimizer)
+
+    def pick(out):
+        p1, s1, loss, g = out
+        return (loss, g, s1["mu"]["meshes"][fr.OCCLUDER]["vertex_positions"],
+                p1["meshes"][fr.OCCLUDER]["vertex_positions"])
+
+    def eager(s, p=params, st=state):
+        with torch.enable_grad():
+            return pick(step.fn(p, st, threefry.PRNGKey(s)))
+
+    def replay(s, p=params, st=state):
+        return step(p, st, threefry.PRNGKey(s, device=dev))
+
+    def update_of(out, p, st):
+        """The replay's vertices against the update of its own smoothed
+        gradient, run eagerly (UPDATE_ULPS, UPDATE_REL); the largest
+        difference."""
+        grads = tree_map(torch.zeros_like, p)
+        grads["meshes"][fr.OCCLUDER]["vertex_positions"] = smooth(out[1])
+        with torch.no_grad():
+            updates, _ = optimizer.update(grads, st, p)
+            want = apply_updates(p, updates)["meshes"][fr.OCCLUDER][
+                "vertex_positions"]
+        old = p["meshes"][fr.OCCLUDER]["vertex_positions"]
+        err = (out[3] - want).abs()
+        move = float((want - old).abs().max())
+        if not move > 0.0:
+            raise AssertionError("phase 29 (h): the update moved nothing")
+        tol = (UPDATE_ULPS * torch.finfo(torch.float32).eps
+               * (old.abs() + want.abs()) + UPDATE_REL * move)
+        if not bool((err <= tol).all()):
+            raise AssertionError(
+                f"phase 29 (h): the replay's vertices differ from the update "
+                f"of its own gradient by {float(err.max()):.3g} at count "
+                f"{int(st['count'])}")
+        return float(err.max())
+
+    def check(out):
+        e0 = update_of(out, params, state)
+        p1, s1, _, _ = replay(0)
+        if int(s1["count"]) != 1:
+            raise AssertionError("phase 29 (h): the replay's count is "
+                                 f"{int(s1['count'])}, not 1")
+        out1 = pick(replay(1, p1, s1))
+        got, want = _floats(out1, 3), _floats(eager(1, p1, s1), 3)
+        loss_d = rel_l2(host(got[0]), host(want[0]))
+        if not loss_d <= 1e-5:
+            raise AssertionError(f"phase 29 (h): the loss at count 1 is "
+                                 f"{loss_d:.3g} from eager")
+        d = max(grad_close(29, f"h at count 1 output {i}", host(x), host(y))
+                for i, (x, y) in enumerate(zip(got, want)) if i)
+        e1 = update_of(out1, p1, s1)
+        log(f"    (h) the update of the replay's own gradient: vertices "
+            f"within {e0:.3g} (count 0), {e1:.3g} (count 1); the replay "
+            f"from count 1 against eager: loss {loss_d:.3g}, gradient and "
+            f"first moment within {d:.3g} relative L2")
+    return (eager, lambda s: pick(replay(s)), [step], 3, check)
+
+
+def _guiding_steps(dev):
+    """Phase 29 (j): phase 11's guiding build (GUIDING on
+    SMALL_BOUNDARY): the eager body with a host key against the build's
+    program; each returns (the cell masses summed over the rounds,)."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**SMALL_BOUNDARY, device=dev)
+    integ = DirectIntegrator(1, 1)
+    integ.preprocess_secondary_edges(sc, 0, **GUIDING)   # its program
+    (prog,) = integ._guiding_jits.values()
+
+    def eager(s):
+        with torch.no_grad():
+            return (prog.fn(threefry.PRNGKey(s)),)
+    return (eager, lambda s: (prog(threefry.PRNGKey(s, device=dev)),),
+            [prog], None, None)
+
+
+def gradient_configs(dev):
+    """Phase 29's configurations e-j: (label, make() -> (eager(seed),
+    replay(seed), [programs], the count of leading outputs gated against
+    eager (None: all), a check of a replay's outputs or None), the K1 / K2
+    launches of one eager step or None where only the equality is
+    gated)."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+
+    def bench(integ, cfg, boundary):
+        def make():
+            sc = cbox_scene(**cfg, device=dev)
+            target = torch.zeros((sc.opts.num_pixels, 3), device=dev)
+            return _grad_steps(integ, sc, target, boundary)
+        return make
+
+    yield ("e: DirectIntegrator(1, 1) grad_program, cbox 512x512 spp 16",
+           bench(DirectIntegrator(1, 1), BWD, False),
+           {"closest": 2, "any": 6, "k2": 2, "k3": 0})
+    yield ("f: PathTracer(3) grad_program, cbox 512x512 spp 16",
+           bench(PathTracer(3), BWD, False),
+           {"closest": 6, "any": 10, "k2": 2, "k3": 0})
+    yield ("g: DirectIntegrator(1, 1) boundary step, cbox 256x256 spp 16 "
+           "sppe 8 sppse 64", bench(DirectIntegrator(1, 1), RENDERD, True),
+           {"closest": 4, "any": 10, "k2": 4, "k3": 0})
+    yield ("h: flagship iteration, 3 views 256x256 spp 16 sppe 4 sppse 32",
+           lambda: _flagship_steps(dev), None)
+    yield ("i: trainer value_and_grad and Optimizer._jit_update, 256x256 "
+           "spp 16 sppe 4 sppse 32", lambda: _trainer_steps(dev),
+           {"closest": 3, "any": 8, "k2": 3, "k3": 0})
+    yield ("j: guiding build, 24x3x3 cells x 4 samples x 8 rounds",
+           lambda: _guiding_steps(dev), None)
+
+
+def _floats(out, n=None):
+    from torch.utils._pytree import tree_flatten
+    return [x.reshape(-1).double() for x in tree_flatten(
+        out if n is None else out[:n])[0] if x.is_floating_point()]
+
+
+def gate_replay(phase, label, got, want, spread) -> float:
+    """A replayed step's outputs ``got`` against the eager step's ``want``
+    (lists of flat tensors, the loss first): each within REPLAY_SPREAD_X
+    times the eager step's run-to-run ``spread`` (its largest relative L2
+    over the outputs; equal where it is 0), the loss to 1e-5 and every
+    other output within the card-vs-CPU bounds (``grad_close``). Returns
+    the largest relative L2 difference."""
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
+        xh, yh = host(x), host(y)
+        d = rel_l2(xh, yh)
+        worst = max(worst, d)
+        ok = (np.array_equal(xh, yh) if spread == 0.0
+              else d <= REPLAY_SPREAD_X * spread)
+        if i == 0:
+            ok = ok and d <= 1e-5
+        else:
+            grad_close(phase, f"{label} output {i}", xh, yh)
+        if not ok:
+            raise AssertionError(
+                f"phase {phase}: {label}: output {i} of the replay differs "
+                f"from the eager step by {d:.3g} relative L2 (eager spread "
+                f"{spread:.3g})")
+    return worst
+
+
+def gradient_phase(intersect, dev):
+    """Phase 29: the gradient programs (``gradient_configs``). For each:
+    the eager step at seeds 0, 0 (its run-to-run spread) and 1 and its
+    launches; the programs captured (capture seconds, graph nodes, pool
+    bytes); one replay's launches against the eager step's; replays at
+    seeds 0, 1, 0 against the eager step of each seed: every gated output
+    (the loss, every gradient leaf; the flagship's and the trainer's
+    update) within REPLAY_SPREAD_X times the eager step's own spread
+    (equal where it repeats itself bit for bit) and, leaf by leaf, within
+    the card-vs-CPU bounds (GRAD_REL_L2 and GRAD_COS; the loss to 1e-5);
+    seed 1 against seed 0 as far apart as in the eager steps; the output
+    buffers at the same addresses replay after replay; eager steps and
+    replays timed (median of 3), one of each profiled (device busy, idle
+    share, host launch calls: one a program), no ``indexing_backward``
+    kernel among the replay's top ten; the flagship's eager step with its
+    K1 and K2 launches recorded. Each configuration's programs are
+    dropped before the next. Returns ({label: summary}, the launches of
+    the replays at seeds 0, 1, 0 summed over e-j, the flagship's
+    ``captured_shapes``)."""
+    out, flag = {}, None
+    total = {k: 0 for k in intersect.LAUNCHES}
+    for label, make, expect in gradient_configs(dev):
+        log(f"  {label}")
+        eager, replay, progs, n_gated, check = make()
+        if label.startswith("h"):
+            e0, records = capture_queries(intersect, lambda: eager(0))
+        else:
+            e0 = eager(0)                                 # warm-up
+        torch.cuda.synchronize()
+        intersect.reset_launch_counts()
+        e0b = eager(0)
+        torch.cuda.synchronize()
+        eager_launches = dict(intersect.LAUNCHES)
+        e1 = eager(1)
+        a, b, c = (_floats(x, n_gated) for x in (e0b, e0, e1))
+        if not all(bool(torch.isfinite(x).all()) for x in a):
+            raise AssertionError(f"phase 29: {label}: an eager output is "
+                                 "not finite")
+        spreads = [rel_l2(host(y), host(x)) for x, y in zip(a, b)]
+        spread = max(spreads)
+        if expect is not None and eager_launches != expect:
+            raise AssertionError(f"phase 29: {label}: eager launches "
+                                 f"{eager_launches}, expected {expect}")
+        if expect is None and label.startswith("h"):
+            require_launches(29, eager_launches)
+        t0 = time.perf_counter()
+        replay(0)                        # warm-up, capture and a replay
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        if not all(p.captured for p in progs):
+            raise AssertionError(f"phase 29: {label}: no graph captured")
+        ptrs = [[x.data_ptr() for x in p._outputs[0]] for p in progs]
+        intersect.reset_launch_counts()
+        r0 = replay(0)
+        torch.cuda.synchronize()
+        replay_launches = dict(intersect.LAUNCHES)
+        r1 = replay(1)
+        r0b = replay(0)
+        torch.cuda.synchronize()
+        for k in total:
+            total[k] += intersect.LAUNCHES[k]
+        if replay_launches != eager_launches:
+            raise AssertionError(f"phase 29: {label}: a replay launched "
+                                 f"{replay_launches}, the eager step "
+                                 f"{eager_launches}")
+        if [[x.data_ptr() for x in p._outputs[0]] for p in progs] != ptrs:
+            raise AssertionError(f"phase 29: {label}: an output buffer "
+                                 "moved between replays")
+        if check is not None:
+            check(r0)
+        diffs = {name: gate_replay(29, f"{label} at {name}",
+                                   _floats(r, n_gated), e, spread)
+                 for name, r, e in (("seed 0", r0, a), ("seed 1", r1, c),
+                                    ("seed 0 again", r0b, a))}
+        # the first output (the loss, the masses) at seeds 1 and 0: as far
+        # apart replayed as eager, and far beyond its own spread
+        seed_gap = rel_l2(host(_floats(r1, 1)[0]), host(_floats(r0, 1)[0]))
+        eager_gap = rel_l2(host(c[0]), host(a[0]))
+        if not (seed_gap > 0.5 * eager_gap
+                and eager_gap > 100.0 * spreads[0]):
+            raise AssertionError(f"phase 29: {label}: seeds 1 and 0 are "
+                                 f"{seed_gap:.3g} apart replayed, "
+                                 f"{eager_gap:.3g} eager (its spread "
+                                 f"{spreads[0]:.3g}): a key was baked in")
+        times = {}
+        for name, fn in (("eager", eager), ("replay", replay)):
+            ts = []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(2 + i)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            times[name] = ts
+        top = []
+        prof = {"eager": program_frame(lambda: eager(9)),
+                "replay": program_frame(lambda: replay(9), top)}
+        if any("indexing_backward" in k for k in top):
+            raise AssertionError(f"phase 29: {label}: an indexing_backward "
+                                 "kernel is among the replay's top ten")
+        calls = prof["replay"][3]
+        if calls != len(progs):
+            raise AssertionError(f"phase 29: {label}: a replay made {calls} "
+                                 f"host launch calls, {len(progs)} programs")
+        summary = {
+            "eager_spread": spread, "replay_vs_eager": diffs,
+            "seed_gap": seed_gap, "eager_seed_gap": eager_gap,
+            "launches": replay_launches, "first_call_s": first_s,
+            "capture_s": sum(p.capture_seconds for p in progs),
+            "nodes": sum(p.nodes for p in progs),
+            "pool_bytes": sum(p.pool_bytes for p in progs),
+            "eager_s": float(np.median(times["eager"])),
+            "replay_s": float(np.median(times["replay"])),
+            "replay_top": top[:3],
+            **{f"{name}_{k}": v for name, (wall, busy, kern, n_calls)
+               in prof.items() for k, v in (
+                   ("profiled_wall_ms", wall), ("busy_ms", busy),
+                   ("idle", 1.0 - busy / wall), ("kernels", kern),
+                   ("host_launch_calls", n_calls))}}
+        log(f"    eager steps {', '.join(f'{t:.4f}' for t in times['eager'])}"
+            f" s, replays {', '.join(f'{t:.4f}' for t in times['replay'])} "
+            f"s; first call (warm-ups, capture, replay) {first_s:.3f} s, "
+            f"capture {summary['capture_s']:.3f} s, {summary['nodes']} graph "
+            f"nodes, pool {summary['pool_bytes'] / 2**30:.3f} GiB; replay "
+            f"within {max(diffs.values()):.3g} of eager (spread "
+            f"{spread:.3g}); loss gap seeds 0 / 1 {seed_gap:.3g} (eager "
+            f"{eager_gap:.3g}); launches {replay_launches}")
+        log(f"    {json.dumps(summary)}")
+        out[label] = summary
+        if label.startswith("h"):
+            log(f"  K1 and K2 on the flagship step's own inputs (three "
+                f"views, eager): {len(records)} distinct launches")
+            flag = captured_shapes(intersect, records, None, "flagship")
+        del eager, replay, progs, check, e0, e0b, e1, r0, r1, r0b, a, b, c
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out, total, flag
 
 
 def main() -> int:
@@ -2760,22 +3256,28 @@ def main() -> int:
         # -- 27. the flagship recovery: this slice's main path -------------
         log(f"phase 27: examples.flagship_recovery at full width, "
             f"{FLAGSHIP_ITERS} iterations")
-        flag_launches, _, (flag_k1, flag_k2, flag_err, flag_tally,
-                           _) = flagship_phase(
-            intersect, dev, os.path.join(tmp, "flagship"))
-        shapes.update(flag_k1)
-        for mode in ("closest", "any"):
-            err[mode] += flag_err[mode]
-        k2_err = k2_err + flag_err["k2"]
-        log(f"  lanes on which K1 and k1_plain differ: {flag_tally}")
-    # -- 28. the forward renders as captured programs: this slice's main path
+        flag_launches, _ = flagship_phase(intersect, dev,
+                                          os.path.join(tmp, "flagship"))
+    # -- 28. the forward renders as captured programs: slice 9's main path
     log("phase 28: the forward renders as captured CUDA graphs "
         "(render_program, renderC, renderD), replay against eager")
     programs, prog_launches = program_phase(intersect, dev)
+    # -- 29. the gradient programs: this slice's main path -----------------
+    log("phase 29: the gradient programs as captured CUDA graphs "
+        "(grad_program, the flagship's step, the trainer with its update, "
+        "the guiding build), replay against eager")
+    grad_programs, grad_launches, (flag_k1, flag_k2, flag_err, flag_tally,
+                                   _) = gradient_phase(intersect, dev)
+    shapes.update(flag_k1)
+    for mode in ("closest", "any"):
+        err[mode] += flag_err[mode]
+    k2_err = k2_err + flag_err["k2"]
+    log(f"  lanes on which K1 and k1_plain differ: {flag_tally}")
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
-    # launches: the replays of phase 28 (seeds 0, 1, 0 of each of its four
-    # programs, this slice's main path), the flagship's recovery run (phase
+    # launches: the replays of phase 29 (seeds 0, 1, 0 of each of its six
+    # configurations, this slice's main path), those of phase 28 (seeds 0,
+    # 1, 0 of its four forward programs), the flagship's recovery run (phase
     # 27), the trainer's five timed steps (phase 22), one sharded step of
     # phase 25 (budget split) and one multi-view step of phase 26, each
     # summed over its ranks, the backward's three timed steps, the forward's
@@ -2788,7 +3290,8 @@ def main() -> int:
     # phase 28's configuration a replays: the first 2^21-lane camera chunk
     # in tile order (K1 closest), its shadow sweep (K1 any) and the
     # 2^21-lane emitter-first sweep (K2, phase 6); the other timed shapes,
-    # the flagship's own launches among them, stand under "shapes".
+    # the flagship step's own launches (phase 29 h) among them, stand under
+    # "shapes".
     kernels = []
     for mode in ("closest", "any"):
         main = {"closest": "tiled camera chunk",
@@ -2800,7 +3303,8 @@ def main() -> int:
             "route": "cuda",
             "source": "psdr_tpu_torch/csrc/intersect.cu",
             "replaces": "psdr_tpu/accel/pallas_kernel.py:678",
-            "launches": prog_launches[mode],
+            "launches": grad_launches[mode],
+            "launches_forward_programs": prog_launches[mode],
             "launches_flagship": flag_launches[mode],
             "launches_trainer": train[mode],
             "launches_sharded": shard_launches[mode],
@@ -2821,7 +3325,7 @@ def main() -> int:
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
             "valid_mismatches": sum(n for _, n in err[mode]),
-            # phases 20, 22 and 27: lanes on which K1 equals its walk in tensor
+            # phases 20, 22 and 29: lanes on which K1 equals its walk in tensor
             # code and not k1_plain (the cull-margin rule), by shape
             "lanes_unlike_k1_plain": {
                 k: v for k, v in {**env_tally, **train_tally,
@@ -2838,7 +3342,8 @@ def main() -> int:
         "name": "ray_intersect_brute (K2)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/brute.cu",
         "replaces": "psdr_tpu/accel/pallas_kernel.py:87",
-        "launches": prog_launches["k2"],
+        "launches": grad_launches["k2"],
+        "launches_forward_programs": prog_launches["k2"],
         "launches_flagship": flag_launches["k2"],
         "launches_trainer": train["k2"],
         "launches_sharded": shard_launches["k2"],
@@ -2876,7 +3381,8 @@ def main() -> int:
         "launches_env_path_backward": env_bwd["k3"],
         "launches_trainer": train["k3"],
         "launches_flagship": flag_launches["k3"],
-        "launches_programs": prog_launches["k3"],
+        "launches_forward_programs": prog_launches["k3"],
+        "launches_gradient_programs": grad_launches["k3"],
         "launches_sharded": shard_launches["k3"],
         "launches_multiview": mv_launches["k3"],
         "launches_loaded_forward": loaded_fwd["k3"],
@@ -2885,6 +3391,7 @@ def main() -> int:
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
         "library_ms": None, **k3_ms})
     log(json.dumps({"programs": programs}))
+    log(json.dumps({"gradient_programs": grad_programs}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -60,7 +60,8 @@ def adam_state_from_numpy(opt, mu, nu, count) -> None:
                                              device=dev)
         opt.state["nu"][path] = torch.tensor(np.asarray(v, np.float32),
                                              device=dev)
-    opt.state["count"] = int(count)
+    opt.state["count"] = torch.tensor(int(count), dtype=torch.int32,
+                                      device=dev)
 
 
 def discrete_from_numpy(pmf, cmf=None, device="cuda") -> Discrete:

@@ -63,6 +63,15 @@ def upload(owner, array, device, dtype=None) -> torch.Tensor:
     return hit[1]
 
 
+def forget(owner, *arrays) -> None:
+    """Drop ``owner``'s uploads of ``arrays`` (``upload``), freeing their
+    device copies once nothing else holds them."""
+    cache = owner.__dict__.get("_uploads", {})
+    for key in [k for k, (a, _) in cache.items()
+                if any(a is x for x in arrays)]:
+        del cache[key]
+
+
 def memo(owner, key, make):
     """``make()``, made once per ``key`` and kept on ``owner``."""
     cache = owner.__dict__.setdefault("_memo", {})

@@ -158,7 +158,10 @@ def ray_intersect_scene_aabb(ray_o, ray_d, lower, upper):
     t2 = (upper - ray_o) / ray_d
     t2p = torch.maximum(t1, t2)
     t, idx = torch.min(t2p, dim=-1)
-    axis = torch.nn.functional.one_hot(idx, 3).to(ray_d.dtype)
+    # one-hot of the exit axis by comparison: ``one_hot`` checks its
+    # indices on the host on the CPU, which a capture rehearsal refuses
+    axis = (idx[..., None] == torch.arange(3, device=idx.device)).to(
+        ray_d.dtype)
     n = -torch.sign(ray_d) * axis
     G = dot(n, -ray_d) / sqr(t)
     return t, n, G

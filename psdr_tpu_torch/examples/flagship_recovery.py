@@ -10,6 +10,11 @@ signal). ``examples/flagship_recovery.py`` of the JAX package, whose
 targets render in child processes for a reason of its TPU; here they
 render in this process.
 
+Each iteration is one captured program on the card (``make_train_step``:
+the loss over the three views, the occluder's gradient, its smoothing and
+the masked, scheduled Adam update, as the JAX script jits ``train_step``),
+and the targets render through ``render_program``.
+
 Every 10 iterations a checkpoint (params and optimizer state,
 ``flagship_recovery_ckpt.npz``); one JSON line an iteration in
 ``flagship_recovery_log.jsonl`` (loss, vertex RMSE against the truth, the
@@ -38,6 +43,7 @@ from psdr_tpu_torch.core import transform as xf
 from psdr_tpu_torch.examples import out_dir, parser
 from psdr_tpu_torch.opt import (adam, apply_updates, exponential_decay,
                                 masked, tree_leaves, tree_map, tree_unflatten)
+from psdr_tpu_torch.program import Program
 from psdr_tpu_torch.testing.scenes import cbox_scene, flagship_deform
 
 OCCLUDER = 5  # the mesh index of the sphere in cbox_scene
@@ -86,11 +92,12 @@ def laplacian_smoother(faces: np.ndarray, nv: int, device, rounds: int = 10,
 
 
 def render_targets(sc, integ, truth) -> list:
-    """One target a view at the true shape, each under its own key."""
-    with torch.no_grad():
-        return [integ.render_fn(sc, s, with_boundary=False, detached=True)(
-            truth, threefry.PRNGKey(1000 + s))
-            for s in range(sc.num_sensors)]
+    """One target a view at the true shape, each under its own key, each
+    through its ``render_program`` (the JAX script's jitted render)."""
+    dev = tree_leaves(truth)[0].device
+    return [integ.render_program(sc, s, with_boundary=False, detached=True)(
+        truth, threefry.PRNGKey(1000 + s, device=dev))
+        for s in range(sc.num_sensors)]
 
 
 def make_loss(sc, integ, targets):
@@ -121,27 +128,35 @@ def chamfer(a: torch.Tensor, b: torch.Tensor, block: int = 4096) -> float:
     return float(0.5 * (one_way(a, b) + one_way(b, a)))
 
 
-def train_step(loss_fn, smooth, optimizer, params, opt_state, key):
-    """One step: the loss and the occluder's vertex gradient (the only
-    leaf that carries a graph), smoothed, then the masked update. Returns
-    (params, opt_state, loss, raw gradient)."""
-    live = tree_map(lambda x: x, params)
-    v = params["meshes"][OCCLUDER]["vertex_positions"].detach()
-    live["meshes"][OCCLUDER] = dict(live["meshes"][OCCLUDER],
-                                    vertex_positions=v.requires_grad_(True))
-    loss = loss_fn(live, key)
-    (g,) = torch.autograd.grad(loss, [v])
-    grads = tree_map(torch.zeros_like, params)
-    grads["meshes"][OCCLUDER]["vertex_positions"] = smooth(g)
-    updates, opt_state = optimizer.update(grads, opt_state, params)
-    return apply_updates(params, updates), opt_state, loss.detach(), g
+def make_train_step(sc, loss_fn, smooth, optimizer) -> Program:
+    """The JAX script's jitted ``train_step`` as one ``Program`` (its
+    backward captured with it on the card): ``step(params, opt_state, key)
+    -> (params, opt_state, loss, raw gradient)``: the loss and the
+    occluder's vertex gradient (the only leaf that carries a graph),
+    smoothed, then the masked update at the schedule's rate for the
+    state's device count. The key lies on the params' device. ``loss_fn``
+    builds ``sc``; the program captures again after
+    ``sc.maybe_rebuild_accel``."""
+    def train_step(params, opt_state, key):
+        live = tree_map(lambda x: x, params)
+        v = params["meshes"][OCCLUDER]["vertex_positions"].detach()
+        live["meshes"][OCCLUDER] = dict(
+            live["meshes"][OCCLUDER], vertex_positions=v.requires_grad_(True))
+        loss = loss_fn(live, key)
+        (g,) = torch.autograd.grad(loss, [v])
+        grads = tree_map(torch.zeros_like, params)
+        grads["meshes"][OCCLUDER]["vertex_positions"] = smooth(g)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss.detach(), g
+    return Program(train_step, "flagship train_step", grad=True,
+                   retrace_on=lambda: sc.accel_version)
 
 
 def save_ckpt(path, params, opt_state) -> None:
     """Params and optimizer state in one .npz."""
     leaves = (tree_leaves(params) + tree_leaves(opt_state["mu"])
               + tree_leaves(opt_state["nu"]))
-    np.savez(path, n=len(leaves), count=opt_state["count"],
+    np.savez(path, n=len(leaves), count=int(opt_state["count"]),
              **{f"leaf_{i}": x.detach().cpu().numpy()
                 for i, x in enumerate(leaves)})
 
@@ -159,7 +174,8 @@ def load_ckpt(path, params, opt_state):
     p = tree_unflatten(params, leaves[:n[0]])
     mu = tree_unflatten(params, leaves[n[0]:n[0] + n[1]])
     nu = tree_unflatten(params, leaves[n[0] + n[1]:])
-    return p, {"count": int(data["count"]), "mu": mu, "nu": nu}
+    count = torch.tensor(int(data["count"]), dtype=torch.int32, device=dev)
+    return p, {"count": count, "mu": mu, "nu": nu}
 
 
 def run(iters: int, out: str, small: bool, device, on_iter=None) -> dict:
@@ -192,6 +208,7 @@ def run(iters: int, out: str, small: bool, device, on_iter=None) -> dict:
     optimizer = masked(adam(exponential_decay(1e-2, max(iters, 1), 0.05)),
                        mask)
     opt_state = optimizer.init(params)
+    train_step = make_train_step(sc, loss_fn, smooth, optimizer)
 
     def vert_rmse(p):
         d = p["meshes"][OCCLUDER]["vertex_positions"] - v_true
@@ -215,8 +232,7 @@ def run(iters: int, out: str, small: bool, device, on_iter=None) -> dict:
     for i in range(iters):
         t0 = time.perf_counter()
         params, opt_state, loss, g = train_step(
-            loss_fn, smooth, optimizer, params, opt_state,
-            threefry.PRNGKey(i))
+            params, opt_state, threefry.PRNGKey(i, device=device))
         if on_card:
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0

@@ -1,5 +1,7 @@
 """Inverse rendering: recover a sphere's albedo from a target image (Adam
-on ``BSDF[id=white].reflectance`` through ``opt.Optimizer``).
+on ``BSDF[id=white].reflectance`` through ``opt.Optimizer``). The target
+renders as a program; each step's gradient runs eagerly and its Adam update
+as the optimizer's program, as in the JAX package.
 
 ``examples/inverse_albedo.py`` of the JAX package.
 
@@ -30,10 +32,11 @@ def main(argv=None):
     size, spp = (16, 2) if args.small else (64, 8)
     scene = sphere_light_scene(width=size, height=size, spp=spp,
                                device=args.device)
-    render = DirectIntegrator(1, 1).render_fn(scene, with_boundary=False)
-    with torch.no_grad():
-        target = render(params_from_numpy(scene.params(), args.device),
-                        threefry.PRNGKey(1234))
+    integ = DirectIntegrator(1, 1)
+    render = integ.render_fn(scene, with_boundary=False)
+    target = integ.render_program(scene, with_boundary=False, detached=True)(
+        params_from_numpy(scene.params(), args.device),
+        threefry.PRNGKey(1234, device=args.device))
     print("target albedo: [0.8 0.8 0.8]")
 
     scene.bsdfs[0].reflectance = Bitmap(np.full((1, 1, 3), 0.25, np.float32))

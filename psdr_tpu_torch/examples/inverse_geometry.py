@@ -2,7 +2,9 @@
 
 Interior gradients alone cannot move a silhouette, so the loop runs the
 full differentiable pipeline (interior, primary-edge and secondary-edge
-boundary estimators) under Adam on a 2D offset of the sphere.
+boundary estimators) under Adam on a 2D offset of the sphere. The target
+render and each step's loss and gradient run as programs (captured on the
+card), as the JAX script jits ``render`` and ``step_grad``.
 
 ``examples/inverse_geometry.py`` of the JAX package.
 
@@ -20,8 +22,32 @@ from psdr_tpu_torch.convert import params_from_numpy
 from psdr_tpu_torch.core import threefry
 from psdr_tpu_torch.examples import out_dir, parser
 from psdr_tpu_torch.opt import adam, apply_updates
+from psdr_tpu_torch.program import Program, value_and_grad
 from psdr_tpu_torch.testing.differential import translate
 from psdr_tpu_torch.testing.scenes import sphere_light_scene
+
+
+def offset_params(base, offset):
+    """``base`` with the sphere (mesh 0) translated by (offset, 0)."""
+    mesh = dict(base["meshes"][0])
+    shift = torch.cat([offset, torch.zeros(1, device=offset.device)])
+    mesh["to_world"] = translate(shift) @ mesh["to_world"]
+    return {**base, "meshes": [mesh] + base["meshes"][1:]}
+
+
+def make_step_grad(sc, integ, base, target) -> Program:
+    """The JAX script's jitted ``step_grad`` as a ``Program`` over
+    ``(offset, key)``: the L2 loss of ``integ``'s render of ``sc`` with
+    every boundary term, the sphere moved by the offset, against
+    ``target``, and its gradient in the offset. It captures again after
+    ``sc.maybe_rebuild_accel``."""
+    render = integ.render_fn(sc, with_boundary=True)
+
+    def loss_fn(offset, key):
+        return torch.mean((render(offset_params(base, offset), key)
+                           - target) ** 2)
+    return Program(value_and_grad(loss_fn), "step_grad", grad=True,
+                   retrace_on=lambda: sc.accel_version)
 
 
 def main(argv=None):
@@ -33,17 +59,11 @@ def main(argv=None):
     size, spp, sppse = (16, 2, 4) if args.small else (48, 8, 8)
     sc = sphere_light_scene(width=size, height=size, spp=spp, sppe=2,
                             sppse=sppse, device=dev)
-    render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=True)
+    integ = DirectIntegrator(1, 1)
     base = params_from_numpy(sc.params(), dev)
-    with torch.no_grad():
-        target = render(base, threefry.PRNGKey(42))
-
-    def params_at(offset):
-        mesh = dict(base["meshes"][0])
-        shift = torch.cat([offset, torch.zeros(1, device=dev)])
-        mesh["to_world"] = translate(shift) @ mesh["to_world"]
-        return {**base, "meshes": [mesh] + base["meshes"][1:]}
-
+    target = integ.render_program(sc, with_boundary=True, detached=False)(
+        base, threefry.PRNGKey(42, device=dev))
+    step_grad = make_step_grad(sc, integ, base, target)
     # the initial misplacement; the truth is (0, 0)
     state = {"offset": torch.tensor([0.35, -0.25], device=dev)}
     opt = adam(2e-2)
@@ -51,11 +71,8 @@ def main(argv=None):
     print(f"start offset: {state['offset'].tolist()} (truth: [0, 0])")
     log = []
     for it in range(args.iters):
-        offset = state["offset"].detach().requires_grad_(True)
-        loss = torch.mean((render(params_at(offset), threefry.PRNGKey(it))
-                           - target) ** 2)
-        loss.backward()
-        updates, opt_state = opt.update({"offset": offset.grad}, opt_state)
+        loss, g = step_grad(state["offset"], threefry.PRNGKey(it, device=dev))
+        updates, opt_state = opt.update({"offset": g}, opt_state)
         state = apply_updates(state, updates)
         log.append({"iter": it, "loss": loss.item(),
                     "offset": state["offset"].tolist()})

@@ -16,7 +16,8 @@ images of all ranks sum to the full-budget estimator
 renderC and renderD run through a per-integrator cache of ``Program``s
 (``program.py``: a CUDA graph captured once and replayed), keyed as the
 JAX package keys its compiled programs; ``render_program`` is
-``render_fn`` as a program over ``(params, key)``. Nothing a render reads
+``render_fn`` as a program over ``(params, key)``, ``grad_program`` the
+value and gradient of an L2 loss through it. Nothing a render reads
 from host data is made inside it: the tile order is cached on the scene
 and the small constants in ``core/hoist.py``.
 """
@@ -35,7 +36,7 @@ from ..core.hoist import const, memo
 from ..core.math import ray_intersect_triangle, scrub_nonfinite
 from ..core.records import Ray, RenderOptions, any_requires_grad
 from ..core.sampler import RngStream, ld_2d
-from ..program import Program
+from ..program import Program, value_and_grad
 from ..scene.scene import (FlatScene, Scene, _closest_hit, detach_flat,
                            ray_test)
 from ..sensor.perspective import sample_primary_edge, sample_primary_ray
@@ -134,8 +135,12 @@ def accumulate_image(value: torch.Tensor, pixel_idx: torch.Tensor,
 
 def _checkpointed(fn):
     """``fn`` whose intermediates the backward recomputes instead of
-    keeping (``torch.utils.checkpoint``)."""
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    keeping (``torch.utils.checkpoint``). The port draws no torch random
+    numbers (its stream is Threefry on its keys), so no generator state is
+    saved or restored: that would read the CUDA generator during a
+    capture."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def scan_lane_chunks(run_lanes, n: int, num_pixels: int, key: torch.Tensor,
@@ -444,7 +449,26 @@ class Integrator:
         key there. Only the forward: under ``torch.no_grad()``."""
         return Program(self.render_fn(scene, sensor_id, with_boundary,
                                       detached),
-                       name=f"{type(self).__name__}.render_program")
+                       name=f"{type(self).__name__}.render_program",
+                       retrace_on=lambda: scene.accel_version)
+
+    def grad_program(self, scene: Scene, target: torch.Tensor,
+                     sensor_id: int = 0,
+                     with_boundary: bool = False) -> Program:
+        """``bench.py``'s jitted ``grad_step`` as a ``Program`` over
+        ``(params, key)``: ``value_and_grad`` of mean((image - target)^2)
+        through ``render_fn(with_boundary=...)``, with respect to every
+        params leaf -> (loss, gradient tree shaped as params). Captured
+        with its backward on the first call on CUDA tensors; a rebuilt
+        BVH topology (``Scene.maybe_rebuild_accel``) captures it again.
+        ``target`` is (num_pixels, 3) on the scene's device."""
+        render = self.render_fn(scene, sensor_id, with_boundary)
+
+        def loss(params, key):
+            return torch.mean((render(params, key) - target) ** 2)
+        return Program(value_and_grad(loss), grad=True,
+                       name=f"{type(self).__name__}.grad_program",
+                       retrace_on=lambda: scene.accel_version)
 
     def _jit_radiance(self, scene: Scene, sensor_id: int,
                       with_boundary: bool) -> dict:
@@ -498,8 +522,8 @@ class Integrator:
         only their gradient) -> (H, W, 3). Where no parameter of the scene
         requires grad it runs through the program cache, as the JAX
         package's jitted primal does; where one does, it runs eagerly and
-        the image carries the graph to those parameters (the gradient
-        programs are not captured)."""
+        the image carries the graph to those parameters (a captured
+        gradient is ``grad_program``'s)."""
         key = threefry.PRNGKey(seed)
         flat = scene.flat
         if any_requires_grad(flat):

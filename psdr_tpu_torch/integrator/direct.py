@@ -37,6 +37,7 @@ from ..core.math import (bilinear, cross, dot, norm, normalize,
                          squared_norm)
 from ..core.records import Ray, detach_tree
 from ..core.sampler import RngStream, ld_2d
+from ..program import Program
 from ..emitter.envmap import envmap_eval_direction
 from ..scene.scene import (FlatScene, Scene, detach_flat,
                            emitter_position_pdf, ray_intersect,
@@ -240,14 +241,30 @@ def _boundary_pass(scene: Scene, key: torch.Tensor, salt: int, warp,
                             remat=opts.resolve_remat(lane_range[1]))
 
 
+def guiding_programs(integ) -> dict:
+    """The integrator's cache of guiding-build programs
+    (``_guiding_table``)."""
+    return integ.__dict__.setdefault("_guiding_jits", {})
+
+
 def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
-                   eval_value, rank_streams: bool = False):
+                   eval_value, cache: dict, kind, rank_streams: bool = False):
     """Monte-Carlo cell masses of a boundary estimator's guiding hypercube:
     ``reso`` = (r0, r1, r2, samples per cell); each of ``nrounds`` rounds
     puts every cell's samples through ``eval_value(flat_det, sample3, rng)
     -> (n, 3)`` magnitudes and adds the per-cell sums of their largest
     channel. The rounds are a loop without a graph and the per-cell sum an
     ``index_add_`` (atomic adds on the card).
+
+    All rounds run as one ``Program`` over the key (``PRNGKey(seed)`` on
+    the scene's device; the JAX package's jitted ``lax.scan``), kept in
+    ``cache`` (a dict, ``guiding_programs(integrator)``) under ``kind``
+    (what ``eval_value`` evaluates), the scene, its flat scene and opts,
+    the table's size and the rank: a build again with another seed
+    replays it. The program's body holds the flat scene, so its identity
+    is not reused while the entry lives (a scene rebuilt after
+    ``set_params`` or ``maybe_rebuild_accel`` gets a new program). The
+    cache is cleared when it holds more than 16.
 
     ``mesh`` (a ``parallel.DeviceMesh``) splits the cell x sample lanes into
     one contiguous slice a rank, and the per-cell masses are summed over
@@ -268,29 +285,43 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
     # a rank's slice; the last one's lanes past n add to an overflow cell
     start, count = shard_lane_range(
         n, None if mesh is None else (mesh.rank, mesh.size))
-    lanes = start + torch.arange(count, device=dev)
-    idx = torch.where(lanes < n, lanes // spp_cell, num_cells)
-    base = hc.cells[torch.clamp(idx, max=num_cells - 1)].float()
+    flat = scene.flat
+    k = (kind, id(scene), id(flat), scene.opts, reso, nrounds,
+         None if mesh is None else (mesh.rank, mesh.size))
+    prog = cache.get(k)
+    if prog is None:
+        if len(cache) > 16:
+            cache.clear()
+        lanes = start + torch.arange(count, device=dev)
+        idx = torch.where(lanes < n, lanes // spp_cell, num_cells)
+        base = hc.cells[torch.clamp(idx, max=num_cells - 1)].float()
 
+        def masses(key):
+            """Every round's cell masses, summed (rank ``mesh.rank``'s
+            share)."""
+            flat_det = detach_flat(flat)
+            mass = torch.zeros((num_cells + 1,), device=dev)
+            keys = threefry.split(key, nrounds)
+            for r in range(nrounds):
+                if rank_streams and mesh is not None:
+                    rng = RngStream(threefry.fold_in(keys[r], mesh.rank),
+                                    device=dev)
+                    u3 = rng.next_3d(count)
+                else:
+                    rng = RngStream(keys[r], device=dev)
+                    u3 = rng.next_3d(max(n, start + count))[
+                        start:start + count]
+                value0 = scrub_nonfinite(eval_value(
+                    flat_det, (base + u3) * hc.unit, rng))
+                if spp_cell > 1:
+                    value0 = value0 / spp_cell
+                mass = mass + torch.zeros_like(mass).index_add_(
+                    0, idx, value0.amax(dim=-1))
+            return mass[:num_cells]
+
+        prog = cache[k] = Program(masses, f"guiding table ({kind})")
+    mass = prog(threefry.PRNGKey(seed, device=dev))
     with torch.no_grad():
-        flat = detach_flat(scene.flat)
-        mass = torch.zeros((num_cells + 1,), device=dev)
-        keys = threefry.split(threefry.PRNGKey(seed), nrounds)
-        for r in range(nrounds):
-            if rank_streams and mesh is not None:
-                rng = RngStream(threefry.fold_in(keys[r], mesh.rank),
-                                device=dev)
-                u3 = rng.next_3d(count)
-            else:
-                rng = RngStream(keys[r], device=dev)
-                u3 = rng.next_3d(max(n, start + count))[start:start + count]
-            value0 = scrub_nonfinite(eval_value(flat, (base + u3) * hc.unit,
-                                                rng))
-            if spp_cell > 1:
-                value0 = value0 / spp_cell
-            mass = mass + torch.zeros_like(mass).index_add_(
-                0, idx, value0.amax(dim=-1))
-        mass = mass[:num_cells]
         if mesh is not None:
             mesh.all_reduce(mass)
         if nrounds > 1:
@@ -644,5 +675,8 @@ class DirectIntegrator(Integrator):
             return self.eval_secondary_edge(scene, flat, sensor_id, sample3,
                                             ad=False)[1]
 
-        self.warpper[sensor_id] = _guiding_table(scene, reso, nrounds, seed,
-                                                 mesh, eval_value)
+        self.warpper[sensor_id] = _guiding_table(
+            scene, reso, nrounds, seed, mesh, eval_value,
+            guiding_programs(self), ("secondary", sensor_id,
+                                     self.bsdf_samples, self.light_samples,
+                                     self.hide_emitters))

@@ -51,7 +51,7 @@ from ..sensor.perspective import sample_direct, sample_primary_ray
 from .base import Integrator
 from .direct import (DirectIntegrator, _boundary_pass, _emitter_meta,
                      _emitter_segment_valid, _guiding_table, _mdiv,
-                     _sampled_radiance, _stratify2)
+                     _sampled_radiance, _stratify2, guiding_programs)
 
 
 def _silhouette(info, ok, d):
@@ -651,6 +651,7 @@ class PathTracer(Integrator):
         it, into ``self.warpper``."""
         helper = DirectIntegrator(1, 1)
         helper.warpper = self.warpper
+        helper._guiding_jits = guiding_programs(self)
         helper.preprocess_secondary_edges(scene, sensor_id, reso, nrounds,
                                           seed, mesh=mesh)
         self.warpper = helper.warpper
@@ -672,4 +673,7 @@ class PathTracer(Integrator):
                 scene, flat, sensor_id, sample3, rng, ad=False)[1]
 
         self.ind_warpper[sensor_id] = _guiding_table(
-            scene, reso, nrounds, seed, mesh, eval_value, rank_streams=True)
+            scene, reso, nrounds, seed, mesh, eval_value,
+            guiding_programs(self), ("indirect", sensor_id, self.max_depth,
+                                     self.camera_depth, self.hide_emitters),
+            rank_streams=True)

@@ -11,7 +11,12 @@ out in tensor code, in optax's order of operations (``eps_root`` 0):
 
 (``torch.optim.Adam`` rounds differently: ``sqrt(nu) / sqrt(1 - b2^t)``
 and a step of ``lr / (1 - b1^t)``.) Frozen leaves get no update and keep
-zero moments, as under ``set_to_zero``.
+zero moments, as under ``set_to_zero``. The step count is a 0-dim int32
+tensor on the params' device, as optax's is an int32 array: the bias
+corrections and a schedule's rate are float32 tensor code on that count,
+so an update reads nothing back to the host and runs as a captured
+program (``Optimizer._jit_update``, the JAX package's jitted
+``Optimizer._update``).
 
 The sharded steps (``parallel/sharding.py``) and the examples take a few of
 optax's functional transforms, each an ``(init, update)`` pair over a whole
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from .convert import params_from_numpy
+from .core.hoist import const
+from .program import Program
 from .scene.scene import Scene, _host_tree
 
 _GROUP_OF = {"Mesh": "meshes", "BSDF": "bsdfs", "Emitter": "emitters",
@@ -76,28 +83,34 @@ def leaf_items(tree):
                 yield (group, i, name), entry[name]
 
 
+def new_count(device) -> torch.Tensor:
+    """A step count of 0: a 0-dim int32 tensor on ``device``."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def _adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-                    count: int, b1: float, b2: float, eps: float):
-    """optax's ``scale_by_adam`` after ``count`` earlier steps: the
-    bias-corrected direction and the new (mu, nu)."""
-    t = count + 1
-    # optax's bias corrections: float32 powers of the float32 betas
-    bc1 = 1.0 - np.float32(b1) ** np.float32(t)
-    bc2 = 1.0 - np.float32(b2) ** np.float32(t)
+                    count, b1: float, b2: float, eps: float):
+    """optax's ``scale_by_adam`` after ``count`` earlier steps (a 0-dim
+    integer tensor on g's device, or an int): the bias-corrected direction
+    and the new (mu, nu)."""
     with torch.no_grad():
+        t = (torch.as_tensor(count, device=g.device) + 1).to(torch.float32)
+        # optax's bias corrections: float32 powers of the float32 betas;
+        # tensors on g's device, as divisors (CUDA divides by a host scalar
+        # as a product with its reciprocal)
+        c1 = 1.0 - torch.pow(const(b1, torch.float32, g.device), t)
+        c2 = 1.0 - torch.pow(const(b2, torch.float32, g.device), t)
         mu = (1.0 - b1) * g + b1 * mu
         nu = (1.0 - b2) * (g * g) + b2 * nu
-        # divisors as tensors on g's device: CUDA divides by a host scalar
-        # as a product with its reciprocal
-        c1, c2 = (torch.tensor(float(c), device=g.device) for c in (bc1, bc2))
         return (mu / c1) / (torch.sqrt(nu / c2) + eps), mu, nu
 
 
 def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-                nu: torch.Tensor, count: int, lr: float, b1: float = 0.9,
+                nu: torch.Tensor, count, lr: float, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8):
     """One Adam step of ``p`` in place, in optax's arithmetic, after
-    ``count`` earlier steps. Returns the new (mu, nu)."""
+    ``count`` earlier steps (an int or a 0-dim integer tensor). Returns
+    the new (mu, nu)."""
     direction, mu, nu = _adam_direction(g, mu, nu, count, b1, b2, eps)
     with torch.no_grad():
         p.sub_(lr * direction)
@@ -152,9 +165,11 @@ def sgd(learning_rate: float) -> GradientTransformation:
 def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> GradientTransformation:
     """``optax.adam``: ``learning_rate`` a number or a schedule ``count ->
-    rate``, read at the count of earlier updates."""
+    rate``, read at the count of earlier updates (a 0-dim int32 tensor on
+    the params' device, ``state["count"]``)."""
     def init(params):
-        return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+        return {"count": new_count(tree_leaves(params)[0].device),
+                "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
     def update(grads, state, params=None):
@@ -170,14 +185,19 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
 
 
 def exponential_decay(init_value: float, transition_steps: int,
-                      decay_rate: float) -> Callable[[int], float]:
+                      decay_rate: float) -> Callable:
     """``optax.exponential_decay`` (no staircase, no delay):
     ``count -> init_value * decay_rate ** (count / transition_steps)`` in
-    float32."""
-    def schedule(count: int) -> float:
-        p = np.float32(count) / np.float32(transition_steps)
-        return float(np.float32(init_value)
-                     * np.float32(decay_rate) ** np.float32(p))
+    float32 tensor code, a 0-dim tensor on the count's device (an int
+    count: on the CPU)."""
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        dev = count.device
+
+        def f32(v):
+            return const(v, torch.float32, dev)
+        p = count.to(torch.float32) / f32(transition_steps)
+        return f32(init_value) * torch.pow(f32(decay_rate), p)
     return schedule
 
 
@@ -199,8 +219,11 @@ class Optimizer:
 
     ``params`` is the scene's params tree as float32 tensors on the scene's
     device; ``step`` differentiates ``loss_fn`` with respect to the selected
-    leaves only (the others carry no graph) and updates them in place.
-    ``state`` holds the step count and the moments of the selected leaves.
+    leaves only (the others carry no graph), eagerly as the JAX package's
+    ``step`` does, and updates them in place through ``_jit_update``, the
+    Adam update as a ``Program`` (captured on the card). ``state`` holds
+    the step count (a 0-dim int32 tensor) and the moments of the selected
+    leaves.
     """
 
     def __init__(self, scene: Scene, paths: Iterable[str], lr: float = 1e-2,
@@ -210,30 +233,45 @@ class Optimizer:
         self.mask = param_mask(scene, paths)
         self.params = params_from_numpy(scene.params(), scene.device)
         self.state = self._fresh_state()
+        self._jit_update = Program(self._update, "Optimizer._jit_update")
 
     def _fresh_state(self) -> dict:
         mu, nu = {}, {}
         for path, leaf in self.trainable():
             mu[path] = torch.zeros_like(leaf)
             nu[path] = torch.zeros_like(leaf)
-        return {"count": 0, "mu": mu, "nu": nu}
+        return {"count": new_count(self.scene.device), "mu": mu, "nu": nu}
 
     def trainable(self):
         """((group, index, name), leaf) of the selected leaves."""
         return [(path, leaf) for path, leaf in leaf_items(self.params)
                 if self.mask[path[0]][path[1]][path[2]]]
 
+    def _update(self, leaves, grads, mu, nu, count):
+        """The body of ``_jit_update``: one Adam step of the selected
+        ``leaves`` -> (new leaves, mu, nu, count + 1)."""
+        out = [_adam_direction(g, m, v, count, self.b1, self.b2, self.eps)
+               for g, m, v in zip(grads, mu, nu)]
+        return ([p - self.lr * d for p, (d, _, _) in zip(leaves, out)],
+                [m for _, m, _ in out], [v for _, _, v in out], count + 1)
+
     def update(self, grads: dict) -> None:
         """One Adam update of the selected leaves from ``grads``, keyed
-        like ``trainable()``'s paths (a missing gradient counts as 0)."""
-        t = self.state["count"]
-        for path, leaf in self.trainable():
-            g = grads.get(path)
-            self.state["mu"][path], self.state["nu"][path] = adam_update(
-                leaf, torch.zeros_like(leaf) if g is None else g,
-                self.state["mu"][path], self.state["nu"][path], t, self.lr,
-                self.b1, self.b2, self.eps)
-        self.state["count"] = t + 1
+        like ``trainable()``'s paths (a missing gradient counts as 0),
+        through ``_jit_update``; the leaves are updated in place."""
+        paths, leaves = zip(*self.trainable())
+        g = [grads.get(p) for p in paths]
+        new, mu, nu, count = self._jit_update(
+            list(leaves),
+            [torch.zeros_like(x) if gi is None else gi
+             for x, gi in zip(leaves, g)],
+            [self.state["mu"][p] for p in paths],
+            [self.state["nu"][p] for p in paths], self.state["count"])
+        with torch.no_grad():
+            for leaf, x in zip(leaves, new):
+                leaf.copy_(x)
+        self.state = {"count": count, "mu": dict(zip(paths, mu)),
+                      "nu": dict(zip(paths, nu))}
 
     def step(self, loss_fn: Callable, *args) -> float:
         """Differentiate ``loss_fn(params, *args)`` with respect to the
@@ -268,7 +306,7 @@ class Optimizer:
     # -- checkpoint / resume -----------------------------------------------
     def save(self, path: str) -> None:
         """Params and optimizer state to one .npz file."""
-        arrays = {"count": np.int64(self.state["count"])}
+        arrays = {"count": np.int64(int(self.state["count"]))}
         for (g, i, n), leaf in leaf_items(self.params):
             arrays[f"param/{g}/{i}/{n}"] = leaf.detach().cpu().numpy()
         for key in ("mu", "nu"):
@@ -291,7 +329,8 @@ class Optimizer:
             for g, i, n in state[key]:
                 state[key][(g, i, n)] = torch.tensor(
                     data[f"{key}/{g}/{i}/{n}"], device=dev)
-        state["count"] = int(data["count"])
+        state["count"] = torch.tensor(int(data["count"]), dtype=torch.int32,
+                                      device=dev)
         self.state = state
 
 

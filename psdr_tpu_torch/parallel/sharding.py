@@ -21,6 +21,13 @@ gradient leaf is then summed over the ranks. The cotangent is never reduced
 by a collective's backward: it is already replicated, and reducing it again
 would multiply it by the rank count (the trap
 ``psdr_tpu/parallel/sharding.py:197-200`` records).
+
+The train steps run as captured programs (``program.py``), the JAX
+package's jitted steps, in one of two forms that the group's backend
+decides (``DeviceMesh.captures_collectives``): over NCCL, whose
+collectives a CUDA graph can hold, the whole step is one program; over
+gloo, which copies through the host, the step is programs around its
+collectives, and the collectives run between them.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch.distributed as dist
 from ..convert import params_from_numpy
 from ..core import threefry
 from ..opt import adam, apply_updates, tree_leaves, tree_unflatten
+from ..program import Program, VJPProgram
 
 
 class DeviceMesh(NamedTuple):
@@ -49,6 +57,11 @@ class DeviceMesh(NamedTuple):
         """Sum ``tensor`` over the ranks, in place."""
         return dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=self.group,
                                async_op=async_op)
+
+    def captures_collectives(self) -> bool:
+        """Whether a CUDA graph can hold this group's collectives: NCCL's
+        can, gloo's (through the host) cannot."""
+        return dist.get_backend(self.group) == "nccl"
 
 
 def device_mesh(axis_name: str = "dp", device=None) -> DeviceMesh:
@@ -225,18 +238,34 @@ def _value_and_local_grads(render_local, params, cot_of):
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     img_local = render_local(tree_unflatten(params, leaves))
     loss, cot = cot_of(img_local.detach())
-    img_local.backward(cot)
-    return loss, [torch.zeros_like(x) if x.grad is None else x.grad
-                  for x in leaves]
+    grads = torch.autograd.grad(img_local, leaves, cot, allow_unused=True)
+    return loss, [torch.zeros_like(x) if g is None else g
+                  for x, g in zip(leaves, grads)]
 
 
-def _make_step(render_local, cot_of, mesh, optimizer, overlap):
-    def step(params, opt_state, key):
+def _update_program(optimizer) -> Program:
+    """``optimizer``'s update and its application as a program over
+    (params, grads, opt_state) -> (params, opt_state)."""
+    def update(params, grads, opt_state):
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state
+    return Program(update, "train step update")
+
+
+def _whole_step(render_local, cot_of, mesh, optimizer, overlap, name,
+                retrace_on):
+    """The step, collectives included, as one program (NCCL)."""
+    def body(params, opt_state, key):
         loss, grads = _value_and_local_grads(
             lambda q: render_local(q, key), params, cot_of)
         grads = tree_unflatten(params, reduce_gradients(grads, mesh, overlap))
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state, loss
+    prog = Program(body, name, grad=True, retrace_on=retrace_on)
+
+    def step(params, opt_state, key):
+        return prog(params, opt_state, key.to(mesh.device))
+    step.programs = (prog,)
     return step
 
 
@@ -251,7 +280,16 @@ def make_train_step(integrator, scene, mesh: DeviceMesh, target_image,
     sums the gradients over the ranks and applies one update of
     ``optimizer`` (``opt.adam(1e-2)`` by default; an ``(init, update)``
     pair of ``opt``). ``overlap`` chooses ``reduce_gradients``' schedule;
-    the numbers are the same."""
+    the numbers are the same.
+
+    The step runs as captured programs (``step.programs``). Over NCCL the
+    whole step is one, its all-reduces inside (the warm-up's all-reduces
+    create the communicator before the capture). Over gloo the image's
+    all-reduce falls between the forward and the backward: the forward is
+    one graph whose saved tensors stay in its pool and the backward one
+    fed the cotangent (a ``VJPProgram``); the all-reduces of the image and
+    of the gradients run eagerly, and the update is a third program. The
+    key may lie on the host; the step moves it to the mesh's device."""
     if optimizer is None:
         optimizer = adam(1e-2)
     target = torch.as_tensor(target_image, dtype=torch.float32,
@@ -267,10 +305,25 @@ def make_train_step(integrator, scene, mesh: DeviceMesh, target_image,
         loss = torch.mean(diff * diff)
         return loss, 2.0 * diff / (diff.numel() * n_dev)
 
-    step = _make_step(lambda q, key: g(q, key, mesh.rank), cot_of, mesh,
-                      optimizer, overlap)
-    return step, optimizer.init(params_from_numpy(scene.params(),
-                                                  mesh.device))
+    state = optimizer.init(params_from_numpy(scene.params(), mesh.device))
+    if mesh.captures_collectives():
+        return _whole_step(lambda q, key: g(q, key, mesh.rank), cot_of, mesh,
+                           optimizer, overlap, "make_train_step",
+                           lambda: scene.accel_version), state
+    forward = VJPProgram(lambda q, key: g(q, key, mesh.rank),
+                         "make_train_step forward",
+                         retrace_on=lambda: scene.accel_version)
+    update = _update_program(optimizer)
+
+    def step(params, opt_state, key):
+        img_local = forward(params, key.to(mesh.device))
+        loss, cot = cot_of(img_local)
+        grads = tree_unflatten(params, reduce_gradients(
+            tree_leaves(forward.vjp(cot)), mesh, overlap))
+        params, opt_state = update(params, grads, opt_state)
+        return params, opt_state, loss
+    step.programs = (forward, update)
+    return step, state
 
 
 # -- multi-view (sensor-parallel) inverse rendering -------------------------
@@ -293,7 +346,12 @@ def make_multiview_train_step(integrator, scene, mesh: DeviceMesh, targets,
     a leaf, largest first) and the update runs on every rank. Needs the
     rank count to be a multiple of the view count (a view's replicas draw
     independent folds, which lowers its variance). Returns ``(step,
-    opt_state)`` as ``make_train_step``."""
+    opt_state)`` as ``make_train_step``.
+
+    Over NCCL the whole step is one captured program; over gloo one
+    program renders this rank's view and takes its loss and gradients (the
+    view's cotangent is local), the loss's and the gradients' all-reduces
+    run eagerly, and the update is a second program."""
     if optimizer is None:
         optimizer = adam(1e-2)
     n_dev = mesh.size
@@ -313,12 +371,34 @@ def make_multiview_train_step(integrator, scene, mesh: DeviceMesh, targets,
                                          threefry.fold_in(key, mesh.rank),
                                          with_boundary)
 
-    def cot_of(img):
+    def local_cot_of(img):
         diff = img - target
-        loss = torch.mean(diff * diff).reshape(1)
-        mesh.all_reduce(loss)
-        return loss[0] / n_dev, 2.0 * diff / (diff.numel() * n_dev)
+        return (torch.mean(diff * diff).reshape(1),
+                2.0 * diff / (diff.numel() * n_dev))
 
-    step = _make_step(render_local, cot_of, mesh, optimizer, True)
-    return step, optimizer.init(params_from_numpy(scene.params(),
-                                                  mesh.device))
+    def cot_of(img):
+        loss, cot = local_cot_of(img)
+        mesh.all_reduce(loss)
+        return loss[0] / n_dev, cot
+
+    state = optimizer.init(params_from_numpy(scene.params(), mesh.device))
+    if mesh.captures_collectives():
+        return _whole_step(render_local, cot_of, mesh, optimizer, True,
+                           "make_multiview_train_step",
+                           lambda: scene.accel_version), state
+
+    def local(params, key):
+        return _value_and_local_grads(lambda q: render_local(q, key),
+                                      params, local_cot_of)
+    local_prog = Program(local, "make_multiview_train_step local",
+                         grad=True, retrace_on=lambda: scene.accel_version)
+    update = _update_program(optimizer)
+
+    def step(params, opt_state, key):
+        loss, grads = local_prog(params, key.to(mesh.device))
+        mesh.all_reduce(loss)
+        grads = tree_unflatten(params, reduce_gradients(grads, mesh, True))
+        params, opt_state = update(params, grads, opt_state)
+        return params, opt_state, loss[0] / n_dev
+    step.programs = (local_prog, update)
+    return step, state

@@ -28,7 +28,7 @@ from ..core.distribution import Discrete, discrete_init, discrete_sample_reuse
 from ..core.frame import make_frame, to_local
 from ..core.frame import to_world as frame_to_world
 from ..core.gather import gather_rows, select_rows
-from ..core.hoist import const, memo, upload
+from ..core.hoist import const, forget, memo, upload
 from ..core.math import (bilinear, dot, norm, normalize,
                          ray_intersect_triangle, rgb2luminance, safe_sqrt,
                          sign_eps, squared_norm)
@@ -113,6 +113,10 @@ class Scene:
         # the BVH and K1 from accel_min_faces faces up, brute force below
         self.accel_min_faces = 512
         self._bvh_topo: BVHTopology | None = None
+        # counts the topology's rebuilds: a captured program whose body
+        # builds the scene captures again when it changes
+        # (``Program(retrace_on=...)``)
+        self.accel_version = 0
         self.face_offset = [0]
         # optional Discrete that replaces the environment map's importance
         # table in every build (``convert.envmap_state_from_numpy``)
@@ -254,15 +258,22 @@ class Scene:
         past ``threshold``; call between optimizer steps. ``params`` (if
         given) become the scene's own first. Returns True on a rebuild.
         Every later ``build``, including those of a ``render_fn`` made
-        before, refits the new topology."""
+        before, refits the new topology; ``accel_version`` counts up, so
+        every program whose body builds the scene (``retrace_on``) drops
+        its graph at its next call and captures the new one. The old
+        topology's device copies leave the upload cache: a program that
+        does not build the scene but holds a flat scene keeps them alive
+        itself."""
         if self._bvh_topo is None:
             return False
         if self.refit_quality(params) <= threshold:
             return False
         if params is not None:
             self.set_params(_host_tree(params))
+        forget(self, self._bvh_topo.perm, self._bvh_topo.skip)
         self._bvh_topo = None
         self._flat_cache = None
+        self.accel_version += 1
         self.prepare_accel()
         return True
 

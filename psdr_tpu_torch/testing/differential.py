@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..core.hoist import const
+
 
 def _scalar(P, like: torch.Tensor) -> torch.Tensor:
     if isinstance(P, torch.Tensor):
@@ -22,7 +24,12 @@ def _scalar(P, like: torch.Tensor) -> torch.Tensor:
 
 
 def _vec(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    """A direction or an axis: a tensor as it is, a literal made once per
+    value and device (``hoist.const``: inside a captured derivative it
+    must not copy from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
+    return const(v, torch.float32, like.device)
 
 
 def translate(v: torch.Tensor) -> torch.Tensor:

@@ -25,13 +25,48 @@ from ..parallel.sharding import DeviceMesh
 from .scenes import cbox_scene, sphere_light_scene
 
 
+class _Done:
+    """The handle of a collective that has finished."""
+
+    def wait(self) -> bool:
+        return True
+
+
 class LocalRank(DeviceMesh):
     """Rank ``rank`` of ``size`` in this process, without a group: its sum
     over the ranks leaves this rank's share as it is. With ``size`` 1 it is
     a whole mesh; otherwise the serial emulations add the shares up."""
 
     def all_reduce(self, tensor, async_op=False):
-        return None
+        return _Done() if async_op else None
+
+    def captures_collectives(self) -> bool:
+        return True        # there are none
+
+
+class LocalSplitRank(LocalRank):
+    """A ``LocalRank`` whose train steps take gloo's form, programs around
+    the collectives."""
+
+    def captures_collectives(self) -> bool:
+        return False
+
+
+class WholeStep(DeviceMesh):
+    """A mesh whose train steps take the one-program form that NCCL's
+    take (``captures_collectives``): over gloo on CPU tensors, where the
+    programs run eagerly, the step's one body against the split form."""
+
+    def captures_collectives(self) -> bool:
+        return True
+
+
+class SplitStep(DeviceMesh):
+    """A mesh whose train steps take gloo's form, programs around the
+    collectives: over NCCL, the split form timed against the whole one."""
+
+    def captures_collectives(self) -> bool:
+        return False
 
 
 # -- rank bodies --------------------------------------------------------------
@@ -104,8 +139,13 @@ def sharded_checks(device="cpu", cases=None, step=STEP_CHECK,
     (image, gradient of ``sharded_loss`` summed by ``reduce_gradients``,
     seconds, K1 and K2 launches). Then one ``make_train_step`` step for
     each overlap flag of ``step`` (laid out as ``STEP_CHECK``) under
-    ``sgd(rate)``: ``out["steps"]``, (loss, updated params) each. Then the
-    collective guiding tables of ``guiding`` (laid out as
+    ``sgd(rate)``: ``out["steps"]``, (loss, updated params) each, in the
+    backend's form (over gloo: programs around the collectives). On CPU
+    tensors also ``out["steps_whole"]``, the same steps in the one-body
+    form (``WholeStep``), and ``out["multiview"]``, one
+    ``make_multiview_train_step`` step on the two-view
+    ``multiview_scene`` in each form ((loss, updated params) each). Then
+    the collective guiding tables of ``guiding`` (laid out as
     ``GUIDING_CHECK``): ``out["guiding"]``, the ``DirectIntegrator``'s
     and the ``PathTracer``'s (None where its table is None)."""
     from ..accel import intersect
@@ -135,14 +175,28 @@ def sharded_checks(device="cpu", cases=None, step=STEP_CHECK,
     kw, lr, seed, overlaps = step
     sc = cbox_scene(**kw, device=dev)
     target = np.zeros((sc.opts.num_pixels, 3), np.float32)
-    out["steps"] = []
-    for overlap in overlaps:
-        train, state = make_train_step(DirectIntegrator(1, 1), sc, mesh,
-                                       target, optimizer=sgd(lr),
-                                       overlap=overlap)
-        p1, _, loss = train(params_from_numpy(sc.params(), dev), state,
-                            threefry.PRNGKey(seed))
-        out["steps"].append((loss.item(), leaves_np(p1)))
+    forms = {"steps": mesh}
+    if dev.type == "cpu":
+        forms["steps_whole"] = WholeStep(*mesh)
+    for name, m in forms.items():
+        out[name] = []
+        for overlap in overlaps:
+            train, state = make_train_step(DirectIntegrator(1, 1), sc, m,
+                                           target, optimizer=sgd(lr),
+                                           overlap=overlap)
+            p1, _, loss = train(params_from_numpy(sc.params(), dev), state,
+                                threefry.PRNGKey(seed))
+            out[name].append((loss.item(), leaves_np(p1)))
+    if dev.type == "cpu":
+        mv = multiview_scene(2, device=dev)
+        targets = np.zeros((2, mv.opts.num_pixels, 3), np.float32)
+        out["multiview"] = []
+        for m in forms.values():
+            step, state = make_multiview_train_step(
+                DirectIntegrator(1, 1), mv, m, targets, optimizer=sgd(lr))
+            p1, _, loss = step(params_from_numpy(mv.params(), dev), state,
+                               threefry.PRNGKey(seed))
+            out["multiview"].append((loss.item(), leaves_np(p1)))
 
     kw, direct, indirect = guiding
     sc = guiding_scene(dev, kw)
@@ -209,11 +263,53 @@ def multiview_step(start, targets, lr: float, seed: int, device="cpu",
             "launches": dict(intersect.LAUNCHES)}
 
 
-def one_rank_render(device="cuda") -> dict:
+ONE_RANK_LR = 1e3     # the SGD rate of ``one_rank_render``'s train step
+
+
+def step_forms(mesh, scenes, reps: int) -> list:
+    """``make_train_step`` (L2 to a black target, ``sgd(ONE_RANK_LR)``) in
+    both forms on ``mesh``, the whole step as one program and the split
+    form (``SplitStep``), on ``cbox_scene(**kw)`` for each ``kw`` of
+    ``scenes``: each captured, then called ``reps`` times in turns (whole,
+    split, split, whole, ...) under one key. One entry a scene: (kw,
+    seconds of the whole form's calls, of the split form's, the loss of
+    each form)."""
+    out = []
+    for kw in scenes:
+        sc = cbox_scene(**kw, device=mesh.device)
+        target = np.zeros((sc.opts.num_pixels, 3), np.float32)
+        p0 = params_from_numpy(sc.params(), mesh.device)
+        steps = [make_train_step(DirectIntegrator(1, 1), sc, m, target,
+                                 optimizer=sgd(ONE_RANK_LR))
+                 for m in (WholeStep(*mesh), SplitStep(*mesh))]
+        losses = [train(p0, state, threefry.PRNGKey(3))[2].item()
+                  for train, state in steps]
+        secs = ([], [])
+        for i in range(reps):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                train, state = steps[j]
+                _sync(mesh.device)
+                t0 = time.perf_counter()
+                train(p0, state, threefry.PRNGKey(3))
+                _sync(mesh.device)
+                secs[j].append(time.perf_counter() - t0)
+        out.append((kw, secs[0], secs[1], losses))
+    return out
+
+
+def one_rank_render(device="cuda", timed=(), reps: int = 0) -> dict:
     """On a one-rank group (NCCL on the card, or gloo): ``shard_render_fn``
     against the plain ``render_fn`` under ``fold_in(key, 0)``, image and
     gradient (reduced per leaf, asynchronously), and the K1 and K2 launch
-    counts of each."""
+    counts of each (``out["sharded"]``, ``out["plain"]``). Then one
+    ``make_train_step`` step (L2 to a black target, ``sgd(ONE_RANK_LR)``)
+    in the group's form (over NCCL one captured program) called twice,
+    against the plain gradient: ``out["step"]``, (loss, the gradient the
+    second call applied, (params - updated) / ONE_RANK_LR, its launches),
+    ``out["step_plain"]``, (loss, the plain gradient, its launches), and
+    ``out["step_programs"]``, (captured, graph nodes, capture seconds) of
+    each of the step's programs. ``out["forms"]`` is ``step_forms(mesh,
+    timed, reps)``."""
     from ..accel import intersect
     mesh = _mesh(device)
     sc = cbox_scene(32, 32, spp=4, sppe=2, sppse=16, occluder_subdiv=3,
@@ -236,4 +332,27 @@ def one_rank_render(device="cuda") -> dict:
         out[name] = (img.detach().cpu().numpy(),
                      [g.cpu().numpy() for g in grads],
                      dict(intersect.LAUNCHES))
+
+    target = np.zeros((sc.opts.num_pixels, 3), np.float32)
+    train, state = make_train_step(DirectIntegrator(1, 1), sc, mesh, target,
+                                   optimizer=sgd(ONE_RANK_LR))
+    p0 = params_from_numpy(sc.params(), mesh.device)
+    train(p0, state, threefry.PRNGKey(3))          # the capture on NCCL
+    intersect.reset_launch_counts()
+    p1, _, loss = train(p0, state, threefry.PRNGKey(3))
+    out["step"] = (loss.item(), [(a - b) / ONE_RANK_LR for a, b in zip(
+        leaves_np(p0), leaves_np(p1))], dict(intersect.LAUNCHES))
+    out["step_programs"] = [(bool(getattr(prog, "captured", False)),
+                             prog.nodes, prog.capture_seconds)
+                            for prog in train.programs]
+    p = params_from_numpy(sc.params(), mesh.device, requires_grad=True)
+    intersect.reset_launch_counts()
+    loss = torch.mean(DirectIntegrator(1, 1).render_fn(sc)(
+        p, threefry.fold_in(threefry.PRNGKey(3), 0)) ** 2)
+    loss.backward()
+    out["step_plain"] = (loss.item(), [
+        np.zeros(tuple(x.shape), np.float32) if x.grad is None
+        else x.grad.cpu().numpy() for _, x in leaf_items(p)],
+        dict(intersect.LAUNCHES))
+    out["forms"] = step_forms(mesh, timed, reps)
     return out

@@ -147,10 +147,17 @@ def _rel_l2_cos(ref, port):
 
 def test_flagship_first_step_matches_jax():
     """Three views of the small flagship scene cut to 16 x 16 (spp 2, sppe
-    2, sppse 4): the loss at the deformed start and the occluder's vertex
-    gradient under PRNGKey(0), the port's ``make_loss`` and
-    ``train_step`` against the JAX script's ``build_scene``, ``deform``
-    and loss on the same targets."""
+    2, sppse 4): the port's step program (``make_train_step``: the loss,
+    the occluder's gradient, its smoothing and the masked Adam update on
+    ``exponential_decay``) against the JAX script's jitted ``train_step``
+    (``examples/flagship_recovery.py:199-205``, rebuilt here from its
+    ``build_scene``, ``deform``, loss, smoothing and optax chain on the
+    same targets) under PRNGKey(0): the loss to 1e-4, the raw and the
+    smoothed gradient to 1e-2 relative L2 and cosine 0.999; and the
+    update equal to optax's chain on the port's own smoothed gradient to
+    1e-6 (a first Adam step is about the rate times the gradient's sign,
+    so the two packages' updates are compared through the arithmetic,
+    not entry by entry)."""
     import dataclasses
     jmod = _jax_flagship()
     occ = flagship_recovery.OCCLUDER
@@ -180,25 +187,111 @@ def test_flagship_first_step_matches_jax():
             total = total + jnp.mean((img - j_tgt[s]) ** 2)
         return total / len(j_renders)
 
-    j_l, j_g = jax.jit(jax.value_and_grad(j_loss))(jnp.asarray(start),
-                                                   jax.random.PRNGKey(0))
+    faces = np.asarray(js.meshes[occ].faces, np.int64)
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                        faces[:, [2, 0]]], axis=0)
+    e = np.unique(np.sort(e, axis=1), axis=0)
+    src = jnp.asarray(np.concatenate([e[:, 0], e[:, 1]]), jnp.int32)
+    dst = jnp.asarray(np.concatenate([e[:, 1], e[:, 0]]), jnp.int32)
+    nv = v0.shape[0]
+    deg = jnp.maximum(jax.ops.segment_sum(
+        jnp.ones_like(src, jnp.float32), dst, num_segments=nv), 1.0)
 
-    from psdr_tpu_torch.opt import adam, masked, tree_leaves, tree_map
+    def smooth_grad(g, rounds=10, lam=0.9):
+        for _ in range(rounds):
+            nb = jax.ops.segment_sum(g[src], dst,
+                                     num_segments=nv) / deg[:, None]
+            g = (1.0 - lam) * g + lam * nb
+        return g
+
+    import optax
+    sched = optax.exponential_decay(1e-2, transition_steps=4,
+                                    decay_rate=0.05)
+    j_mask = jnp.ones_like(jnp.asarray(start))
+    j_opt = optax.chain(optax.adam(learning_rate=sched),
+                        optax.GradientTransformation(
+                            lambda p: optax.EmptyState(),
+                            lambda u, s, p=None: (u * j_mask, s)))
+
+    @jax.jit
+    def j_train_step(v, opt_state, key):
+        loss, g = jax.value_and_grad(j_loss)(v, key)
+        updates, opt_state = j_opt.update(smooth_grad(g), opt_state, v)
+        return optax.apply_updates(v, updates), opt_state, loss, g
+
+    j_v1, _, j_l, j_g = j_train_step(jnp.asarray(start),
+                                     j_opt.init(jnp.asarray(start)),
+                                     jax.random.PRNGKey(0))
+
+    from psdr_tpu_torch.opt import (adam, exponential_decay, masked,
+                                    tree_leaves, tree_map)
     params = tree_map(lambda x: x.clone(), truth)
     params["meshes"][occ]["vertex_positions"] = torch.tensor(start)
     mask = tree_map(torch.zeros_like, params)
     mask["meshes"][occ]["vertex_positions"][:] = 1.0
     smooth = flagship_recovery.laplacian_smoother(
         ts.meshes[occ].faces, v0.shape[0], "cpu")
-    opt = masked(adam(1e-2), mask)
-    p1, _, loss, g = flagship_recovery.train_step(
-        flagship_recovery.make_loss(ts, integ, targets), smooth, opt, params,
-        opt.init(params), threefry.PRNGKey(0))
+    opt = masked(adam(exponential_decay(1e-2, 4, 0.05)), mask)
+    step = flagship_recovery.make_train_step(
+        ts, flagship_recovery.make_loss(ts, integ, targets), smooth, opt)
+    p1, s1, loss, g = step(params, opt.init(params), threefry.PRNGKey(0))
     assert abs(loss.item() - float(j_l)) <= 1e-4 * float(j_l)
     assert np.isfinite(g.numpy()).all()
     err, cos = _rel_l2_cos(np.asarray(j_g), g.numpy())
     assert err <= 1e-2 and cos >= 0.999, (err, cos)
+    err, cos = _rel_l2_cos(np.asarray(smooth_grad(j_g)),
+                           smooth(g).numpy())
+    assert err <= 1e-2 and cos >= 0.999, (err, cos)
+    assert int(s1["count"]) == 1
     moved = [k for k, (a, b) in enumerate(zip(tree_leaves(params),
                                                tree_leaves(p1)))
              if not torch.equal(a, b)]
     assert len(moved) == 1     # only the occluder's vertices
+    # the port's update against optax's chain on the port's own gradient
+    s = jnp.asarray(smooth(g).numpy())
+    want, _, _, _ = jax.jit(lambda v, st: (optax.apply_updates(
+        v, j_opt.update(s, st, v)[0]), 0, 0, 0))(
+            jnp.asarray(start), j_opt.init(jnp.asarray(start)))
+    np.testing.assert_allclose(
+        p1["meshes"][occ]["vertex_positions"].numpy(), np.asarray(want),
+        rtol=1e-6, atol=1e-7)
+    assert np.isfinite(np.asarray(j_v1)).all()
+
+
+def test_inverse_geometry_step_grad_matches_jax():
+    """``inverse_geometry.make_step_grad`` (the JAX script's jitted
+    ``step_grad``: the L2 loss of the sphere moved by a 2D offset, through
+    every boundary term) against ``jax.value_and_grad`` of the script's
+    loss on the same target, offset and key (16 x 16, spp 2, sppe 2, sppse
+    4): the loss to 1e-5, the offset's gradient within 1e-2 relative L2
+    and cosine 0.999 (``tests/test_torch_boundary.py``'s bounds)."""
+    from psdr_tpu.core import transform as j_xf
+    from psdr_tpu_torch.examples.inverse_geometry import make_step_grad
+    from psdr_tpu_torch.testing.scenes import sphere_light_scene
+    from scenes import sphere_light_scene as j_sphere
+    kw = dict(width=16, height=16, spp=2, sppe=2, sppse=4)
+    js, ts = j_sphere(**kw), sphere_light_scene(**kw, device="cpu")
+    base_np = js.params()
+    target = TDirect(1, 1).render_fn(ts, with_boundary=False,
+                                     detached=True)(
+        params_from_numpy(base_np, "cpu"), threefry.PRNGKey(42))
+    j_render = JDirect(1, 1).render_fn(js, with_boundary=True)
+    j_target = jnp.asarray(target.numpy())
+
+    def j_loss(offset, key):
+        p = jax.tree.map(lambda x: x, base_np)
+        m = dict(p["meshes"][0])
+        shift = jnp.concatenate([offset, jnp.zeros((1,), jnp.float32)])
+        m["to_world"] = j_xf.translate(shift) @ m["to_world"]
+        p["meshes"] = [m] + list(p["meshes"][1:])
+        return jnp.mean((j_render(p, key) - j_target) ** 2)
+
+    start = np.array([0.35, -0.25], np.float32)
+    j_l, j_g = jax.jit(jax.value_and_grad(j_loss))(jnp.asarray(start),
+                                                   jax.random.PRNGKey(3))
+    step = make_step_grad(ts, TDirect(1, 1),
+                          params_from_numpy(base_np, "cpu"), target)
+    loss, g = step(torch.tensor(start), threefry.PRNGKey(3))
+    assert abs(float(loss) - float(j_l)) <= 1e-5 * float(j_l)
+    err, cos = _rel_l2_cos(np.asarray(j_g), g.numpy())
+    assert err <= 1e-2 and cos >= 0.999, (err, cos, g, j_g)

@@ -7,7 +7,9 @@ gradient of a rough conductor under an environment map, an optimizer step
 and a scene loaded from files on the card against the same on the CPU;
 and the sharded steps over gloo ranks sharing the card and a one-rank
 NCCL group against their serial emulation on the card, and the flagship
-recovery loop; and the captured render programs against the eager renders.
+recovery loop; and the captured render programs against the eager renders,
+and the gradient programs (``grad_program``, the optimizer's update, a
+guiding build, ``VJPProgram``) against their eager steps.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -720,3 +722,218 @@ def test_program_capture_of_host_data_fails_loudly(cuda):
         prog(x)
     assert len(calls) == n and not prog.captured
     assert float((x * 2).sum()) == 8.0
+
+
+# -- the gradient programs ------------------------------------------------------
+
+def _close_trees(got, want, rtol=1e-4):
+    """Leaf by leaf within rtol of the leaf's largest entry (the atomic
+    sums of ``index_add_`` move the last places run to run)."""
+    from torch.utils._pytree import tree_flatten
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        scale = max(float(b.abs().max()), 1e-12) if b.numel() else 1.0
+        assert float((a - b).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("boundary", [False, True])
+def test_grad_program_replay_equals_eager(cuda, boundary):
+    """``grad_program`` (64x64, spp 4, with and without every boundary
+    term): the replay's loss and every gradient leaf equal the eager
+    ``value_and_grad`` at seeds 0 and 1, seed 1 differs from seed 0, the
+    gradient buffers keep their addresses across replays, and a replay
+    launches what the eager step launches."""
+    from torch.utils._pytree import tree_flatten
+    kw = dict(sppe=2, sppse=16) if boundary else {}
+    sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=cuda, **kw)
+    integ = DirectIntegrator(1, 1)
+    prog = integ.grad_program(sc, torch.zeros(64 * 64, 3, device=cuda),
+                              with_boundary=boundary)
+    p = params_from_numpy(sc.params(), device=cuda)
+    with torch.enable_grad():
+        want = {s: prog.fn(p, threefry.PRNGKey(s)) for s in (0, 1)}
+    intersect.reset_launch_counts()
+    with torch.enable_grad():
+        prog.fn(p, threefry.PRNGKey(0))
+    eager = dict(intersect.LAUNCHES)
+    prog(p, threefry.PRNGKey(0, device=cuda))     # warm-up, capture, replay
+    assert prog.captured and prog.nodes > 0 and prog.pool_bytes > 0
+    ptrs = [x.data_ptr() for x in prog._outputs[0]]
+    intersect.reset_launch_counts()
+    got = {s: prog(p, threefry.PRNGKey(s, device=cuda)) for s in (0, 1)}
+    torch.cuda.synchronize()
+    assert intersect.LAUNCHES == {k: 2 * v for k, v in eager.items()}
+    assert [x.data_ptr() for x in prog._outputs[0]] == ptrs
+    for s in (0, 1):
+        _close_trees(got[s], want[s])
+    assert float(got[1][0]) != float(got[0][0])
+    assert all(torch.isfinite(x).all() for x in tree_flatten(got[0])[0])
+
+
+def test_update_guiding_and_vjp_programs_replay_equal_eager(cuda):
+    """The optimizer's ``_jit_update`` (two updates against the same
+    arithmetic run eagerly), a guiding build replayed at a second seed
+    against its eager body, and a ``VJPProgram``'s forward and backward
+    against autograd's, each on the card."""
+    from psdr_tpu_torch.opt import Optimizer
+    from psdr_tpu_torch.program import VJPProgram
+    sc = cbox_scene(32, 32, spp=2, sppse=4, occluder_subdiv=3, device=cuda)
+    opt = Optimizer(sc, ["Mesh[5].vertex_positions"], lr=0.01)
+    paths, leaves = zip(*opt.trainable())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(2):
+        g = [torch.randn(x.shape, device=cuda, generator=gen) for x in leaves]
+        args = (list(leaves), g, [opt.state["mu"][q] for q in paths],
+                [opt.state["nu"][q] for q in paths], opt.state["count"])
+        with torch.no_grad():
+            want = opt._update(*args)
+        opt.update(dict(zip(paths, g)))
+        assert torch.equal(leaves[0], want[0][0])
+        assert torch.equal(opt.state["mu"][paths[0]], want[1][0])
+    assert opt._jit_update.captured and int(opt.state["count"]) == 2
+
+    integ = DirectIntegrator(1, 1)
+    for seed in (3, 4):
+        integ.preprocess_secondary_edges(sc, 0, (8, 3, 3, 4), nrounds=2,
+                                         seed=seed)
+    (prog,) = integ._guiding_jits.values()
+    with torch.no_grad():
+        want = prog.fn(threefry.PRNGKey(4)) / 2
+    _close_trees(integ.warpper[0].distrb.pmf, want, rtol=1e-5)
+
+    x = torch.randn(64, device=cuda)
+    vjp = VJPProgram(lambda v, k: torch.sin(v) * k, "vjp")
+    for k in (2.0, 3.0):
+        kt = torch.full((64,), k, device=cuda)
+        y = vjp(x, kt)
+        g = vjp.vjp(torch.ones(64, device=cuda))
+        assert torch.allclose(y, torch.sin(x) * k)
+        assert torch.allclose(g, torch.cos(x) * k)
+    assert vjp.captured
+
+
+def test_rebuild_recaptures_the_grad_program(cuda):
+    """A forced BVH rebuild (``Optimizer.maybe_rebuild_accel``) makes a
+    captured ``grad_program`` capture again at its next call, and that
+    replay equals the eager step on the new tree."""
+    from psdr_tpu_torch.opt import Optimizer
+    sc = sphere_light_scene(32, 32, spp=2, subdiv=3, device=cuda)
+    sc.prepare_accel()
+    opt = Optimizer(sc, ["Mesh[0].vertex_positions"])
+    prog = DirectIntegrator(1, 1).grad_program(
+        sc, torch.zeros(32 * 32, 3, device=cuda))
+    key = threefry.PRNGKey(1, device=cuda)
+    prog(opt.params, key)
+    assert prog.captures == 1
+    vp = opt.params["meshes"][0]["vertex_positions"]
+    a = 3.0 * vp[:, 1:2]
+    vp.copy_(torch.cat([torch.cos(a) * vp[:, :1] - torch.sin(a) * vp[:, 2:],
+                        vp[:, 1:2],
+                        torch.sin(a) * vp[:, :1] + torch.cos(a) * vp[:, 2:]],
+                       1))
+    assert opt.maybe_rebuild_accel(threshold=sc.refit_quality(opt.params)
+                                   - 0.01)
+    got = prog(opt.params, key)
+    assert prog.captures == 2
+    with torch.enable_grad():
+        want = prog.fn(opt.params, threefry.PRNGKey(1))
+    _close_trees(got, want)
+
+
+@pytest.mark.parametrize("case", ["flagship step", "train step whole",
+                                  "train step split"])
+def test_rebuild_recaptures_the_scene_programs(cuda, case):
+    """A forced BVH rebuild makes every program that builds the scene
+    capture again at its next call (the flagship step; the sharded train
+    step on a one-rank mesh without a group, in both forms), and that
+    replay equals a program made after the rebuild."""
+    import dataclasses
+    from psdr_tpu_torch.examples import flagship_recovery as fr
+    from psdr_tpu_torch.opt import adam, sgd
+    from psdr_tpu_torch.parallel import make_train_step
+    from psdr_tpu_torch.testing.ranks import LocalRank, LocalSplitRank
+
+    key = threefry.PRNGKey(1, device=cuda)
+    if case == "flagship step":
+        sc = fr.build_scene(True, cuda)
+        sc.opts = dataclasses.replace(sc.opts, width=32, height=32, spp=2,
+                                      sppe=2, sppse=4)
+        sc.accel_min_faces = 1
+        sc.prepare_accel()
+        integ = DirectIntegrator(1, 1)
+        params = params_from_numpy(sc.params(), cuda)
+        targets = [torch.zeros(32 * 32, 3, device=cuda)] * sc.num_sensors
+        occ = sc.meshes[fr.OCCLUDER]
+        smooth = fr.laplacian_smoother(occ.faces, occ.num_vertices, cuda)
+        opt = adam(1e-2)
+
+        def make():
+            step = fr.make_train_step(sc, fr.make_loss(sc, integ, targets),
+                                      smooth, opt)
+            return step, (params, opt.init(params), key)
+    else:
+        sc = cbox_scene(32, 32, spp=2, occluder_subdiv=3, device=cuda)
+        mesh = (LocalRank if case.endswith("whole") else LocalSplitRank)(
+            None, 0, 1, cuda)
+
+        def make():
+            step, state = make_train_step(
+                DirectIntegrator(1, 1), sc, mesh,
+                np.zeros((32 * 32, 3), np.float32), optimizer=sgd(1.0),
+                with_boundary=False)
+            return step, (params_from_numpy(sc.params(), cuda), state, key)
+    step, args = make()
+    progs = getattr(step, "programs", (step,))
+    step(*args)
+    assert [p.captures for p in progs] == [1] * len(progs)
+    assert sc.maybe_rebuild_accel(threshold=sc.refit_quality() - 0.01)
+    got = step(*args)
+    assert [p.captures for p in progs] == [2] + [1] * (len(progs) - 1)
+    _close_trees(got, make()[0](*args))
+
+
+def test_capture_survives_programs_freed_by_the_collector(cuda):
+    """Programs caught in reference cycles (as an integrator and its
+    program cache are) are freed by Python's cyclic collector; a capture
+    that allocates enough to trigger a collection still succeeds (the
+    collector runs before a capture, not during it: a graph freed while a
+    stream captures invalidates the capture)."""
+    from psdr_tpu_torch.program import Program
+    x = torch.ones(8, device=cuda)
+    for _ in range(4):
+        holder = {}
+        holder["p"] = Program(lambda v: v * 2.0 + len(holder), "cyclic")
+        holder["p"](x)
+        assert holder["p"].captured
+        del holder
+
+    def body(v):
+        junk = [[i] for i in range(20000)]     # past gc's thresholds
+        return v * 3.0 + len(junk) * 0.0
+
+    prog = Program(body, "allocates")
+    assert torch.equal(prog(x), x * 3.0) and prog.captured
+
+
+def test_grad_capture_of_a_host_read_in_backward_fails_loudly(cuda):
+    """A gradient body whose custom Function reads the host in its
+    backward cannot be captured: the call raises, later calls raise
+    without running it, and the card stays usable."""
+    from psdr_tpu_torch.program import Program, value_and_grad
+
+    class Reads(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2.0
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * (2.0 if g.sum().item() != 0.0 else 0.0)
+
+    prog = Program(value_and_grad(lambda x: Reads.apply(x).sum()),
+                   "reads in backward", grad=True)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match="capture"):
+        prog(x)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        prog(x)
+    assert not prog.captured and float((x * 2).sum()) == 8.0

@@ -98,38 +98,47 @@ def _assert_state_matches(opt, jopt, rtol=1e-6):
 
 
 def test_adam_updates_match_optax():
-    """Three Adam updates of two selected leaves from identical gradients:
-    params and moments equal optax's to 1e-6 relative; frozen leaves stay
-    bit for bit."""
+    """Ten Adam updates of two selected leaves from identical gradients,
+    through ``Optimizer._jit_update`` with the step count a 0-dim int32
+    tensor: params and moments equal optax's to 1e-6 relative; frozen
+    leaves stay bit for bit."""
     js, ts = j_sphere(), t_scenes.sphere_light_scene(**CPU)
     jopt = JOptimizer(js, PATHS, lr=0.05)
     opt = Optimizer(ts, PATHS, lr=0.05)
     before = {p: v.clone() for p, v in leaf_items(opt.params)}
     rng = np.random.default_rng(0)
-    for _ in range(3):
+    for _ in range(10):
         grads = _random_grads(opt, rng)
         jopt.params, jopt.state = jopt._jit_update(
             jopt.params, _full_grads(js.params(), grads), jopt.state)
         opt.update({p: torch.as_tensor(g) for p, g in grads.items()})
         _assert_state_matches(opt, jopt)
+    count = opt.state["count"]
+    assert count.dtype == torch.int32 and count.shape == () and count == 10
     selected = {p for p, _ in opt.trainable()}
     for path, was in before.items():
         now = opt.params[path[0]][path[1]][path[2]]
         assert torch.equal(now, was) != (path in selected), path
 
 
-@pytest.mark.parametrize("which", ["adam", "adam-decay", "sgd", "masked"])
+@pytest.mark.parametrize("which", ["adam", "adam-decay", "sgd", "masked",
+                                   "masked-decay"])
 def test_functional_transforms_match_optax(which):
     """The transforms the sharded steps and the examples take from optax
     (``opt.adam`` with a rate or ``exponential_decay``, ``sgd``, ``masked``
-    after Adam): three updates of a params tree from identical gradients,
-    updates and moments equal optax's to 1e-6 relative; the schedule's
-    rates to 1e-6 at counts 0 to 20."""
+    after Adam, and after Adam on the schedule as the flagship chains
+    them): twelve updates of a params tree from identical gradients, the
+    count a 0-dim int32 tensor, updates and moments equal optax's to 1e-6
+    relative; the schedule's rates to 1e-6 at counts 0 to 20, as ints and
+    as the state's tensor count."""
     from psdr_tpu_torch import opt as t_opt
     sched, j_sched = (t_opt.exponential_decay(1e-2, 10, 0.05),
                       optax.exponential_decay(1e-2, 10, 0.05))
     for c in range(21):
         np.testing.assert_allclose(sched(c), float(j_sched(c)), rtol=1e-6)
+        np.testing.assert_allclose(
+            sched(torch.tensor(c, dtype=torch.int32)), float(j_sched(c)),
+            rtol=1e-6)
     rng = np.random.default_rng(1)
     tree = {"meshes": [{"to_world": rng.normal(size=(4, 4)),
                         "vertex_positions": rng.normal(size=(12, 3))}],
@@ -137,19 +146,25 @@ def test_functional_transforms_match_optax(which):
     tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
     mask = jax.tree.map(lambda x: np.zeros_like(x), tree)
     mask["meshes"][0]["vertex_positions"][:] = 1.0
+    def j_masked(inner):
+        return optax.chain(inner, optax.GradientTransformation(
+            lambda p: optax.EmptyState(),
+            lambda u, s, p=None: (jax.tree.map(lambda a, m: a * m, u, mask),
+                                  s)))
+
     t_tx, j_tx = {
         "adam": (t_opt.adam(5e-2), optax.adam(5e-2)),
         "adam-decay": (t_opt.adam(sched), optax.adam(j_sched)),
         "sgd": (t_opt.sgd(0.5), optax.sgd(0.5)),
         "masked": (t_opt.masked(t_opt.adam(5e-2),
                                 params_from_numpy(mask, **CPU)),
-                   optax.chain(optax.adam(5e-2), optax.GradientTransformation(
-                       lambda p: optax.EmptyState(),
-                       lambda u, s, p=None: (jax.tree.map(
-                           lambda a, m: a * m, u, mask), s))))}[which]
+                   j_masked(optax.adam(5e-2))),
+        "masked-decay": (t_opt.masked(t_opt.adam(sched),
+                                      params_from_numpy(mask, **CPU)),
+                         j_masked(optax.adam(j_sched)))}[which]
     tp, jp = params_from_numpy(tree, **CPU), jax.tree.map(jnp.asarray, tree)
     ts, jst = t_tx.init(tp), j_tx.init(jp)
-    for _ in range(3):
+    for _ in range(12):
         g = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(
             np.float32), tree)
         tu, ts = t_tx.update(params_from_numpy(g, **CPU), ts, tp)
@@ -159,7 +174,8 @@ def test_functional_transforms_match_optax(which):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                        atol=1e-9)
     if which != "sgd":
-        j_adam = jst[0] if which == "masked" else jst
+        assert ts["count"].dtype == torch.int32 and ts["count"] == 12
+        j_adam = jst[0] if which.startswith("masked") else jst
         mu = [x for _, x in leaf_items(ts["mu"])]
         for a, b in zip(mu, jax.tree.leaves(j_adam[0].mu)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)

@@ -188,8 +188,15 @@ def test_sharded_render_and_gradient_match_serial_emulation(sharded):
 def test_one_rank_group_equals_the_plain_render():
     """A one-rank gloo group: ``shard_render_fn`` with the boundary terms is
     the plain ``render_fn`` under ``fold_in(key, 0)``, image and gradient
-    bit for bit, with the same K1 and K2 launch counts."""
-    out = run_ranks(ranks.one_rank_render, 1, args=("cpu",),
+    bit for bit, with the same K1 and K2 launch counts; its train step (in
+    gloo's form, programs around the collectives) applies the plain
+    gradient: the loss to 1e-6, each leaf's applied gradient within 1e-4
+    relative L2 (the step's SGD rate of 1e3 carries the gradient's digits;
+    the two backwards round the L2's derivative apart). ``step_forms``
+    runs the whole and the split form of that step: on CPU tensors both
+    run eagerly and give the same loss bit for bit."""
+    small = dict(width=8, height=8, spp=1)
+    out = run_ranks(ranks.one_rank_render, 1, args=("cpu", (small,), 1),
                     timeout=600)[0]
     (img, grads, launches), (p_img, p_grads, p_launches) = (
         out["sharded"], out["plain"])
@@ -197,6 +204,14 @@ def test_one_rank_group_equals_the_plain_render():
     for a, b in zip(grads, p_grads):
         np.testing.assert_array_equal(a, b)
     assert launches == p_launches    # 0 here: the CPU runs no kernel
+    (loss, grads, _), (p_loss, p_grads, _) = out["step"], out["step_plain"]
+    assert abs(loss - p_loss) <= 1e-6 * p_loss
+    for a, b in zip(grads, p_grads):
+        assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
+    assert [c for c, _, _ in out["step_programs"]] == [False, False]
+    ((kw, whole, split, (l_whole, l_split)),) = out["forms"]
+    assert kw == small and len(whole) == len(split) == 1
+    assert l_whole == l_split
 
 
 def test_overlapped_reduction_equals_one_bucket(sharded):
@@ -220,6 +235,26 @@ def test_overlapped_reduction_equals_one_bucket(sharded):
     for a, (_, x) in zip(pa, leaf_items(p)):
         g = 0.0 if x.grad is None else x.grad
         _close(a, (x - g).detach().numpy())
+
+
+def test_split_steps_equal_whole_steps(sharded):
+    """Over gloo a train step runs as programs around its collectives
+    (``make_train_step``: a ``VJPProgram``'s forward and backward, then
+    the update program; ``make_multiview_train_step``: the local loss and
+    gradients, then the update); over NCCL as one program. On CPU tensors
+    both forms run eagerly: the split steps' loss and updated params equal
+    the one-body steps' bit for bit, on every rank, both overlap flags and
+    the multi-view step."""
+    world, out = sharded
+    for r in range(world):
+        for split, whole in ((out[r]["steps"], out[r]["steps_whole"]),
+                             out[r]["multiview"]):
+            pairs = (zip(split, whole) if isinstance(split, list)
+                     else [(split, whole)])
+            for (la, pa), (lb, pb) in pairs:
+                assert la == lb
+                for a, b in zip(pa, pb):
+                    np.testing.assert_array_equal(a, b)
 
 
 class _OneRank(ranks.LocalRank):
