@@ -167,7 +167,7 @@ Every phase passes or the script exits nonzero:
     under grad at phase 12's config, every boundary estimator's forward
     and the compacted sweeps in it. For each: capture seconds, graph nodes
     and pool bytes; one replay's launch counts equal to the eager frame's
-    (8 / 24 / 8 for a, 24 / 40 / 8 for b); replays at seeds 0, 1, 0 against
+    (8 / 48 / 8 for a, 24 / 64 / 8 for b); replays at seeds 0, 1, 0 against
     the eager image of each seed (bit for bit where the eager render
     repeats itself bit for bit, else within REPLAY_SPREAD_X times its
     run-to-run spread and phase 4's gates) and seed 1 against seed 0,
@@ -192,15 +192,38 @@ Every phase passes or the script exits nonzero:
     (i) phase 22's trainer as its value-and-gradient program and
     ``Optimizer._jit_update``, (j) phase 11's guiding build. For each:
     capture seconds, graph nodes and pool bytes; a replay's launch counts
-    equal to the eager step's (2 / 6 / 2 for e, 6 / 10 / 2 for f, 4 / 10
-    / 4 for g, 3 / 8 / 3 for i); replays at seeds 0, 1, 0 against the
+    equal to the eager step's (2 / 12 / 2 for e, 6 / 16 / 2 for f, 4 / 20
+    / 4 for g, 3 / 16 / 3 for i); replays at seeds 0, 1, 0 against the
     eager step of each seed, the loss and every gradient leaf within
     REPLAY_SPREAD_X times the eager step's run-to-run spread and the
     card-vs-CPU bounds, seeds 0 and 1 as far apart as eager; the output
     buffers at fixed addresses; eager steps and replays timed (median of
     3), one of each profiled (device busy, idle share, host launch calls:
     one a program), no ``indexing_backward`` kernel in a replay's top
-    ten. The kernels line's ``launches`` are these replays'.
+    ten. The kernels line's ``launches`` are these replays';
+30. the scene-query layer: K1 through the direction sort
+    (``_closest_hit(sort_rays=True)``) against K1 on the same rays
+    unsorted, bit for bit, on the PathTracer's depth-2 and depth-3 bounce
+    and shadow sweeps (phase 14's chunk) and ``env_bench_scene``'s sky
+    shadow sweep (phase 20's); the compacted occlusion sweep
+    (``_ray_test_sparse``) against the dense one, lane for lane, on the
+    three compacted sweeps of a phase-5 frame (the emitter-first sweep,
+    visibility reuse's probes and its quarter-cap second sweep) and on
+    the depth-2 shadow sweep, which overflows the cap; each timed both
+    ways behind the spin kernel, with the sort, the gathers, the kernel
+    launches and the scatters apart. Then ``renderC`` at phase 4's size
+    under each ``Scene.accel_mode`` on the card against the CPU, with K1
+    launched under "auto", "pallas" and "bvh_walk", K3 under "culled" and
+    "bvh", no tree under "brute"; a tree of 8-triangle leaves
+    (``accel_leaf_size``), K1 and K3 against ``k1_plain``; and
+    ``render_program`` replayed after SNAPSHOTS radiance snapshots evicted
+    its envmap table from the host cache and the freed memory was
+    refilled with NaN, against the eager render (ROADMAP item 25).
+
+With "auto" on the card every scene query of phases 5-29 runs on K1
+through the sort and the compaction where the JAX package's call site
+asks for them: a compacted sweep is two K1 any-hit launches (the capped
+head, then the residue past the cap).
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
@@ -315,6 +338,9 @@ ONE_RANK_SCENE = dict(width=32, height=32, spp=4, sppe=2, sppse=16,
                       occluder_subdiv=3)
 FORM_REPS = 7
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
+QUERY_REPS = 20         # launches per timed piece of a sort or a compaction
+SNAPSHOTS = 9           # radiance snapshots that evict a frozen envmap table
+NAN_STREAMS = 64        # streams that refill the freed memory (2 x the pool)
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
 GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
 N_ICO = 1 << 20         # tiled pinhole rays per icosphere (K3's entry point)
@@ -667,7 +693,7 @@ def icosphere_case(bvh_mod, dev, subdiv):
     m = primitives.make_icosphere(subdiv=subdiv, radius=1.0)
     info, _ = compute_triangle_info(torch.as_tensor(m.vertices, device=dev),
                                     torch.as_tensor(m.faces, device=dev),
-                                    m.num_vertices)
+                                    m.num_vertices, m.corner_table(dev))
     tris = (info.p0, info.e1, info.e2)
     topo = bvh_mod.build_bvh_topology(*(x.cpu().numpy() for x in tris),
                                       leaf_size=BVH_LEAF_SIZE)
@@ -2515,18 +2541,18 @@ def program_configs(dev):
 
     yield forward(DirectIntegrator(1, 1), "a: DirectIntegrator(1, 1) "
                   "render_program, cbox 512x512 spp 64",
-                  {"closest": 8, "any": 24, "k2": 8, "k3": 0})
+                  {"closest": 8, "any": 48, "k2": 8, "k3": 0})
     yield forward(PathTracer(3), "b: PathTracer(3) render_program, cbox "
-                  "512x512 spp 64", {"closest": 24, "any": 40, "k2": 8,
+                  "512x512 spp 64", {"closest": 24, "any": 64, "k2": 8,
                                      "k3": 0})
     yield cached(DirectIntegrator(1, 1), env_bench_scene(**ENV_BENCH,
                                                          device=dev),
                  "c: DirectIntegrator(1, 1) renderC, env_bench_scene 512x512 "
-                 "spp 64", False, {"closest": 8, "any": 24, "k2": 8, "k3": 0})
+                 "spp 64", False, {"closest": 8, "any": 48, "k2": 8, "k3": 0})
     yield cached(DirectIntegrator(1, 1), cbox_scene(**RENDERD, device=dev),
                  "d: DirectIntegrator(1, 1) renderD, cbox 256x256 spp 16 "
                  "sppe 8 sppse 64", True,
-                 {"closest": 4, "any": 10, "k2": 4, "k3": 0})
+                 {"closest": 4, "any": 20, "k2": 4, "k3": 0})
 
 
 def program_phase(intersect, dev):
@@ -2870,18 +2896,18 @@ def gradient_configs(dev):
 
     yield ("e: DirectIntegrator(1, 1) grad_program, cbox 512x512 spp 16",
            bench(DirectIntegrator(1, 1), BWD, False),
-           {"closest": 2, "any": 6, "k2": 2, "k3": 0})
+           {"closest": 2, "any": 12, "k2": 2, "k3": 0})
     yield ("f: PathTracer(3) grad_program, cbox 512x512 spp 16",
            bench(PathTracer(3), BWD, False),
-           {"closest": 6, "any": 10, "k2": 2, "k3": 0})
+           {"closest": 6, "any": 16, "k2": 2, "k3": 0})
     yield ("g: DirectIntegrator(1, 1) boundary step, cbox 256x256 spp 16 "
            "sppe 8 sppse 64", bench(DirectIntegrator(1, 1), RENDERD, True),
-           {"closest": 4, "any": 10, "k2": 4, "k3": 0})
+           {"closest": 4, "any": 20, "k2": 4, "k3": 0})
     yield ("h: flagship iteration, 3 views 256x256 spp 16 sppe 4 sppse 32",
            lambda: _flagship_steps(dev), None)
     yield ("i: trainer value_and_grad and Optimizer._jit_update, 256x256 "
            "spp 16 sppe 4 sppse 32", lambda: _trainer_steps(dev),
-           {"closest": 3, "any": 8, "k2": 3, "k3": 0})
+           {"closest": 3, "any": 16, "k2": 3, "k3": 0})
     yield ("j: guiding build, 24x3x3 cells x 4 samples x 8 rounds",
            lambda: _guiding_steps(dev), None)
 
@@ -3055,6 +3081,330 @@ def gradient_phase(intersect, dev):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return out, total, flag
+
+
+
+# -- phase 30: the scene-query layer ------------------------------------------
+
+def median_ms(fn) -> float:
+    """Median device ms of ``fn`` over QUERY_REPS launches queued behind
+    the spin kernel (``launch_times_ms``)."""
+    return float(np.median(launch_times_ms(fn, QUERY_REPS)))
+
+
+def sorted_case(intersect, label, flat, ray, act, tmax, any_hit):
+    """A sweep through ``_closest_hit(sort_rays=True)`` against K1 on the
+    same rays unsorted: the record equal bit for bit (a thread's walk
+    depends on its ray alone, in any-hit mode too), then each timed: K1
+    unsorted; the sort, the gathers in, K1 on the sorted batch and the
+    scatters back (and, for any hits, the booleans' alone) apart; the
+    whole sorted query. Returns the dict of times."""
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.scene import scene as q
+    args = k1_args(flat, ray, act, tmax)
+    exact(f"{label}: sorted against unsorted",
+          q._closest_hit(flat, ray, act, tmax=tmax, sort_rays=True,
+                         any_hit=any_hit),
+          intersect.k1_cuda(*args, any_hit=any_hit))
+    perm, _ = q._octant_sort(ray, act, want_inv=False)
+    qo, qd, qa, qt = q._permuted(perm, ray, act, tmax)
+    qargs = k1_args(flat, Ray(qo, qd), qa, qt)
+    hq = intersect.k1_cuda(*qargs, any_hit=any_hit)
+    t = {"unsorted_ms": median_ms(
+            lambda: intersect.k1_cuda(*args, any_hit=any_hit)),
+         "sort_ms": median_ms(lambda: q._octant_sort(ray, act,
+                                                     want_inv=False)),
+         "permute_in_ms": median_ms(lambda: q._permuted(perm, ray, act,
+                                                        tmax)),
+         "sorted_kernel_ms": median_ms(
+            lambda: intersect.k1_cuda(*qargs, any_hit=any_hit)),
+         "permute_out_ms": median_ms(lambda: q._unpermuted(hq, perm)),
+         "sorted_ms": median_ms(lambda: q._closest_hit(
+             flat, ray, act, tmax=tmax, sort_rays=True, any_hit=any_hit))}
+    if any_hit:
+        t["scatter_back_ms"] = median_ms(
+            lambda: torch.zeros_like(hq.valid).scatter_(0, perm, hq.valid))
+        t["sorted_test_ms"] = median_ms(lambda: q._closest_hit(
+            flat, ray, act, tmax=tmax, sort_rays=True, any_hit=True,
+            test_only=True))
+    n = ray.o.shape[0]
+    log(f"  {label} ({'any' if any_hit else 'closest'}, {int(act.sum())} "
+        f"of {n} active): K1 unsorted {t['unsorted_ms']:.4f} ms, sorted "
+        f"{t['sorted_kernel_ms']:.4f} ms; sort {t['sort_ms']:.4f}, permute "
+        f"in {t['permute_in_ms']:.4f}, out {t['permute_out_ms']:.4f} ms; "
+        f"the sorted query {t['sorted_ms']:.4f} ms")
+    return dict(rays=n, active=int(act.sum()), any_hit=any_hit, **t)
+
+
+def compacted_case(intersect, label, flat, ray, tmax, act, frac_shift):
+    """``_ray_test_sparse`` (the compacted sweep and its residue) against
+    the dense sweep on the same rays, lane for lane, then each timed: K1
+    dense and unsorted; the sorted dense query (the JAX package's
+    fallback); the sort, the gather of the two batches, K1 on the
+    compacted head, K1 on the residue, the scatter back apart; the whole
+    compacted query. Returns the dict of times and lane counts."""
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.scene import scene as q
+    n = ray.o.shape[0]
+    s = min(1 << 15 if n % (1 << 15) == 0 else 4096, n)
+    ks = s >> frac_shift
+    dense = q._closest_hit(flat, ray, act, tmax=tmax, any_hit=True,
+                           test_only=True) & act
+    got = q._ray_test_sparse(flat, ray, tmax, act, frac_shift=frac_shift)
+    if got is None or not torch.equal(got & act, dense) or not dense.any():
+        raise AssertionError(f"phase 30: {label}: the compacted sweep "
+                             "differs from the dense one, or nothing is "
+                             "occluded")
+    counts = act.reshape(n // s, s).sum(dim=1)
+    residue = int(torch.clamp(counts - ks, min=0).sum())
+    perm, _ = q._octant_sort(ray, act, want_inv=False)
+    head, rest = q._compacted(perm, ray, tmax, act, s, ks)
+    hargs = k1_args(flat, Ray(*head[:2]), *head[2:])
+    rargs = k1_args(flat, Ray(*rest[:2]), *rest[2:])
+    hk = intersect.k1_cuda(*hargs, any_hit=True)
+    hr = intersect.k1_cuda(*rargs, any_hit=True)
+    args = k1_args(flat, ray, act, tmax)
+    t = {"dense_ms": median_ms(
+            lambda: intersect.k1_cuda(*args, any_hit=True)),
+         "sorted_dense_ms": median_ms(lambda: q._closest_hit(
+             flat, ray, act, tmax=tmax, any_hit=True, sort_rays=True,
+             test_only=True)),
+         "sort_ms": median_ms(lambda: q._octant_sort(ray, act,
+                                                     want_inv=False)),
+         "gather_ms": median_ms(lambda: q._compacted(perm, ray, tmax, act,
+                                                     s, ks)),
+         "head_kernel_ms": median_ms(
+            lambda: intersect.k1_cuda(*hargs, any_hit=True)),
+         "residue_kernel_ms": median_ms(
+            lambda: intersect.k1_cuda(*rargs, any_hit=True)),
+         "scatter_ms": median_ms(lambda: q._scattered(
+             perm, hk.valid & head[2], hr.valid, s, ks)),
+         "compacted_ms": median_ms(lambda: q._ray_test_sparse(
+             flat, ray, tmax, act, frac_shift=frac_shift))}
+    log(f"  {label} (1/{1 << frac_shift} cap: {ks} of {s} lanes a segment;"
+        f" {int(act.sum())} of {n} active, {residue} past the cap, "
+        f"{int(dense.sum())} occluded): K1 dense {t['dense_ms']:.4f} ms; "
+        f"compacted {t['compacted_ms']:.4f} ms = sort {t['sort_ms']:.4f} + "
+        f"gather {t['gather_ms']:.4f} + head {t['head_kernel_ms']:.4f} + "
+        f"residue {t['residue_kernel_ms']:.4f} + scatter "
+        f"{t['scatter_ms']:.4f}; sorted dense {t['sorted_dense_ms']:.4f} ms")
+    return dict(rays=n, active=int(act.sum()), past_cap=residue,
+                frac_shift=frac_shift, **t)
+
+
+def record_sparse_sweeps(fn):
+    """(``fn()``, {caller: [(ray, tmax, active, frac_shift), ...]}): the
+    inputs of every compacted sweep of each integrator function during
+    ``fn``, copied."""
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.integrator import direct as direct_mod
+    from psdr_tpu_torch.scene import scene as q
+    seen, inner = {}, q._ray_test_sparse
+
+    def record(flat, ray, tmax, active, frac_shift=3, seg=1 << 15):
+        f = sys._getframe(1)
+        while f is not None and not f.f_globals.get(
+                "__name__", "").startswith("psdr_tpu_torch.integrator"):
+            f = f.f_back
+        seen.setdefault(f"{f.f_code.co_name} 1/{1 << frac_shift}", []).append(
+            (Ray(ray.o.detach().clone(), ray.d.detach().clone()),
+             tmax.detach().clone(), active.clone(), frac_shift))
+        return inner(flat, ray, tmax, active, frac_shift=frac_shift, seg=seg)
+    q._ray_test_sparse = direct_mod._ray_test_sparse = record
+    try:
+        out = fn()
+    finally:
+        q._ray_test_sparse = direct_mod._ray_test_sparse = inner
+    return out, seen
+
+
+def ordering_shapes(intersect, dev, env_sc):
+    """Phase 30, first part: the direction sort and the compacted sweeps
+    at the paths' own shapes (``sorted_case``, ``compacted_case``): the
+    PathTracer's depth-2 and depth-3 bounce (closest) and shadow (any)
+    sweeps of phase 14's first chunk; the sky shadow sweep of
+    ``env_bench_scene`` (phase 20's chunk), which NEE sorts under an
+    envmap; the compacted sweeps of one eager ``DirectIntegrator(1, 1)``
+    frame at phase 5's config (the emitter-first occlusion sweep,
+    visibility reuse's probes and its quarter-cap second sweep, each in
+    the chunk where it finds the most occluded lanes); and a dense sweep
+    that overflows the cap
+    (the depth-2 shadow sweep compacted). Returns {shape: dict}."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.scene import scene as scene_mod
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import (tiled_material_rays,
+                                               tiled_path_rays)
+    out = {}
+    sc, flat = bench_scene(dev)
+    if flat.accel_kind != "pallas":
+        raise AssertionError(f"phase 30: accel_mode 'auto' gives "
+                             f"{flat.accel_kind!r} on the card, not K1's")
+    with torch.no_grad():
+        sweeps = tiled_path_rays(sc, flat, N_TIME, BENCH["spp"], 2, depth=3)
+        for name, any_hit in (("depth 2 bounce", False),
+                              ("depth 3 bounce", False),
+                              ("depth 2 shadow", True),
+                              ("depth 3 shadow", True)):
+            out[f"path {name}"] = sorted_case(intersect, f"path {name}",
+                                              flat, *sweeps[name], any_hit)
+        env_flat = detach_flat(env_sc.flat)
+        chunk = max(0, env_sc.opts.num_pixels * env_sc.opts.spp
+                    // N_TIME // 2 - 1)
+        ray, act, tmax = tiled_material_rays(
+            env_sc, env_flat, N_TIME, env_sc.opts.spp, 2,
+            chunk=chunk)["sky shadow"]
+        out["env NEE sky shadow"] = sorted_case(
+            intersect, "env NEE sky shadow", env_flat, ray, act, tmax, True)
+        del env_flat
+        render = DirectIntegrator(1, 1).render_fn(sc, with_boundary=False,
+                                                  detached=True)
+        _, seen = record_sparse_sweeps(
+            lambda: render(sc.params(), threefry.PRNGKey(1)))
+        if set(seen) != {"Li 1/8", "_nee_visibility_impl 1/8",
+                         "_sparse_or_plain_test 1/4"}:
+            raise AssertionError(f"phase 30: the forward's compacted sweeps "
+                                 f"are {sorted(seen)}")
+        for name, calls in seen.items():
+            # the chunk with the most occluded lanes
+            ray, tmax, act, shift = max(calls, key=lambda c: int((
+                scene_mod._closest_hit(flat, c[0], c[2], tmax=c[1],
+                                       any_hit=True, test_only=True)
+                & c[2]).sum()))
+            out[f"forward {name}"] = compacted_case(
+                intersect, f"forward {name}", flat, ray, tmax, act, shift)
+        del seen
+        ray, act, tmax = sweeps["depth 2 shadow"]
+        case = compacted_case(intersect, "overflowing: path depth 2 shadow",
+                              flat, ray, tmax, act, 3)
+        if case["past_cap"] == 0:
+            raise AssertionError("phase 30: the overflow case fits its cap")
+        out["overflowing path depth 2 shadow"] = case
+    return out
+
+
+def accel_mode_phase(intersect, bvh_mod, dev):
+    """Phase 30, second part: ``renderC`` of the 64x64 gate scene under
+    each ``Scene.accel_mode`` on the card against the CPU under phase 4's
+    gates, with the kernels each launched on the card (K1 under "auto",
+    "pallas" and "bvh_walk", K3 under "culled" and its alias "bvh", no
+    tree under "brute"; K2 always, for the emitter-first sweep); then a
+    tree of 8-triangle leaves (``accel_leaf_size``) on the bench scene,
+    K1 and K3 against ``k1_plain`` on phase 3's rays. Returns {mode:
+    launches}."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.scene.scene import ACCEL_MODES, detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene, scene_rays
+    kernel = {"auto": "k1", "pallas": "k1", "bvh_walk": "k1", "culled": "k3",
+              "bvh": "k3", "brute": None}
+    out = {}
+    for mode in ACCEL_MODES:
+        def make(**kw):
+            sc = cbox_scene(**kw)
+            sc.accel_mode = mode
+            return sc
+        intersect.reset_launch_counts()
+        render_match(dev, 30, f"accel_mode {mode!r}", make, SMALL,
+                     DirectIntegrator(1, 1), ((IMG_RTOL, IMG_CLOSE_FRAC),))
+        got = dict(intersect.LAUNCHES)
+        k1 = got["closest"] + got["any"]
+        want = kernel[mode]
+        if (got["k2"] == 0 or (k1 > 0) != (want == "k1")
+                or (got["k3"] > 0) != (want == "k3")
+                or (mode == "bvh_walk" and got["any"])):
+            raise AssertionError(f"phase 30: accel_mode {mode!r} launched "
+                                 f"{got}")
+        log(f"    launches {got}")
+        out[mode] = got
+    sc = cbox_scene(**BENCH, device=dev)
+    sc.accel_leaf_size = 8
+    sc.prepare_accel()
+    flat = detach_flat(sc.build(sc.params()))
+    log(f"  leaf size 8: {flat.accel.num_leaves} leaves of "
+        f"{flat.accel.leaf_size}, {bvh_mod.wide_layout(flat.accel.num_leaves)}")
+    err = {"closest": [], "any": []}
+    compare = comparer(err, (flat.tri.p0, flat.tri.e1, flat.tri.e2))
+    for label, rays in zip(("camera", "bounce", "shadow"),
+                           scene_rays(sc, flat, N_CHECK, 1)):
+        args = k1_args(flat, *rays)
+        hp = intersect.k1_plain(*args)
+        for any_hit in ((False, True) if rays[2] is None else (True,)):
+            compare(f"leaf size 8 {label}", args,
+                    intersect.k1_cuda(*args, any_hit=any_hit), hp, any_hit)
+        exact(f"leaf size 8 {label}: K3 (ray_intersect_culled)",
+              bvh_mod.ray_intersect_culled(*args), hp)
+    return out
+
+
+def envmap_lifetime_phase(dev):
+    """Phase 30, last part (ROADMAP item 25): ``render_program`` captured
+    on a sky above 2^15 cells (ENV_SKY: a 398 x 198 frozen table), then
+    SNAPSHOTS new radiance snapshots pushed through ``set_params`` and
+    built (the host cache evicts the table), the allocator's free memory
+    released and refilled with NaN, in blocks of the table's sizes on
+    NAN_STREAMS streams of the pool and larger ones, and a replay: it
+    must equal
+    the capture-time eager render (bit for bit where eager repeats itself,
+    else within REPLAY_SPREAD_X times its spread and phase 4's gates).
+    Returns the replay's largest difference from eager."""
+    import gc
+    import weakref
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import env_scene
+    sky = np.random.default_rng(4).uniform(0.1, 1.0, (*ENV_SKY, 3)).astype(
+        np.float32)
+    sc = env_scene(None, **ENV_SMALL, sky=sky, device=dev)
+    integ = DirectIntegrator(1, 1)
+    params = params_from_numpy(sc.params(), device=dev)
+    render = integ.render_fn(sc, with_boundary=False, detached=True)
+    with torch.no_grad():
+        e0, e0b = (render(params, threefry.PRNGKey(5)) for _ in range(2))
+    spread = float((e0 - e0b).abs().max())
+    prog = integ.render_program(sc, with_boundary=False, detached=True)
+    key = threefry.PRNGKey(5, device=dev)
+    first = prog(params, key)
+    cmf = sc.flat.envmap.cell_distrb.distrb.cmf
+    table, sizes = weakref.ref(cmf), {cmf.numel()}
+    sc._flat_cache = None
+    del cmf
+    rad = sc.emitters[0].radiance.data
+    for k in range(SNAPSHOTS):
+        p = sc.params()
+        p["emitters"][0] = dict(p["emitters"][0],
+                                radiance=rad * np.float32(1 + (k + 1) / 64))
+        sc.set_params(p)
+        sc.configure()
+    sc._flat_cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # freed blocks stay with the stream that allocated them: the table was
+    # made in a warm-up on a pooled side stream, so refill on every one
+    junk = []
+    for _ in range(NAN_STREAMS):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            junk += [torch.full((m,), float("nan"), device=dev)
+                     for m in sorted(sizes) for _ in range(8)]
+    junk += [torch.full((1 << 24,), float("nan"), device=dev)
+             for _ in range(16)]
+    torch.cuda.synchronize()
+    replay = prog(params, key)
+    torch.cuda.synchronize()
+    del junk
+    d = float((replay - e0).abs().max())
+    share, mean_rel = image_gates(replay.reshape(-1, 3), e0.reshape(-1, 3))
+    log(f"  envmap table after {SNAPSHOTS} snapshots: held by the program "
+        f"{table() is not None}; replay against the eager render {d:.3g} "
+        f"(eager spread {spread:.3g}; first replay {float((first - e0).abs().max()):.3g})")
+    ok = (torch.equal(replay, e0) if spread == 0.0
+          else (d <= REPLAY_SPREAD_X * spread and share >= IMG_CLOSE_FRAC
+                and mean_rel < IMG_MEAN_REL))
+    if table() is None or not ok or not torch.isfinite(replay).all():
+        raise AssertionError("phase 30: the replay after the envmap table's "
+                             f"eviction differs from eager by {d}")
+    return d
 
 
 def main() -> int:
@@ -3273,6 +3623,16 @@ def main() -> int:
         err[mode] += flag_err[mode]
     k2_err = k2_err + flag_err["k2"]
     log(f"  lanes on which K1 and k1_plain differ: {flag_tally}")
+    # -- 30. the scene-query layer -------------------------------------------
+    log("phase 30: the direction sort and the compacted sweeps at the paths' "
+        "shapes, against the unsorted and dense sweeps")
+    ordering = ordering_shapes(intersect, dev, env_sc)
+    del env_sc
+    log("  renderC under each accel_mode on the card vs on the CPU (64x64, "
+        "spp 4); a tree of 8-triangle leaves")
+    modes = accel_mode_phase(intersect, bvh_mod, dev)
+    log(f"  render_program replayed after {SNAPSHOTS} envmap snapshots")
+    envmap_lifetime_phase(dev)
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
     # launches: the replays of phase 29 (seeds 0, 1, 0 of each of its six
@@ -3331,6 +3691,10 @@ def main() -> int:
                 k: v for k, v in {**env_tally, **train_tally,
                                   **flag_tally}.items()
                 if shapes[k.split(" ", 1)[1]]["any_hit"] == (mode == "any")},
+            "launches_accel_modes": {m: v[mode] for m, v in modes.items()},
+            # phase 30: sorted against unsorted, compacted against dense
+            "ordering": {k: v for k, v in ordering.items()
+                         if v.get("any_hit", True) == (mode == "any")},
             "ms": mine[main]["ms"],
             "plain_ms": mine[main]["plain_ms"],
             "bound_ms": mine[main]["bound_ms"],
@@ -3360,6 +3724,7 @@ def main() -> int:
         "launches_loaded_forward": loaded_fwd["k2"],
         "launches_env_alias_forward": env_opt["alias"][0]["k2"],
         "launches_env_hier_forward": env_opt["hier"][0]["k2"],
+        "launches_accel_modes": {m: v["k2"] for m, v in modes.items()},
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
         # the main path's emitter-first sweep (phase 6)
@@ -3386,6 +3751,7 @@ def main() -> int:
         "launches_sharded": shard_launches["k3"],
         "launches_multiview": mv_launches["k3"],
         "launches_loaded_forward": loaded_fwd["k3"],
+        "launches_accel_modes": {m: v["k3"] for m, v in modes.items()},
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],

@@ -1,5 +1,7 @@
 """BVH over Morton-sorted triangle chunks: a complete implicit binary tree.
-Counterpart of the topology and refit half of ``psdr_tpu/accel/bvh.py``.
+Counterpart of ``psdr_tpu/accel/bvh.py``: the topology, the refit and the
+two public traversals, ``ray_intersect_culled`` (K3 on the card) and
+``ray_intersect_bvh`` (K1 on the card).
 
 * Static topology, dynamic refit. The tree is complete over ``P``
   (power-of-two) leaves of ``L`` Morton-sorted triangles. The triangle
@@ -187,3 +189,52 @@ def refit_bvh(topo: BVHTopology, p0: torch.Tensor, e1: torch.Tensor,
                tri_valid=valid.reshape(P, L), perm=perm,
                skip=torch.as_tensor(topo.skip, device=dev),
                wide=_wide_nodes(levels_lo, levels_hi, levels_mask))
+
+
+def _k3_blocking(bvh: BVH, ray_block: int, tri_block: int):
+    """K3's (ray_block, tri_block) for the JAX package's. There a ray
+    block is a (R, T) vector tile and a triangle block a (16, T) row in
+    VMEM; in K3 a ray block is one CTA of threads, at most 1024, and a
+    triangle block 10 x T floats staged in shared memory. Each maps to a
+    quarter of the TPU's: the JAX defaults (2048, 512) give K3's own
+    (512, 128). The ray block is a multiple of 32 in [32, 1024]; the
+    triangle block a power-of-two count of leaves, at least one."""
+    rb = min(1024, max(32, (ray_block // 4) // 32 * 32))
+    leaves = max(1, (tri_block // 4) // bvh.leaf_size)
+    leaves = min(1 << (leaves.bit_length() - 1), bvh.num_leaves)
+    return rb, leaves * bvh.leaf_size
+
+
+def ray_intersect_culled(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                         active: torch.Tensor | None = None,
+                         tmax: torch.Tensor | None = None,
+                         ray_block: int = 2048,
+                         tri_block: int = 512):
+    """Block-culled closest hit with t in (RayEpsilon, tmax): ray blocks
+    slab-tested against the AABBs of leaf blocks, then a dense sweep of
+    the blocks a ray enters, in ascending order. Returns a ``HitRecord``
+    with global triangle ids; ties go to the lowest padded slot. CUDA rays
+    launch K3 (``accel/intersect.py`` ``ray_intersect_k3``) at the blocking
+    ``_k3_blocking`` maps ``ray_block`` and ``tri_block`` to; CPU rays take
+    its plain version ``k1_plain``, whose result no blocking changes."""
+    from . import intersect
+    rb, tb = _k3_blocking(bvh, ray_block, tri_block)
+    return intersect.ray_intersect_k3(bvh, ray_o, ray_d, active, tmax,
+                                      ray_block=rb, tri_block=tb)
+
+
+def ray_intersect_bvh(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                      active: torch.Tensor | None = None,
+                      tmax: torch.Tensor | None = None,
+                      ray_block: int = 8192):
+    """Closest hit by a walk of the tree, with t in (RayEpsilon, tmax);
+    returns a ``HitRecord`` with global triangle ids. CUDA rays launch K1
+    (``accel/intersect.py`` ``k1_cuda``: a thread a ray, nearest child
+    first); CPU rays take the same walk in lockstep tensor code,
+    ``k1_walk_plain``. ``ray_block``, the TPU's lockstep block, has no
+    counterpart: every ray walks on its own."""
+    from . import intersect
+    args = (bvh, *intersect._rays(ray_o, ray_d, active, tmax))
+    if intersect._device_of(ray_o, "ray_intersect_bvh") == "cuda":
+        return intersect.k1_cuda(*args)
+    return intersect.k1_walk_plain(*args)

@@ -19,7 +19,8 @@ adds N cotangent rows into F table rows. The modes choose how:
 
 Every mode but ``native`` is one ``torch.autograd.Function``; its forward
 mode (``jvp``) gathers the tangent rows, as the gather is linear in the
-table. ``PSDR_TPU_GATHER_VJP`` sets the process default (``native``).
+table. ``PSDR_TPU_GATHER_VJP`` sets the process default (``native``),
+and ``set_gather_vjp_mode`` changes it.
 
 ``select_rows`` is the JAX package's gather into a small table (up to 16
 rows): a chain of selects, whose backward is a sum over the lanes of each
@@ -29,11 +30,26 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 _MODES = ("native", "scatter", "sorted", "cumsum")
-# the process default, read once at import
+# the process default, read at import
 _DEFAULT_MODE = os.environ.get("PSDR_TPU_GATHER_VJP", "native")
+
+
+def set_gather_vjp_mode(mode: str) -> None:
+    """Set the process default backward mode. A call reads the default as
+    it runs, so a captured program keeps the mode it was captured under
+    until it captures again, as a jitted JAX program keeps its trace's."""
+    global _DEFAULT_MODE
+    if mode not in _MODES:
+        raise ValueError(f"gather vjp mode {mode!r} not in {_MODES}")
+    _DEFAULT_MODE = mode
+
+
+def get_gather_vjp_mode() -> str:
+    return _DEFAULT_MODE
 
 
 def _resolve(mode: str | None) -> str:
@@ -113,6 +129,35 @@ def gather_rows_offsets(table: torch.Tensor, idx: torch.Tensor,
     if mode == "native":
         return tuple(_index_select(table, idx + o) for o in offsets)
     return _GatherRows.apply(table, idx, tuple(offsets), mode)
+
+
+def segment_table(index, n: int) -> np.ndarray:
+    """(n, K) int64: for each destination d < n, the positions i with
+    ``index[i] == d`` in ascending order, padded with ``len(index)``; K is
+    the most positions a destination has. Made on the host from a fixed
+    index array (a mesh's faces or edges), for ``segment_sum``."""
+    index = np.asarray(index, np.int64).reshape(-1)
+    order = np.argsort(index, kind="stable")
+    counts = np.bincount(index, minlength=n)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(index.size) - np.repeat(first, counts)
+    table = np.full((n, max(int(counts.max(initial=0)), 1)), index.size,
+                    np.int64)
+    table[index[order], slot] = order
+    return table
+
+
+def segment_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``zeros(n).index_add_(0, index, values)`` for ``table =
+    segment_table(index, n)``, summed one slot at a time in the order of
+    the positions: bit for bit a sequential scatter-add (the CPU's), on the
+    card too, where an atomic scatter-add sums in another order on every
+    run. Differentiable in both modes (row gathers and adds)."""
+    pad = torch.cat([values, torch.zeros_like(values[:1])])
+    out = torch.index_select(pad, 0, table[:, 0])
+    for k in range(1, table.shape[1]):
+        out = out + torch.index_select(pad, 0, table[:, k])
+    return out
 
 
 def select_rows(table: torch.Tensor, idx: torch.Tensor,

@@ -16,13 +16,42 @@ cache after that:
   memoised on ``owner`` under ``key``.
 
 Cached tensors are shared by every caller, who never writes into them.
+
+A graph holds addresses, not tensors, so a cache entry that a program's
+capture read must outlive the program, even where the cache evicts it.
+``holding()`` collects what ``const``, ``upload``, ``memo`` and ``hold``
+hand out while it stands (a ``Program`` holds its capture's collection
+until it drops its graph); a cache outside this module hands its tensors
+out through ``hold``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 _CONSTS: dict = {}
+_HOLDERS: list = []
+
+
+@contextlib.contextmanager
+def holding():
+    """A dict that receives, by identity, everything ``const``,
+    ``upload``, ``memo`` and ``hold`` hand out while the context stands."""
+    held: dict = {}
+    _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDERS.pop()
+
+
+def hold(x):
+    """``x``, kept by every ``holding()`` that stands."""
+    for held in _HOLDERS:
+        held[id(x)] = x
+    return x
 
 
 def _device(device) -> torch.device:
@@ -44,7 +73,7 @@ def const(values, dtype, device) -> torch.Tensor:
     t = _CONSTS.get(key)
     if t is None:
         t = _CONSTS[key] = torch.as_tensor(a, dtype=dtype, device=dev)
-    return t
+    return hold(t)
 
 
 def upload(owner, array, device, dtype=None) -> torch.Tensor:
@@ -60,7 +89,7 @@ def upload(owner, array, device, dtype=None) -> torch.Tensor:
     if hit is None:
         hit = cache[key] = (array, torch.as_tensor(array, dtype=dtype,
                                                    device=dev))
-    return hit[1]
+    return hold(hit[1])
 
 
 def forget(owner, *arrays) -> None:
@@ -77,4 +106,4 @@ def memo(owner, key, make):
     cache = owner.__dict__.setdefault("_memo", {})
     if key not in cache:
         cache[key] = make()
-    return cache[key]
+    return hold(cache[key])

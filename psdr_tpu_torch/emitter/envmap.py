@@ -21,7 +21,7 @@ import torch
 from ..core import transform as xform
 from ..core.bitmap import Bitmap, eval_bitmap, from_array
 from ..core.constants import Epsilon, InvPi, InvTwoPi, Pi, TwoPi
-from ..core.hoist import const
+from ..core.hoist import const, hold
 from ..core.distribution import (Discrete, HyperCube, alias_table_host,
                                  hier2d_host,
                                  hypercube_init, hypercube_pdf,
@@ -124,7 +124,9 @@ def _frozen_tables(host_radiance, gw, gh, gw_f, gh_f, kind: str):
 def _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, kind: str, dev):
     """``_frozen_tables``' table with its arrays on ``dev``, uploaded once a
     table and device: the scene build of a captured program reads it
-    here, filled by the program's warm-up call."""
+    here, filled by the program's warm-up call. The cache may drop the
+    entry (above 8 snapshots) while a program's graph still reads it, so
+    the table goes out through ``hoist.hold``: the program keeps it."""
     entry = _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind)
     dev = torch.device(dev)
     if dev not in entry[2]:
@@ -133,7 +135,7 @@ def _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, kind: str, dev):
                 return tuple(up(v) for v in x)
             return torch.as_tensor(x, device=dev)
         entry[2][dev] = type(entry[0])(*(up(v) for v in entry[0]))
-    return entry[2][dev]
+    return hold(entry[2][dev])
 
 
 def _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind: str):

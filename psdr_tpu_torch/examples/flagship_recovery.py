@@ -40,6 +40,7 @@ from psdr_tpu_torch import DirectIntegrator, PerspectiveCamera
 from psdr_tpu_torch.convert import params_from_numpy
 from psdr_tpu_torch.core import threefry
 from psdr_tpu_torch.core import transform as xf
+from psdr_tpu_torch.core.gather import segment_sum, segment_table
 from psdr_tpu_torch.examples import out_dir, parser
 from psdr_tpu_torch.opt import (adam, apply_updates, exponential_decay,
                                 masked, tree_leaves, tree_map, tree_unflatten)
@@ -78,14 +79,19 @@ def laplacian_smoother(faces: np.ndarray, nv: int, device, rounds: int = 10,
     f = np.asarray(faces, np.int64)
     e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
     e = np.unique(np.sort(e, axis=1), axis=0)
-    src = torch.as_tensor(np.concatenate([e[:, 0], e[:, 1]]), device=device)
-    dst = torch.as_tensor(np.concatenate([e[:, 1], e[:, 0]]), device=device)
-    deg = torch.clamp(torch.zeros(nv, device=device).index_add_(
-        0, dst, torch.ones(dst.shape, device=device)), min=1.0)
+    src_np = np.concatenate([e[:, 0], e[:, 1]])
+    dst_np = np.concatenate([e[:, 1], e[:, 0]])
+    src = torch.as_tensor(src_np, device=device)
+    # the 1-ring sums in one fixed order (segment_sum): an atomic
+    # scatter-add would smooth a gradient differently on every run
+    ring = torch.as_tensor(segment_table(dst_np, nv), device=device)
+    deg = torch.clamp(torch.as_tensor(np.bincount(dst_np, minlength=nv),
+                                      dtype=torch.float32, device=device),
+                      min=1.0)
 
     def smooth(g: torch.Tensor) -> torch.Tensor:
         for _ in range(rounds):
-            nb = torch.zeros_like(g).index_add_(0, dst, g[src]) / deg[:, None]
+            nb = segment_sum(g[src], ring) / deg[:, None]
             g = (1.0 - lam) * g + lam * nb
         return g
     return smooth

@@ -39,7 +39,7 @@ from ..core.records import Ray, detach_tree
 from ..core.sampler import RngStream, ld_2d
 from ..program import Program
 from ..emitter.envmap import envmap_eval_direction
-from ..scene.scene import (FlatScene, Scene, detach_flat,
+from ..scene.scene import (FlatScene, Scene, _ray_test_sparse, detach_flat,
                            emitter_position_pdf, ray_intersect,
                            ray_intersect_emitter_first,
                            ray_intersect_with_prior, ray_test,
@@ -373,7 +373,8 @@ class DirectIntegrator(Integrator):
             if flat.em_tri_idx is not None:
                 its1 = ray_intersect_emitter_first(flat, ray1, active1)
             else:
-                its1 = ray_intersect(flat, ray1, active1, path_space=True)
+                its1 = ray_intersect(flat, ray1, active1, path_space=True,
+                                     sort_rays=True)
             active1 = active1 & its1.valid & its1.is_emitter()
 
             # area-measure conversion with detached G
@@ -452,6 +453,19 @@ class DirectIntegrator(Integrator):
 
         return result
 
+    @staticmethod
+    def _sparse_or_plain_test(flat, p, wo, dist, active, frac_shift: int):
+        """``ray_test`` with the compaction's cap at ``s >> frac_shift``
+        lanes of a segment (``ray_test``'s own is an eighth) under K1,
+        else a plain sweep."""
+        if flat.accel is not None and flat.accel_kind == "pallas":
+            occ = _ray_test_sparse(flat, Ray(p, wo),
+                                   dist.detach() - ShadowEpsilon, active,
+                                   frac_shift=frac_shift)
+            if occ is not None:
+                return occ & active
+        return ray_test(flat, Ray(p, wo), dist, active)
+
     def _nee_visibility(self, flat, rng, p, wo, dist, active1, n):
         return DirectIntegrator._nee_visibility_impl(
             flat, rng, p, wo, dist, active1, n,
@@ -529,7 +543,10 @@ class DirectIntegrator(Integrator):
             (u_pix * k_pen * k_smooth).to(torch.int32), spp)
         B = (s_idx % k_lane) == (r_lane % k_lane)
         trace2 = active1 & ~probe & B
-        occ2 = ray_test(flat, Ray(p, wo), dist, trace2)
+        # penumbra lanes cluster in the same sort segments: a quarter-size
+        # cap, not ray_test's eighth
+        occ2 = DirectIntegrator._sparse_or_plain_test(flat, p, wo, dist,
+                                                      trace2, frac_shift=2)
         V2 = torch.where(trace2, 1.0 - occ2.float(), zero)
         corr = torch.where(B, (V2 - V_ref) * k_lane.float(), zero)
         return torch.where(probe, V0, V_ref + corr)

@@ -273,7 +273,8 @@ class PathTracer(Integrator):
                 # closest hit reduces to emitter hit + occlusion
                 its_b = ray_intersect_emitter_first(flat, ray_b, active_b)
             else:
-                its_b = ray_intersect(flat, ray_b, active_b, path_space=True)
+                its_b = ray_intersect(flat, ray_b, active_b, path_space=True,
+                                      sort_rays=True)
             hit_b = active_b & its_b.valid
 
             wo_b = _mdiv(its_b.p - its.p, its_b.t, hit_b)

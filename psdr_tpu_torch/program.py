@@ -47,6 +47,12 @@ and adds it on every replay.
 ``capture_seconds``, ``nodes`` (the graph's node count) and
 ``pool_bytes`` (the device memory of its private pool) report on the
 capture. Dropping a program frees its graph and its pool.
+
+What a body reads outside its pool must live as long as the graph: a
+program holds every cached tensor that its capture was handed
+(``core/hoist.py`` ``holding``: the film's tables, a topology's uploads,
+the envmap's frozen importance table), until it drops the graph, however
+the caches evict them meanwhile. On the CPU it holds its last call's.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .accel.intersect import LAUNCHES
+from .core.hoist import holding
 
 
 def _signature(leaves, spec, name: str):
@@ -186,6 +193,7 @@ class Program:
         self._inputs = None
         self._outputs = None
         self._launches: dict = {}
+        self._held: dict = {}             # hoist's tensors the graph reads
         self._error: BaseException | None = None
         self.captures = 0
         self.capture_seconds: float | None = None
@@ -231,6 +239,7 @@ class Program:
         if self._graph is not None:
             self._graph.reset()
         self._graph = self._outputs = None
+        self._held = {}
 
     def _load(self, leaves) -> None:
         """Copy the arguments into the static input buffers (made at the
@@ -250,7 +259,10 @@ class Program:
     def _capture_or_fail(self, dev, body, pool=None):
         """``_capture(dev, body, pool)``; a failure raises, for good."""
         try:
-            return _capture(dev, body, pool)
+            with holding() as held:
+                out = _capture(dev, body, pool)
+            self._held.update(held)
+            return out
         except Exception as e:
             self._error = e
             raise RuntimeError(f"the capture of {self.name} failed; it does "
@@ -259,7 +271,7 @@ class Program:
     def __call__(self, *args):
         leaves, spec, dev = self._bind(args)
         if dev.type == "cpu":
-            with _grad_mode(self.grad):
+            with _grad_mode(self.grad), holding() as self._held:
                 return _detached(self.fn(*args))
         self._load(leaves)
         if self._graph is None:
@@ -334,7 +346,8 @@ class VJPProgram(Program):
     def __call__(self, *args):
         leaves, spec, dev = self._bind(args)
         if dev.type == "cpu":
-            self._saved = self._forward(leaves, spec)
+            with holding() as self._held:
+                self._saved = self._forward(leaves, spec)
             return self._saved[0].detach()
         self._load(leaves)
         if self._bwd is None:

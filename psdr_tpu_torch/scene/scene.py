@@ -8,19 +8,29 @@ differentiable hit recompute of ``ray_intersect`` and the edge tables
 (``sec_edge``, each sensor's ``edges``, built when ``sppe`` or ``sppse`` is
 positive), while every hit query stays detached. An environment map adds
 its 12-face bounding mesh (``bsdf_id`` -1) to the face tables, so
-environment hits look like surface hits. ``ray_test`` takes the JAX package's
-``sort_rays``/``sparse`` flags and ignores them: they ordered and compacted
-lanes for the TPU kernel's block cull and change no result.
+environment hits look like surface hits.
+
+The hit queries (``_closest_hit``, ``ray_test``) dispatch on
+``FlatScene.accel_kind``, which ``Scene.accel_mode`` sets: K1 (``pallas``,
+the card's default), K3 (``culled``, the CPU's default, there through
+their plain version), the walk (``bvh_walk``), or brute force (K2) below
+``accel_min_faces``. ``sort_rays`` orders a batch by direction before the
+kernel (``_octant_sort``) and ``sparse`` compacts an occlusion sweep to a
+fraction of its lanes (``_ray_test_sparse``), as the JAX package does;
+neither changes a result, since each ray's answer does not depend on the
+rays beside it.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..accel.bruteforce import HitRecord
-from ..accel.bvh import BVH, BVHTopology, build_bvh_topology, refit_bvh
+from ..accel.bvh import (BVH, BVHTopology, build_bvh_topology,
+                         ray_intersect_bvh, ray_intersect_culled, refit_bvh)
 from ..accel.intersect import ray_intersect_brute, ray_intersect_k1
 from ..bsdf import check_kinds
 from ..core.constants import EdgeEpsilon, Epsilon, ShadowEpsilon
@@ -43,9 +53,10 @@ from ..sensor.perspective import (PerspectiveCamera, PrimaryEdgeInfo,
                                   finalize_primary_edges)
 from ..shape.mesh import (Mesh, SecondaryEdgeInfo, TriangleInfo, _host,
                           compute_sec_edge_info, compute_triangle_info,
-                          sample_position)
+                          sample_position, vertex_corner_table)
 
-BVH_LEAF_SIZE = 4   # triangles per BVH leaf
+BVH_LEAF_SIZE = 4   # triangles per BVH leaf, ``Scene.accel_leaf_size``'s default
+ACCEL_MODES = ("auto", "brute", "bvh", "bvh_walk", "culled", "pallas")
 
 # the environment map's bounding mesh: 12 faces over the 8 corners of the
 # (enlarged) scene box, corner i taking upper[j] where bit j of i is set
@@ -53,6 +64,7 @@ _BOUND_FACES = [
     [0, 1, 3], [0, 3, 2], [1, 5, 7], [1, 7, 3], [2, 3, 7], [2, 7, 6],
     [0, 5, 1], [0, 4, 5], [0, 2, 6], [0, 6, 4], [4, 7, 5], [4, 6, 7],
 ]
+_BOUND_CORNERS = vertex_corner_table(np.asarray(_BOUND_FACES), 8)
 
 
 class FlatScene(NamedTuple):
@@ -78,6 +90,9 @@ class FlatScene(NamedTuple):
     lower: torch.Tensor            # (3,) scene AABB
     upper: torch.Tensor
     accel: Optional[BVH] = None    # refit BVH; None -> brute force
+    # the query over ``accel``: "pallas" (K1), "culled" (K3), "bvh_walk"
+    # (the walk; K1 on the card)
+    accel_kind: str = "culled"
     # (F, 32) per-face row table, one row gather per hit. Columns: p0 e1 e2
     # n0 n1 n2 fn | area | uv0 uv1 uv2 | fmask | mesh_id bsdf_id emitter_id
     # (ids as exact f32)
@@ -110,7 +125,13 @@ class Scene:
         self._opts = RenderOptions()
         self.param_map: dict = {}
         self._flat_cache = None
-        # the BVH and K1 from accel_min_faces faces up, brute force below
+        # the hit query: "auto" (K1, "pallas", on a CUDA scene, K3's
+        # "culled" on a CPU scene, as JAX's auto picks its Pallas kernel on
+        # a TPU and its block cull elsewhere), "brute", "culled" ("bvh" is
+        # its alias), "pallas" or "bvh_walk"; under "auto" the BVH from
+        # accel_min_faces faces up, brute force below
+        self.accel_mode = "auto"
+        self.accel_leaf_size = BVH_LEAF_SIZE
         self.accel_min_faces = 512
         self._bvh_topo: BVHTopology | None = None
         # counts the topology's rebuilds: a captured program whose body
@@ -123,6 +144,9 @@ class Scene:
         self.envmap_distrb = None
 
     def to(self, device) -> "Scene":
+        """The scene on ``device``, in place; ``accel_mode`` and
+        ``accel_leaf_size`` stay, and "auto" resolves anew at the next
+        build."""
         self.device = torch.device(device)
         self._flat_cache = None
         return self
@@ -202,8 +226,29 @@ class Scene:
                 o.set_params(op)
         self._flat_cache = None
 
+    @property
+    def accel_mode(self) -> str:
+        return self._accel_mode
+
+    @accel_mode.setter
+    def accel_mode(self, value: str) -> None:
+        if value not in ACCEL_MODES:
+            raise ValueError(f"accel_mode {value!r} not in {ACCEL_MODES}")
+        self._accel_mode = value
+        self._flat_cache = None
+
     def _use_bvh(self) -> bool:
-        return sum(m.num_faces for m in self.meshes) >= self.accel_min_faces
+        return (self.accel_mode in ("bvh", "bvh_walk", "culled", "pallas")
+                or (self.accel_mode == "auto"
+                    and sum(m.num_faces for m in self.meshes)
+                    >= self.accel_min_faces))
+
+    def _accel_kind(self) -> str:
+        if self.accel_mode == "bvh":
+            return "culled"
+        if self.accel_mode in ("bvh_walk", "pallas", "culled"):
+            return self.accel_mode
+        return "pallas" if self.device.type == "cuda" else "culled"
 
     def prepare_accel(self) -> None:
         """Build the static BVH topology (triangle Morton order + skip
@@ -214,7 +259,7 @@ class Scene:
                 tri = self.build(self.params()).tri
             self._bvh_topo = build_bvh_topology(
                 tri.p0.cpu().numpy(), tri.e1.cpu().numpy(),
-                tri.e2.cpu().numpy(), leaf_size=BVH_LEAF_SIZE)
+                tri.e2.cpu().numpy(), leaf_size=self.accel_leaf_size)
 
     @staticmethod
     def _leaf_area(perm, leaf_size, p0, e1, e2) -> float:
@@ -246,7 +291,7 @@ class Scene:
             tri = self.build(self.params() if params is None else params).tri
         p0, e1, e2 = (x.cpu().numpy() for x in (tri.p0, tri.e1, tri.e2))
         fresh = build_bvh_topology(p0, e1, e2,
-                                   leaf_size=self._bvh_topo.leaf_size)
+                                   leaf_size=self.accel_leaf_size)
         cur = self._leaf_area(self._bvh_topo.perm, self._bvh_topo.leaf_size,
                               p0, e1, e2)
         ref = self._leaf_area(fresh.perm, fresh.leaf_size, p0, e1, e2)
@@ -322,7 +367,7 @@ class Scene:
             vp = mesh.world_positions(mp)
             info, _ = compute_triangle_info(
                 vp, upload(mesh, mesh.faces, dev, torch.int64),
-                mesh.num_vertices)
+                mesh.num_vertices, mesh.corner_table(dev))
             if mesh.use_vertex_normals:
                 # authored normals override the recomputed area-weighted
                 # shading normals; geometric normals and edge silhouettes
@@ -371,7 +416,8 @@ class Scene:
                           for i in range(8)], torch.bool, dev)
             corners = torch.where(bits, upper, lower)
             bound_info, _ = compute_triangle_info(
-                corners, const(_BOUND_FACES, torch.int64, dev), 8)
+                corners, const(_BOUND_FACES, torch.int64, dev), 8,
+                const(_BOUND_CORNERS, torch.int64, dev))
             tri_infos_all = tri_infos + [bound_info]
         else:
             tri_infos_all = tri_infos
@@ -500,7 +546,8 @@ class Scene:
             emitter_inv_area=inv_area, emitter_distrb=emitter_distrb,
             emitter_face_distrb=tuple(face_distrbs),
             sensors=tuple(sensor_states), bsdfs=tuple(params["bsdfs"]),
-            lower=lower, upper=upper, accel=accel, face_table=face_table,
+            lower=lower, upper=upper, accel=accel,
+            accel_kind=self._accel_kind(), face_table=face_table,
             em_tri_idx=em_tri_idx, envmap=envmap)
 
     def __repr__(self):
@@ -536,27 +583,179 @@ def _host_tree(tree):
 
 # -- scene queries (functions of a FlatScene) --------------------------------
 
+# the segmented sort's implementation, by the JAX package's names: its
+# "argsort" (a stable sort network) and "counting" (a one-hot running
+# count) give one permutation, which one stable segmented sort of 8-bit
+# keys gives here for both (a one-hot reads its indices back on the card)
+_SORT_IMPLS = ("argsort", "counting")
+_SORT_IMPL = os.environ.get("PSDR_TPU_SORT_IMPL", "argsort")
+
+
+def _octant_sort(ray: Ray, active: torch.Tensor, seg: int = 1 << 15,
+                 want_inv: bool = True, impl: str | None = None):
+    """Stable reorder within ``seg``-lane segments (4096-lane ones where
+    ``seg`` does not divide the lanes, one where the batch is smaller) by
+    direction: 64 bins, 4 a component, inactive lanes last in their
+    segment, so a sparse batch gathers its active lanes at the front of
+    each segment. Returns (permutation, inverse permutation, or None
+    without ``want_inv``) as int64, or (None, None) where the lanes do not
+    divide into segments. A stable argsort of uint8 keys along each
+    segment, then the inverse by a scatter: no host read. ``impl``
+    (default ``PSDR_TPU_SORT_IMPL``) names the JAX implementation; both
+    give the same permutation."""
+    impl = impl or _SORT_IMPL
+    if impl not in _SORT_IMPLS:
+        raise ValueError(f"sort impl {impl!r} not in {_SORT_IMPLS}")
+    d = ray.d.detach()
+    n = d.shape[0]
+    s = min(seg if n % seg == 0 else 4096, n)
+    if s == 0 or n % s:
+        return None, None
+    dev = d.device
+    # the bin of each component: trunc((d + 1) * 2) clipped to [0, 3]
+    q = torch.clamp(((d + 1.0) * 2.0).to(torch.int32), 0, 3)
+    key = (q * const((16, 4, 1), torch.int32, dev)).sum(dim=1)
+    key = torch.where(active.detach(), key, 64).to(torch.uint8)
+    local = torch.argsort(key.reshape(n // s, s), dim=1, stable=True)
+    perm = (local + torch.arange(0, n, s, device=dev)[:, None]).reshape(n)
+    if not want_inv:
+        return perm, None
+    lanes = torch.arange(n, device=dev)
+    return perm, torch.empty_like(perm).scatter_(0, perm, lanes)
+
+
+def _permuted(perm: torch.Tensor, ray: Ray, active: torch.Tensor, tmax):
+    """(o, d, active, tmax) of the lanes ``perm``, each gathered on its
+    own (``index_select``), contiguous as the kernels take them (tmax:
+    (N,) or None). On the card one gather a field moves fewer bytes than
+    packing the fields into rows first, as the JAX package does for the
+    TPU."""
+    def take(x):
+        return torch.index_select(x.detach(), 0, perm)
+    return (take(ray.o), take(ray.d), take(active),
+            None if tmax is None
+            else take(torch.broadcast_to(tmax, active.shape)))
+
+
+def _unpermuted(hit: HitRecord, perm: torch.Tensor) -> HitRecord:
+    """The record of the batch permuted by ``perm`` in the lanes' own
+    order, field by field scattered back through ``perm`` (no inverse
+    permutation needed)."""
+    def back(x):
+        return torch.empty_like(x).index_copy_(0, perm, x)
+    return HitRecord(
+        valid=torch.zeros_like(hit.valid).scatter_(0, perm, hit.valid),
+        tri_id=back(hit.tri_id), uv=back(hit.uv), t=back(hit.t))
+
+
 def _closest_hit(flat: FlatScene, ray: Ray, active: torch.Tensor, tmax=None,
-                 any_hit: bool = False) -> HitRecord:
-    """Detached hit query: K1 over the BVH, or brute force for scenes
-    below ``accel_min_faces``. ``any_hit`` lets K1 stop at the first hit;
-    brute force returns the closest, which is also a valid any-hit answer."""
-    if flat.accel is not None:
-        return ray_intersect_k1(flat.accel, ray.o, ray.d, active, tmax,
-                                any_hit=any_hit)
-    return ray_intersect_brute(flat.tri.p0, flat.tri.e1, flat.tri.e2,
-                               ray.o, ray.d, active, tmax=tmax)
+                 sort_rays: bool = False, any_hit: bool = False,
+                 test_only: bool = False):
+    """Detached hit query, by ``flat.accel_kind``: K1 (``pallas``), K3
+    (``culled``: ``accel/bvh.py`` ``ray_intersect_culled``; its plain
+    version on the CPU), the walk (``bvh_walk``: ``ray_intersect_bvh``),
+    or brute force (K2) without a tree. ``any_hit`` lets K1 stop at the
+    first hit; the others return the closest, also a valid any-hit answer.
+
+    ``sort_rays`` (with a tree): the kernel runs on the batch in
+    ``_octant_sort``'s order, gathered in and its record scattered back
+    through the permutation (``_permuted``, ``_unpermuted``); the JAX
+    package's packed row gathers through the permutation and its inverse
+    come to the same lanes. ``test_only`` returns only the (N,) hit
+    booleans.
+
+    The TPU kernel's block schedule (``ray_block``, ``sub_split``,
+    ``front_to_back``) has no counterpart: K1 walks each ray's tree nearest
+    child first."""
+    perm = None
+    q_o, q_d, q_act, q_tmax = ray.o, ray.d, active, tmax
+    if sort_rays and flat.accel is not None:
+        perm, _ = _octant_sort(ray, active, want_inv=False)
+        if perm is not None:
+            q_o, q_d, q_act, q_tmax = _permuted(perm, ray, active, tmax)
+    if flat.accel is None:
+        hit = ray_intersect_brute(flat.tri.p0, flat.tri.e1, flat.tri.e2,
+                                  ray.o, ray.d, active, tmax=tmax)
+    elif flat.accel_kind == "pallas":
+        hit = ray_intersect_k1(flat.accel, q_o, q_d, q_act, q_tmax,
+                               any_hit=any_hit)
+    elif flat.accel_kind == "bvh_walk":
+        hit = ray_intersect_bvh(flat.accel, q_o, q_d, q_act, tmax=q_tmax)
+    else:
+        hit = ray_intersect_culled(flat.accel, q_o, q_d, q_act, tmax=q_tmax)
+    if test_only:
+        if perm is None:
+            return hit.valid
+        return torch.zeros_like(hit.valid).scatter_(0, perm, hit.valid)
+    return hit if perm is None else _unpermuted(hit, perm)
 
 
 def ray_test(flat: FlatScene, ray: Ray, dist: torch.Tensor,
              active: torch.Tensor, sort_rays: bool = False,
              sparse: bool = False) -> torch.Tensor:
     """Occlusion query: True where some surface lies strictly closer than
-    ``dist - ShadowEpsilon``. ``sort_rays``/``sparse`` are accepted for the
-    JAX package's call sites and ignored (see the module docstring)."""
+    ``dist - ShadowEpsilon``. ``sparse`` (under K1, ``accel_kind``
+    "pallas"): few lanes are expected active, and the sweep is compacted
+    (``_ray_test_sparse``); otherwise one any-hit sweep, sorted with
+    ``sort_rays``."""
     tmax = dist.detach() - ShadowEpsilon
-    occ = _closest_hit(flat, ray, active, tmax=tmax, any_hit=True).valid
+    if sparse and flat.accel is not None and flat.accel_kind == "pallas":
+        occ = _ray_test_sparse(flat, ray, tmax, active)
+        if occ is not None:
+            return occ & active
+    occ = _closest_hit(flat, ray, active, tmax=tmax, any_hit=True,
+                       sort_rays=sort_rays, test_only=True)
     return occ & active
+
+
+def _ray_test_sparse(flat: FlatScene, ray: Ray, tmax: torch.Tensor,
+                     active: torch.Tensor, frac_shift: int = 3,
+                     seg: int = 1 << 15):
+    """Compacted any-hit sweep under K1: the lanes in ``_octant_sort``'s
+    order (``_compacted``), K1 on the first ``s >> frac_shift`` of
+    each ``s``-lane segment (where the sort puts a segment's active lanes,
+    as many as fit), then K1 once more on the whole sorted batch with only
+    the lanes past that cap active (none unless a segment overflows), the
+    two ORed and scattered back. Equal to the dense sweep lane for lane,
+    with no host read: the JAX package branches to its dense sweep on a
+    device value (``lax.cond``) where a segment overflows, which here would
+    read that value back. None where the lanes do not divide into segments
+    or the cap falls below 128 lanes (the caller sweeps densely)."""
+    n = ray.d.shape[0]
+    s = min(seg if n % seg == 0 else 4096, n)   # as _octant_sort sizes it
+    ks = s >> frac_shift
+    if s == 0 or n % s or ks < 128:
+        return None
+    perm, _ = _octant_sort(ray, active, seg=seg, want_inv=False)
+    head, rest = _compacted(perm, ray, tmax, active, s, ks)
+    hit_k = ray_intersect_k1(flat.accel, *head, any_hit=True)
+    hit_r = ray_intersect_k1(flat.accel, *rest, any_hit=True)
+    return _scattered(perm, hit_k.valid & head[2], hit_r.valid, s, ks)
+
+
+def _compacted(perm, ray: Ray, tmax, active, s: int, ks: int):
+    """The lanes in ``perm``'s order (``_permuted``) as two K1 batches,
+    each (o, d, active, tmax): the first ``ks`` lanes of each ``s``-lane
+    segment, and the whole batch with only the lanes past that cap
+    active."""
+    o, d, act, tm = _permuted(perm, ray, active, tmax)
+    n = o.shape[0]
+    cap = (torch.arange(n, device=o.device) % s) < ks
+
+    def head(x):
+        return x.reshape((n // s, s) + x.shape[1:])[:, :ks].reshape(
+            (-1,) + x.shape[1:])
+    return (head(o), head(d), head(act), head(tm)), (o, d, act & ~cap, tm)
+
+
+def _scattered(perm, occ_head, occ_rest, s: int, ks: int):
+    """The occlusion of the two batches of ``_compacted`` in the lanes'
+    own order: the head's answers in the first ``ks`` lanes of each
+    segment, the rest's after them, scattered through ``perm``."""
+    n = occ_rest.shape[0]
+    occ = torch.cat([occ_head.reshape(n // s, ks),
+                     occ_rest.reshape(n // s, s)[:, ks:]], dim=1)
+    return torch.zeros_like(occ_rest).scatter_(0, perm, occ.reshape(n))
 
 
 def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
@@ -601,7 +800,7 @@ def ray_intersect(flat: FlatScene, ray: Ray, active: torch.Tensor,
     with the hit triangle and J = 1. On a detached scene both give the
     query's own record, read without a recompute."""
     if hit is None:
-        hit = _closest_hit(flat, ray, active)
+        hit = _closest_hit(flat, ray, active, sort_rays=sort_rays)
     valid = hit.valid & active
     idx = torch.clamp(hit.tri_id, min=0).long()
     if flat.detached and not want_tri_info:

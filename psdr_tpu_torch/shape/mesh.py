@@ -14,8 +14,8 @@ from ..core import transform as xform
 from ..core import warp
 from ..core.constants import EdgeEpsilon
 from ..core.distribution import Discrete, discrete_sample_reuse
-from ..core.gather import select_rows
-from ..core.hoist import upload
+from ..core.gather import segment_sum, segment_table, select_rows
+from ..core.hoist import memo, upload
 from ..core.math import bilinear, cross, norm, normalize
 from ..core.records import PositionSample
 
@@ -44,9 +44,23 @@ class SecondaryEdgeInfo(NamedTuple):
     p2: torch.Tensor           # (E, 3) opposite vertex of face 0
 
 
+def vertex_corner_table(faces, num_vertices: int) -> np.ndarray:
+    """``segment_table`` of the face corners by vertex: for each vertex, the
+    rows ``i * F + f`` (corner i of face f) that touch it, corner 0 of every
+    face first, then corner 1, then corner 2."""
+    return segment_table(np.asarray(faces).T, num_vertices)
+
+
 def compute_triangle_info(vertex_positions: torch.Tensor,
-                          faces: torch.Tensor, num_vertices: int):
-    """Per-face SoA + area-weighted vertex normals."""
+                          faces: torch.Tensor, num_vertices: int,
+                          corners: torch.Tensor):
+    """Per-face SoA + area-weighted vertex normals. ``corners`` is
+    ``vertex_corner_table(faces)`` on the device: each vertex sums its
+    corners' face normals in one fixed order (``core.gather.segment_sum``).
+    An atomic scatter-add on the card sums in another order on every run,
+    and the last bits of a shading normal then move a bounce ray's
+    direction from run to run, which discrete tests downstream (hit or
+    miss, a boundary sample's validity) amplify."""
     faces = faces.long()
     p0 = vertex_positions[faces[:, 0]]
     p1 = vertex_positions[faces[:, 1]]
@@ -57,13 +71,8 @@ def compute_triangle_info(vertex_positions: torch.Tensor,
     fn = cross(e1, e2)
     fa = norm(fn)
 
-    vn = torch.zeros((num_vertices, 3), dtype=vertex_positions.dtype,
-                     device=vertex_positions.device)
-    vw = torch.zeros((num_vertices,), dtype=vertex_positions.dtype,
-                     device=vertex_positions.device)
-    for i in range(3):
-        vn = vn.index_add(0, faces[:, i], fn)
-        vw = vw.index_add(0, faces[:, i], fa)
+    vn = segment_sum(torch.cat([fn, fn, fn]), corners)
+    vw = segment_sum(torch.cat([fa, fa, fa]), corners)
     vn = normalize(vn / torch.clamp(vw, min=1e-20)[:, None])
 
     info = TriangleInfo(
@@ -185,6 +194,15 @@ class Mesh:
         return (upload(self, self.to_world_left, dev) @ to_world
                 @ upload(self, self.to_world_right, dev))
 
+    def corner_table(self, device) -> torch.Tensor:
+        """``vertex_corner_table`` of the faces on ``device``, made once
+        per faces array and device."""
+        faces = self.faces
+        return memo(self, ("corner_table", id(faces), str(device)),
+                    lambda: (faces, torch.as_tensor(
+                        vertex_corner_table(faces, self.num_vertices),
+                        device=device)))[1]
+
     def world_positions(self, params: dict) -> torch.Tensor:
         vp = params["vertex_positions"]
         off = params.get("vertex_offset")
@@ -194,7 +212,7 @@ class Mesh:
             # positions, before the world transform
             _, vn = compute_triangle_info(
                 vp, upload(self, self.faces, vp.device, torch.int64),
-                self.num_vertices)
+                self.num_vertices, self.corner_table(vp.device))
             vp = vp + off[:, None] * vn
         return xform.transform_pos(self._composite(params["to_world"]), vp)
 

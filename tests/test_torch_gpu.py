@@ -9,7 +9,10 @@ and the sharded steps over gloo ranks sharing the card and a one-rank
 NCCL group against their serial emulation on the card, and the flagship
 recovery loop; and the captured render programs against the eager renders,
 and the gradient programs (``grad_program``, the optimizer's update, a
-guiding build, ``VJPProgram``) against their eager steps.
+guiding build, ``VJPProgram``) against their eager steps; and the scene
+queries: K1 on sorted rays against unsorted, the compacted occlusion sweep
+against the dense one, ``accel_mode="culled"`` through K3, and a program
+replayed after its envmap table left the host cache.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -937,3 +940,124 @@ def test_grad_capture_of_a_host_read_in_backward_fails_loudly(cuda):
     with pytest.raises(RuntimeError, match="capture failed"):
         prog(x)
     assert not prog.captured and float((x * 2).sum()) == 8.0
+
+
+# -- the scene queries ------------------------------------------------------------
+
+def _bench_flat(cuda):
+    from psdr_tpu_torch.scene.scene import detach_flat
+    sc = cbox_scene(512, 512, spp=64, occluder_subdiv=5, device=cuda)
+    sc.prepare_accel()
+    return sc, detach_flat(sc.build(sc.params()))
+
+
+def test_sorted_k1_equals_unsorted_at_2_21_lanes(cuda):
+    """``_closest_hit(sort_rays=True)`` on the bench scene (20,492
+    triangles, K1: "auto" on the card) at 2^21 lanes, the PathTracer's
+    depth-2 bounce (closest) and shadow (any) sweeps: every field equal
+    to K1 on the unsorted rays bit for bit, one K1 launch a query."""
+    from psdr_tpu_torch.scene.scene import _closest_hit
+    from psdr_tpu_torch.testing.scenes import tiled_path_rays
+    sc, flat = _bench_flat(cuda)
+    assert flat.accel_kind == "pallas"
+    sweeps = tiled_path_rays(sc, flat, 1 << 21, 64, 2, depth=2)
+    for name, any_hit in (("depth 2 bounce", False), ("depth 2 shadow", True)):
+        ray, act, tmax = sweeps[name]
+        inf = torch.full_like(ray.o[:, 0], float("inf"))
+        plain = intersect.k1_cuda(flat.accel, ray.o.contiguous(),
+                                  ray.d.contiguous(), act,
+                                  inf if tmax is None else tmax.contiguous(),
+                                  any_hit=any_hit)
+        before = dict(intersect.LAUNCHES)
+        got = _closest_hit(flat, ray, act, tmax=tmax, sort_rays=True,
+                           any_hit=any_hit)
+        mode = "any" if any_hit else "closest"
+        assert intersect.LAUNCHES[mode] == before[mode] + 1
+        assert got.valid.any()
+        _assert_exact(plain, got)
+
+
+@pytest.mark.parametrize("frac_shift,share", [(3, 0.01), (3, 0.5),
+                                              (2, 0.2)])
+def test_compacted_sweep_equals_dense(cuda, frac_shift, share):
+    """``_ray_test_sparse`` at 2^21 lanes of the bench scene's shadow
+    rays (the 2^21-lane chunk of rows 384 to 447, the floor under the
+    occluder) with a share of them active (1%: every segment fits its
+    cap; half: they overflow an eighth; a fifth under a quarter cap)
+    equals the dense any-hit sweep lane for lane, in two K1 launches."""
+    from psdr_tpu_torch.scene.scene import _closest_hit, _ray_test_sparse
+    from psdr_tpu_torch.testing.scenes import tiled_camera_rays
+    sc, flat = _bench_flat(cuda)
+    _, _, (ray, alive, tmax) = tiled_camera_rays(sc, flat, 1 << 21, 64, 3,
+                                                 chunk=6)
+    pick = torch.as_tensor(np.random.default_rng(5).uniform(size=1 << 21)
+                           < share, device=cuda)
+    act = alive & pick
+    dense = _closest_hit(flat, ray, act, tmax=tmax, any_hit=True,
+                         test_only=True) & act
+    before = intersect.LAUNCHES["any"]
+    got = _ray_test_sparse(flat, ray, tmax, act, frac_shift=frac_shift)
+    assert intersect.LAUNCHES["any"] == before + 2
+    assert dense.any() and torch.equal(got & act, dense)
+    over = (act.reshape(-1, 1 << 15).sum(1) > (1 << 15) >> frac_shift).any()
+    assert bool(over) == (share == 0.5)
+
+
+def test_culled_mode_runs_k3_and_equals_k1(cuda):
+    """``accel_mode="culled"`` renders through K3 (and "auto" through K1,
+    no K3), and the two images agree as card and CPU renders must
+    (chip_smoke.py phase 4: at least 99% of pixels within rtol 1e-4, atol
+    1e-5, means to 1e-4; the pixel sums are atomic): 64x64 spp 4, 1,292
+    triangles."""
+    imgs = {}
+    for mode in ("culled", "auto"):
+        sc = cbox_scene(64, 64, spp=4, occluder_subdiv=3, device=cuda)
+        sc.accel_mode = mode
+        intersect.reset_launch_counts()
+        imgs[mode] = DirectIntegrator(1, 1).renderC(sc, seed=7)
+        torch.cuda.synchronize()
+        k1 = intersect.LAUNCHES["closest"] + intersect.LAUNCHES["any"]
+        assert (intersect.LAUNCHES["k3"] > 0) == (mode == "culled")
+        assert (k1 > 0) == (mode == "auto")
+    a, b = (imgs[m].reshape(-1, 3) for m in ("culled", "auto"))
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert float(close.float().mean()) >= 0.99
+    assert abs(float(a.mean() - b.mean())) < 1e-4 * float(b.mean())
+
+
+def test_program_replays_after_its_envmap_table_left_the_cache(cuda):
+    """``render_program`` on a sky above 2^15 cells (a 398 x 198 frozen
+    table), then 9 new radiance snapshots built (the host cache drops the
+    table), the allocator's free memory released and refilled with NaN:
+    the replay stays within 8 times the replays' own spread (atomic sums)
+    of the capture-time replay."""
+    import gc
+    sky = np.random.default_rng(4).uniform(0.1, 1.0, (100, 200, 3)).astype(
+        np.float32)
+    sc = env_scene(None, 32, 32, spp=4, sky=sky, device=cuda)
+    params = params_from_numpy(sc.params(), cuda)
+    prog = DirectIntegrator(1, 1).render_program(sc, with_boundary=False,
+                                                 detached=True)
+    key = threefry.PRNGKey(5, device=cuda)
+    first = prog(params, key)
+    spread = float((prog(params, key) - first).abs().max())
+    rad = sc.emitters[0].radiance.data
+    for k in range(9):
+        p = sc.params()
+        p["emitters"][0] = dict(p["emitters"][0],
+                                radiance=rad * np.float32(1 + (k + 1) / 64))
+        sc.set_params(p)
+        sc.configure()
+    sc._flat_cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = []
+    for _ in range(64):          # the warm-up allocated on a pooled stream
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            junk += [torch.full((398 * 198,), float("nan"), device=cuda)
+                     for _ in range(8)]
+    torch.cuda.synchronize()
+    late = prog(params, key)
+    assert torch.isfinite(late).all()
+    assert float((late - first).abs().max()) <= 8.0 * spread
+    del junk

@@ -16,7 +16,15 @@ harness's derivative image).
   ``PathTracer(2, camera_depth=2)``'s renderD primal, each guarded image
   equal to the host-key render bit for bit; and the gradient programs of
   phase 29, forward and backward, each output equal to the host-key
-  call's bit for bit.
+  call's bit for bit; the same bodies on a scene whose queries run K1
+  (``accel_mode="pallas"``, as "auto" on the card), so that the direction
+  sort, the compacted sweeps and their residue sweeps are rehearsed; and
+  the sharded and example programs: ``inverse_geometry``'s ``step_grad``,
+  the sharded step whole, its split form's forward, backward and update,
+  and the multi-view step's local program.
+* A program keeps what its capture read from the host caches: the
+  envmap's frozen table outlives the cache's eviction while the program
+  lives.
 * A rebuilt BVH topology makes a program over a scene build stale: its
   body then reads new host data (the guard fails) until the recapture's
   warm-up has run, after which it equals a fresh program's step.
@@ -178,18 +186,31 @@ def test_guard_fails_on_host_reads(monkeypatch):
         assert torch.equal(g, x)
 
 
-def _cbox(size, **kw):
-    return t_scenes.cbox_scene(size, size, occluder_subdiv=3, **kw, **CPU)
+def _cbox(size, mode="auto", **kw):
+    sc = t_scenes.cbox_scene(size, size, occluder_subdiv=3, **kw, **CPU)
+    sc.accel_mode = mode
+    return sc
 
 
-def _body(case):
+def _k1_mode(case, monkeypatch):
+    """The accel_mode of a rehearsal ``case``: "pallas" (K1, the card's
+    "auto") for a case named so, with visibility reuse on, whose second
+    sweep is compacted to a quarter."""
+    if not case.endswith("pallas"):
+        return "auto"
+    monkeypatch.setenv("PSDR_TPU_VIS_REUSE", "edge")
+    return "pallas"
+
+
+def _body(case, mode="auto"):
     """(the program of ``case`` after its first call, which is the warm-up
     that fills the caches, its argument tuple, that call's host-key
     image)."""
     key = threefry.PRNGKey(3)
-    if case in ("a", "b"):
-        sc = _cbox(32 if case == "a" else 16, spp=2)
-        integ = T.DirectIntegrator(1, 1) if case == "a" else T.PathTracer(3)
+    if case[0] in ("a", "b"):
+        sc = _cbox(32 if case[0] == "a" else 16, mode, spp=2)
+        integ = (T.DirectIntegrator(1, 1) if case[0] == "a"
+                 else T.PathTracer(3))
         prog = integ.render_program(sc, with_boundary=False, detached=True)
         args = (params_from_numpy(sc.params(), **CPU), key)
         return prog, args, prog(*args)
@@ -200,15 +221,17 @@ def _body(case):
         integ = T.DirectIntegrator(1, 1)
         img = integ.renderC(sc, seed=3)
     else:
-        sc = _cbox(16, spp=4, sppe=2, sppse=4)
-        integ = (T.DirectIntegrator(1, 1) if case == "d"
+        sc = _cbox(16, mode, spp=4, sppe=2, sppse=4)
+        integ = (T.DirectIntegrator(1, 1) if case[0] == "d"
                  else T.PathTracer(2, camera_depth=2))
         img = integ.renderD(sc, seed=3)
     (prog,) = integ._radiance_jits.values()
     return prog, (key,), img.reshape(-1, 3)
 
 
-@pytest.mark.parametrize("case", ["a", "b", "c", "d", "path renderD"])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", "path renderD",
+                                  "a pallas", "b pallas", "d pallas",
+                                  "path renderD pallas"])
 def test_program_body_passes_the_capture_rehearsal(case, monkeypatch):
     """After a warm-up call, the program body of each configuration runs
     in the tensor-word mode without a host read or a tensor from host data
@@ -219,8 +242,10 @@ def test_program_body_passes_the_capture_rehearsal(case, monkeypatch):
     every boundary term, 16x16 spp 4, sppe 2, sppse 4, the secondary
     wavefront compacted; and the fused boundary pass of ``PathTracer(2,
     camera_depth=2)``'s renderD), and its image equals the host-key
-    render's bit for bit."""
-    prog, args, want = _body(case)
+    render's bit for bit. The "pallas" cases run a, b, d and the fused
+    pass on K1 with visibility reuse, through the sorted and compacted
+    sweeps."""
+    prog, args, want = _body(case, _k1_mode(case, monkeypatch))
     with rehearsal(monkeypatch), torch.no_grad():
         got = prog.fn(*args)
     np.testing.assert_array_equal(got.reshape(-1, 3).numpy(), want.numpy())
@@ -369,9 +394,11 @@ def _grad_body(case, monkeypatch):
     """(a gradient-side program after its first call, which is the warm-up,
     its arguments, that call's outputs) for ``case``."""
     key = threefry.PRNGKey(3)
+    mode = _k1_mode(case, monkeypatch)
+    case = case.removesuffix(" pallas")
     if case in ("direct backward", "path backward", "boundary step"):
         boundary = case == "boundary step"
-        sc = _cbox(16, spp=4 if boundary else 2,
+        sc = _cbox(16, mode, spp=4 if boundary else 2,
                    **(dict(sppe=2, sppse=4) if boundary else {}))
         integ = (T.PathTracer(3) if case == "path backward"
                  else T.DirectIntegrator(1, 1))
@@ -406,6 +433,13 @@ def _grad_body(case, monkeypatch):
         args = (key,)
     elif case == "flagship step":
         prog, args = _flagship_step()
+    elif case in ("step_grad", "train step whole", "multiview local"):
+        _, make = _rebuild_case({"multiview local": "multiview split"}.get(
+            case, case))
+        step, args = make()
+        prog = getattr(step, "programs", (step,))[0]
+        if case == "multiview local":
+            args = args[::2]                 # (params, key)
     else:   # run_ad
         sc = _cbox(16, spp=2, sppe=2, sppse=4)
         prog, _ = _recorded(monkeypatch, harness, lambda: harness.run_ad(
@@ -416,7 +450,9 @@ def _grad_body(case, monkeypatch):
 
 GRAD_CASES = ["direct backward", "path backward", "boundary step",
               "adam update", "guiding build", "indirect guiding build",
-              "flagship step", "run_ad"]
+              "flagship step", "run_ad", "direct backward pallas",
+              "path backward pallas", "boundary step pallas", "step_grad",
+              "train step whole", "multiview local"]
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -430,8 +466,12 @@ def test_gradient_program_body_passes_the_capture_rehearsal(case,
     (spp 4, sppe 2, sppse 4: 1,024 secondary lanes, compacted); the
     optimizer's ``_jit_update`` (Adam at a device count of 2); both
     guiding builds (2 rounds in one program); the flagship's step (three
-    views, smoothing, masked Adam with its schedule at count 1); and
-    ``run_ad``'s forward-mode derivative image."""
+    views, smoothing, masked Adam with its schedule at count 1);
+    ``run_ad``'s forward-mode derivative image; the first three again on
+    K1 with visibility reuse ("pallas"); ``inverse_geometry``'s
+    ``step_grad``; the sharded train step in its one-program form and the
+    multi-view step's local program, on a one-rank mesh without a group
+    (``testing.ranks.LocalRank``, ``LocalSplitRank``)."""
     prog, args, want = _grad_body(case, monkeypatch)
     with rehearsal(monkeypatch), (torch.enable_grad() if prog.grad
                                   else torch.no_grad()):
@@ -442,6 +482,74 @@ def test_gradient_program_body_passes_the_capture_rehearsal(case,
         assert torch.equal(a.detach(), b), case
     assert any(float(x.abs().sum()) > 0 for x in want_leaves
                if x.is_floating_point())
+
+
+def test_split_step_programs_pass_the_capture_rehearsal(monkeypatch):
+    """The gloo form of the sharded train step on a one-rank mesh without
+    a group (``testing.ranks.LocalSplitRank``): the bodies of its
+    ``VJPProgram``'s two graphs (the forward, the backward fed a
+    cotangent) and of its update program pass the rehearsal, each output
+    equal to the host-key call's bit for bit."""
+    _, make = _rebuild_case("train step split")
+    step, (params, state, key) = make()
+    forward, update = step.programs
+    leaves, spec = tree_flatten((params, key))
+
+    def bodies():
+        saved = forward._forward(leaves, spec)
+        grads = VJPProgram._backward(
+            saved, torch.full_like(saved[0], 1e-3), retain=True)
+        with torch.no_grad():
+            new = update.fn(params, grads, state)
+        return saved[0].detach(), grads, new
+
+    want = bodies()
+    with rehearsal(monkeypatch):
+        got = bodies()
+    got_leaves, want_leaves = (tree_flatten(x)[0] for x in (got, want))
+    assert len(got_leaves) == len(want_leaves)
+    for a, b in zip(got_leaves, want_leaves):
+        assert torch.equal(a, b)
+    assert float(want[1]["meshes"][5]["vertex_positions"].abs().sum()) > 0
+
+
+def test_envmap_table_lives_as_long_as_a_program_that_read_it():
+    """The frozen importance table of a sky above 2^15 cells (a 398 x 198
+    grid) leaves the host cache after 9 other radiance snapshots: with no
+    program that read it, nothing keeps it; a ``render_program`` that read
+    it (its capture, on the card) holds it until the program goes."""
+    import gc
+    import weakref
+    sky = np.random.default_rng(4).uniform(0.1, 1.0, (100, 200, 3)).astype(
+        np.float32)
+    sc = t_scenes.env_scene(None, 8, 8, spp=1, sky=sky, **CPU)
+
+    def push_snapshots():
+        rad = sc.emitters[0].radiance.data
+        for k in range(9):
+            p = sc.params()
+            p["emitters"][0] = dict(p["emitters"][0],
+                                    radiance=rad * np.float32(1 + k / 64))
+            sc.set_params(p)
+            sc.configure()
+        sc._flat_cache = None
+        gc.collect()
+
+    def table():
+        return weakref.ref(sc.flat.envmap.cell_distrb.distrb.cmf)
+
+    unread = table()
+    push_snapshots()
+    assert unread() is None
+    prog = T.DirectIntegrator(1, 1).render_program(sc, with_boundary=False,
+                                                   detached=True)
+    read = table()
+    prog(params_from_numpy(sc.params(), **CPU), threefry.PRNGKey(0))
+    push_snapshots()
+    assert read() is not None
+    del prog
+    gc.collect()
+    assert read() is None
 
 
 def test_rebuilt_tree_recaptures_and_matches_a_fresh_program(monkeypatch):

@@ -176,3 +176,39 @@ def test_default_device_is_the_card_never_the_cpu():
         sc.build(sc.params())
     with pytest.raises((AssertionError, RuntimeError)):
         params_from_numpy({"x": np.zeros(3)})
+
+
+@pytest.mark.parametrize("subdiv", [0, 3])
+def test_vertex_normals_sum_in_one_fixed_order(subdiv):
+    """``compute_triangle_info``'s vertex normals sum each vertex's corners
+    through ``vertex_corner_table`` in one fixed order: bit for bit what a
+    sequential scatter-add over corner 0, 1, 2 of every face gives (the
+    CPU's ``index_add``; on the card the same order, where an atomic
+    scatter-add would sum in another order on every run), and JAX's
+    normals to float rounding, on a jittered icosphere."""
+    from psdr_tpu.shape.mesh import compute_triangle_info as j_info
+    from psdr_tpu_torch.core.math import cross, norm, normalize
+    from psdr_tpu_torch.shape import primitives
+    from psdr_tpu_torch.shape.mesh import (compute_triangle_info,
+                                           vertex_corner_table)
+    m = primitives.make_icosphere(subdiv=subdiv)
+    rng = np.random.default_rng(subdiv)
+    vp = (m.vertices + rng.normal(size=m.vertices.shape) * 0.01).astype(
+        np.float32)
+    faces = torch.as_tensor(m.faces).long()
+    table = vertex_corner_table(m.faces, m.num_vertices)
+    assert table.shape == (m.num_vertices, 6 if subdiv else 5)
+    _, vn = compute_triangle_info(torch.as_tensor(vp), faces,
+                                  m.num_vertices, torch.as_tensor(table))
+    t = torch.as_tensor(vp)
+    fn = cross(t[faces[:, 1]] - t[faces[:, 0]], t[faces[:, 2]] - t[faces[:, 0]])
+    want = torch.zeros_like(t)
+    weight = torch.zeros(m.num_vertices)
+    for i in range(3):
+        want = want.index_add(0, faces[:, i], fn)
+        weight = weight.index_add(0, faces[:, i], norm(fn))
+    assert torch.equal(vn, normalize(want / weight[:, None]))
+    _, j_vn = j_info(jax.numpy.asarray(vp), jax.numpy.asarray(m.faces),
+                     m.num_vertices)
+    np.testing.assert_allclose(vn.numpy(), np.asarray(j_vn), rtol=1e-5,
+                               atol=1e-6)
