@@ -7,7 +7,8 @@ Every phase passes or the script exits nonzero:
 1. the card: a CUDA device, its name and power limit (``nvidia-smi``);
    TF32 off for matmuls and convolutions;
 2. build the kernels (``psdr_tpu_torch/csrc/*.cu``: K1 ``intersect.cu``,
-   K2 ``brute.cu``, K3 ``culled.cu``), one ``nvcc`` per source in parallel;
+   K2 ``brute.cu``, K3 ``culled.cu``, and the fixed-order sum
+   ``segsum.cu``), one ``nvcc`` per source in parallel;
 3. K1 against its plain PyTorch version on the card, closest hits bit for
    bit and any hits in ``valid``: a random triangle soup (2048 tris, 600
    rays, mixed ``active`` and ``tmax``), a soup whose tree has an even
@@ -167,10 +168,9 @@ Every phase passes or the script exits nonzero:
     under grad at phase 12's config, every boundary estimator's forward
     and the compacted sweeps in it. For each: capture seconds, graph nodes
     and pool bytes; one replay's launch counts equal to the eager frame's
-    (8 / 48 / 8 for a, 24 / 64 / 8 for b); replays at seeds 0, 1, 0 against
-    the eager image of each seed (bit for bit where the eager render
-    repeats itself bit for bit, else within REPLAY_SPREAD_X times its
-    run-to-run spread and phase 4's gates) and seed 1 against seed 0,
+    (8 / 48 / 8 for a, 24 / 64 / 8 for b); replays at seeds 0, 1, 0 equal
+    to the eager image of each seed bit for bit (the eager render repeats
+    itself bit for bit) and seed 1 against seed 0,
     which must lie as far apart as the eager renders of the two seeds (no
     key baked in); eager frames and replays timed as
     phase 5 times frames, one of each profiled (device busy, idle share,
@@ -187,16 +187,16 @@ Every phase passes or the script exits nonzero:
     .make_train_step``: three views, smoothing, masked Adam on its
     schedule) at phase 27's config, its eager step's K1 and K2 launches
     held against their plain versions, timed and counted for their bound,
-    its replayed vertices against the update of the replay's own gradient
-    at counts 0 and 1 (UPDATE_ULPS, UPDATE_REL),
+    its replayed vertices equal to the update of the replay's own gradient
+    at counts 0 and 1, the replay from count 1 equal to the eager step,
     (i) phase 22's trainer as its value-and-gradient program and
     ``Optimizer._jit_update``, (j) phase 11's guiding build. For each:
     capture seconds, graph nodes and pool bytes; a replay's launch counts
     equal to the eager step's (2 / 12 / 2 for e, 6 / 16 / 2 for f, 4 / 20
     / 4 for g, 3 / 16 / 3 for i); replays at seeds 0, 1, 0 against the
-    eager step of each seed, the loss and every gradient leaf within
-    REPLAY_SPREAD_X times the eager step's run-to-run spread and the
-    card-vs-CPU bounds, seeds 0 and 1 as far apart as eager; the output
+    eager step of each seed, the loss and every gradient leaf equal to it
+    bit for bit (the eager step repeats itself), seeds 0 and 1 as far
+    apart as eager, segsum launched; the output
     buffers at fixed addresses; eager steps and replays timed (median of
     3), one of each profiled (device busy, idle share, host launch calls:
     one a program), no ``indexing_backward`` kernel in a replay's top
@@ -218,7 +218,20 @@ Every phase passes or the script exits nonzero:
     (``accel_leaf_size``), K1 and K3 against ``k1_plain``; and
     ``render_program`` replayed after SNAPSHOTS radiance snapshots evicted
     its envmap table from the host cache and the freed memory was
-    refilled with NaN, against the eager render (ROADMAP item 25).
+    refilled with NaN, against the eager render;
+31. reproducibility: phases 28 and 29 replay each of
+    (a)-(j) twice more at seed 0, equal to the first replay bit for bit,
+    and run each eager step twice, equal; then REPRO_STEPS eager trainer
+    steps at phase 22's config in two passes, every K1 and K2 launch's
+    rays and record hashed on the card (``LaunchHasher``), equal launch for
+    launch with equal losses and vertices; a second process
+    (``python3 chip_smoke.py --repro-child PATH``) whose REPRO_SMALL
+    trainer run equals the same run in this process; phase 12's boundary
+    step on two builds of its scene, equal, with the compacted wavefront's
+    active lanes; and the fixed-order sum (``csrc/segsum.cu``, a helper of
+    the port, no TPU kernel's port) against its plain version bit for bit
+    on the main path's own inputs and on hot-row, cold-row and pixel
+    shapes, timed beside ``index_add_``.
 
 With "auto" on the card every scene query of phases 5-29 runs on K1
 through the sort and the compaction where the JAX package's call site
@@ -254,16 +267,6 @@ RTOL = 1e-5              # hit t, as tests/test_bvh.py:43-50
 IMG_RTOL, IMG_ATOL = 1e-4, 1e-5   # per-pixel, as tests/test_torch_render.py
 IMG_CLOSE_FRAC = 0.99
 IMG_MEAN_REL = 1e-4
-# a replay whose eager render does not repeat itself bit for bit (the
-# atomic sums of Scene.build's vertex normals, of a boundary pass) stays
-# within this multiple of the eager render's own run-to-run spread
-REPLAY_SPREAD_X = 8.0
-# phase 29 (h): a replayed flagship update against the same update run
-# eagerly on the replay's own gradient, vertex by vertex: within
-# UPDATE_ULPS ulps of the vertex plus UPDATE_REL of the step's largest
-# move (the smoothing's atomic sums round in any order; a wrong count or
-# rate moves the vertices by a part of the rate itself)
-UPDATE_ULPS, UPDATE_REL = 4.0, 1e-5
 BENCH = dict(width=512, height=512, spp=64, occluder_subdiv=5)
 BWD = dict(BENCH, spp=16)   # bench.py's backward config
 # scripts/bench_renderD.py's config: the boundary step
@@ -339,6 +342,11 @@ ONE_RANK_SCENE = dict(width=32, height=32, spp=4, sppe=2, sppse=16,
 FORM_REPS = 7
 K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 QUERY_REPS = 20         # launches per timed piece of a sort or a compaction
+# phase 31: eager trainer steps hashed launch by launch, twice, at TRAIN;
+# and the same count at REPRO_SMALL in this process and in a second one
+REPRO_STEPS = 30
+REPRO_SMALL = dict(width=32, height=32, spp=4, sppe=2, sppse=16,
+                   occluder_subdiv=3)
 SNAPSHOTS = 9           # radiance snapshots that evict a frozen envmap table
 NAN_STREAMS = 64        # streams that refill the freed memory (2 x the pool)
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
@@ -2474,15 +2482,6 @@ def flagship_phase(intersect, dev, tmp):
     return launches, summary
 
 
-def image_gates(a, b):
-    """(share of pixels within rtol IMG_RTOL, atol IMG_ATOL; relative
-    difference of the means) of images ``a`` against ``b``."""
-    a, b = a.reshape(-1, 3).cpu().numpy(), b.reshape(-1, 3).cpu().numpy()
-    share = float(np.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL)
-                  .all(axis=-1).mean())
-    return share, abs(a.mean() - b.mean()) / abs(b.mean())
-
-
 def program_frame(fn, top=None):
     """One profiled run of ``fn``: (wall ms, device-busy ms, device kernels,
     host launch calls: ``cudaLaunchKernel``, ``cuLaunchKernel``,
@@ -2561,9 +2560,9 @@ def program_phase(intersect, dev):
     (its own run-to-run spread) and 1, and its launch counts; the program
     built and captured (capture seconds, graph nodes, pool bytes); one
     replay's launch counts against the eager frame's; replays at seeds 0,
-    1, 0, each against the eager image of its seed (bit for bit where the
-    eager render repeats itself bit for bit, else within REPLAY_SPREAD_X
-    times its spread and phase 4's gates) and seed 1 against seed 0,
+    1, 0, each equal to the eager image of its seed bit for bit (the eager
+    render repeats itself bit for bit), two more at seed 0 equal to the
+    first (phase 31), and seed 1 against seed 0,
     which must lie as far apart as in the eager renders; eager frames and
     replays timed as phase 5 times
     frames, one of each profiled; peak memory with the program in the
@@ -2584,7 +2583,7 @@ def program_phase(intersect, dev):
         if not (torch.isfinite(e0).all() and float(e0.mean()) > 0.0):
             raise AssertionError(f"phase 28: {label}: eager image not "
                                  "finite or black")
-        if eager_launches != expect:
+        if {k: eager_launches[k] for k in expect} != expect:
             raise AssertionError(f"phase 28: {label}: eager launches "
                                  f"{eager_launches}, expected {expect}")
         t0 = time.perf_counter()
@@ -2611,18 +2610,17 @@ def program_phase(intersect, dev):
         for name, r, e in (("seed 0", r0, e0), ("seed 1", r1, e1),
                            ("seed 0 again", r0b, e0)):
             d = float((r - e).abs().max())
-            share, mean_rel = image_gates(r, e)
             diffs[name] = d
-            ok = (torch.equal(r, e) if spread == 0.0
-                  else (d <= REPLAY_SPREAD_X * spread
-                        and share >= IMG_CLOSE_FRAC
-                        and mean_rel < IMG_MEAN_REL))
-            if not ok:
+            if not (spread == 0.0 and torch.equal(r, e)):
                 raise AssertionError(
                     f"phase 28: {label}: the replay at {name} differs from "
-                    f"the eager render by {d} (eager spread {spread}; "
-                    f"{share} of pixels within rtol {IMG_RTOL}, means "
-                    f"{mean_rel})")
+                    f"the eager render by {d} (eager spread {spread}): not "
+                    "bit for bit")
+        # phase 31: two more replays at seed 0, each the first bit for bit
+        if not all(torch.equal(replay(0).reshape(-1, 3), r0)
+                   for _ in range(2)):
+            raise AssertionError(f"phase 31: {label}: a repeated replay at "
+                                 "seed 0 differs from the first")
         # a key baked in at the capture would replay seed 0's image at
         # seed 1: the replays' mean gap between the seeds must be the eager
         # renders' (far above the run-to-run spread)
@@ -2652,7 +2650,7 @@ def program_phase(intersect, dev):
         prof = {name: program_frame(lambda: fn(9))
                 for name, fn in (("eager", eager), ("replay", replay))}
         summary = {
-            "bit_for_bit": spread == 0.0, "eager_spread": spread,
+            "eager_spread": spread, "replay_repeats_equal": True,
             "replay_vs_eager": diffs, "seed_gap": seed_gap,
             "eager_seed_gap": eager_gap,
             "launches": replay_launches,
@@ -2670,9 +2668,9 @@ def program_phase(intersect, dev):
             f" s, replays {', '.join(f'{t:.4f}' for t in times['replay'])} s;"
             f" first call (warm-up, capture, replay) {first_s:.3f} s, capture"
             f" {prog.capture_seconds:.3f} s, {prog.nodes} graph nodes, pool "
-            f"{prog.pool_bytes / 2**30:.3f} GiB; replay = eager "
-            f"{'bit for bit' if spread == 0.0 else f'within {max(diffs.values()):.3g} (spread {spread:.3g})'}"
-            f"; seeds 0 / 1 {seed_gap:.4g} apart a pixel (eager "
+            f"{prog.pool_bytes / 2**30:.3f} GiB; replay = eager bit for bit, "
+            f"and replay = replay (phase 31); seeds 0 / 1 {seed_gap:.4g} "
+            f"apart a pixel (eager "
             f"{eager_gap:.4g}); launches "
             f"{replay_launches}")
         log(f"    {json.dumps(summary)}")
@@ -2768,12 +2766,12 @@ def _flagship_steps(dev):
     [its program], 3, check), each returning (loss, raw gradient, the
     occluder's first moment, its updated vertices; those are not gated
     against eager, as in (i)). ``check`` holds a replay's vertices to the
-    masked update run eagerly on the smoothed replay gradient, then
-    replays once more from that replay's own state (count 1, where the
-    bias corrections and the schedule's rate differ): its loss to 1e-5 of
-    the eager step's from the same state, its gradient and first moment
-    within the card-vs-CPU bounds (``grad_close``), its vertices held to
-    the update of its own gradient as at count 0."""
+    masked update run eagerly on the smoothed replay gradient, bit for bit,
+    then replays once more from that replay's own state (count 1, where
+    the bias corrections and the schedule's rate differ): every output
+    (loss, gradient, first moment, vertices) equal to the eager step's from
+    the same state bit for bit, its vertices to the update of its own
+    gradient as at count 0."""
     from psdr_tpu_torch import DirectIntegrator
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.examples import flagship_recovery as fr
@@ -2815,8 +2813,8 @@ def _flagship_steps(dev):
 
     def update_of(out, p, st):
         """The replay's vertices against the update of its own smoothed
-        gradient, run eagerly (UPDATE_ULPS, UPDATE_REL); the largest
-        difference."""
+        gradient, run eagerly: bit for bit (the smoothing sums in one fixed
+        order); the largest difference (0)."""
         grads = tree_map(torch.zeros_like, p)
         grads["meshes"][fr.OCCLUDER]["vertex_positions"] = smooth(out[1])
         with torch.no_grad():
@@ -2828,9 +2826,7 @@ def _flagship_steps(dev):
         move = float((want - old).abs().max())
         if not move > 0.0:
             raise AssertionError("phase 29 (h): the update moved nothing")
-        tol = (UPDATE_ULPS * torch.finfo(torch.float32).eps
-               * (old.abs() + want.abs()) + UPDATE_REL * move)
-        if not bool((err <= tol).all()):
+        if not torch.equal(out[3], want):
             raise AssertionError(
                 f"phase 29 (h): the replay's vertices differ from the update "
                 f"of its own gradient by {float(err.max()):.3g} at count "
@@ -2844,18 +2840,18 @@ def _flagship_steps(dev):
             raise AssertionError("phase 29 (h): the replay's count is "
                                  f"{int(s1['count'])}, not 1")
         out1 = pick(replay(1, p1, s1))
-        got, want = _floats(out1, 3), _floats(eager(1, p1, s1), 3)
-        loss_d = rel_l2(host(got[0]), host(want[0]))
-        if not loss_d <= 1e-5:
-            raise AssertionError(f"phase 29 (h): the loss at count 1 is "
-                                 f"{loss_d:.3g} from eager")
-        d = max(grad_close(29, f"h at count 1 output {i}", host(x), host(y))
-                for i, (x, y) in enumerate(zip(got, want)) if i)
+        got, want = _floats(out1), _floats(eager(1, p1, s1))
+        d = max(rel_l2(host(x), host(y)) for x, y in zip(got, want))
+        if not all(np.array_equal(host(x), host(y))
+                   for x, y in zip(got, want)):
+            raise AssertionError(f"phase 29 (h): the replay from count 1 "
+                                 f"differs from the eager step by {d:.3g} "
+                                 "relative L2: not bit for bit")
         e1 = update_of(out1, p1, s1)
         log(f"    (h) the update of the replay's own gradient: vertices "
             f"within {e0:.3g} (count 0), {e1:.3g} (count 1); the replay "
-            f"from count 1 against eager: loss {loss_d:.3g}, gradient and "
-            f"first moment within {d:.3g} relative L2")
+            f"from count 1 against eager: every output bit for bit "
+            f"({d:.3g})")
     return (eager, lambda s: pick(replay(s)), [step], 3, check)
 
 
@@ -2920,27 +2916,20 @@ def _floats(out, n=None):
 
 def gate_replay(phase, label, got, want, spread) -> float:
     """A replayed step's outputs ``got`` against the eager step's ``want``
-    (lists of flat tensors, the loss first): each within REPLAY_SPREAD_X
-    times the eager step's run-to-run ``spread`` (its largest relative L2
-    over the outputs; equal where it is 0), the loss to 1e-5 and every
-    other output within the card-vs-CPU bounds (``grad_close``). Returns
-    the largest relative L2 difference."""
+    (lists of flat tensors, the loss first): the eager step repeats itself
+    bit for bit (its run-to-run ``spread``, the largest relative L2 over
+    the outputs, is 0) and every output equals it bit for bit. Returns the
+    largest relative L2 difference (0)."""
     worst = 0.0
     for i, (x, y) in enumerate(zip(got, want)):
         xh, yh = host(x), host(y)
         d = rel_l2(xh, yh)
         worst = max(worst, d)
-        ok = (np.array_equal(xh, yh) if spread == 0.0
-              else d <= REPLAY_SPREAD_X * spread)
-        if i == 0:
-            ok = ok and d <= 1e-5
-        else:
-            grad_close(phase, f"{label} output {i}", xh, yh)
-        if not ok:
+        if not (spread == 0.0 and np.array_equal(xh, yh)):
             raise AssertionError(
                 f"phase {phase}: {label}: output {i} of the replay differs "
                 f"from the eager step by {d:.3g} relative L2 (eager spread "
-                f"{spread:.3g})")
+                f"{spread:.3g}): not bit for bit")
     return worst
 
 
@@ -2949,12 +2938,12 @@ def gradient_phase(intersect, dev):
     the eager step at seeds 0, 0 (its run-to-run spread) and 1 and its
     launches; the programs captured (capture seconds, graph nodes, pool
     bytes); one replay's launches against the eager step's; replays at
-    seeds 0, 1, 0 against the eager step of each seed: every gated output
-    (the loss, every gradient leaf; the flagship's and the trainer's
-    update) within REPLAY_SPREAD_X times the eager step's own spread
-    (equal where it repeats itself bit for bit) and, leaf by leaf, within
-    the card-vs-CPU bounds (GRAD_REL_L2 and GRAD_COS; the loss to 1e-5);
-    seed 1 against seed 0 as far apart as in the eager steps; the output
+    seeds 0, 1, 0 against the eager step of each seed: the eager step
+    repeats itself and every gated output (the loss, every gradient leaf;
+    the flagship's and the trainer's update) equals it bit for bit; two
+    more replays at seed 0 equal to the first (phase 31); the fixed-order
+    sum (segsum) launched; seed 1 against seed 0 as far apart as in the
+    eager steps; the output
     buffers at the same addresses replay after replay; eager steps and
     replays timed (median of 3), one of each profiled (device busy, idle
     share, host launch calls: one a program), no ``indexing_backward``
@@ -2984,7 +2973,8 @@ def gradient_phase(intersect, dev):
                                  "not finite")
         spreads = [rel_l2(host(y), host(x)) for x, y in zip(a, b)]
         spread = max(spreads)
-        if expect is not None and eager_launches != expect:
+        if expect is not None and {
+                k: eager_launches[k] for k in expect} != expect:
             raise AssertionError(f"phase 29: {label}: eager launches "
                                  f"{eager_launches}, expected {expect}")
         if expect is None and label.startswith("h"):
@@ -3012,12 +3002,24 @@ def gradient_phase(intersect, dev):
         if [[x.data_ptr() for x in p._outputs[0]] for p in progs] != ptrs:
             raise AssertionError(f"phase 29: {label}: an output buffer "
                                  "moved between replays")
+        if eager_launches["segsum"] == 0:
+            raise AssertionError(f"phase 29: {label}: the fixed-order sum "
+                                 f"(segsum) never launched ({eager_launches})")
         if check is not None:
             check(r0)
         diffs = {name: gate_replay(29, f"{label} at {name}",
                                    _floats(r, n_gated), e, spread)
                  for name, r, e in (("seed 0", r0, a), ("seed 1", r1, c),
                                     ("seed 0 again", r0b, a))}
+        # phase 31: two more replays at seed 0, every output the first's
+        # bit for bit (the updated state too, where it is not gated
+        # against eager)
+        first = [host(x) for x in _floats(r0)]
+        for _ in range(2):
+            again = [host(x) for x in _floats(replay(0))]
+            if not all(np.array_equal(x, y) for x, y in zip(again, first)):
+                raise AssertionError(f"phase 31: {label}: a repeated replay "
+                                     "at seed 0 differs from the first")
         # the first output (the loss, the masses) at seeds 1 and 0: as far
         # apart replayed as eager, and far beyond its own spread
         seed_gap = rel_l2(host(_floats(r1, 1)[0]), host(_floats(r0, 1)[0]))
@@ -3050,6 +3052,7 @@ def gradient_phase(intersect, dev):
                                  f"host launch calls, {len(progs)} programs")
         summary = {
             "eager_spread": spread, "replay_vs_eager": diffs,
+            "replay_repeats_equal": True,
             "seed_gap": seed_gap, "eager_seed_gap": eager_gap,
             "launches": replay_launches, "first_call_s": first_s,
             "capture_s": sum(p.capture_seconds for p in progs),
@@ -3345,8 +3348,7 @@ def envmap_lifetime_phase(dev):
     released and refilled with NaN, in blocks of the table's sizes on
     NAN_STREAMS streams of the pool and larger ones, and a replay: it
     must equal
-    the capture-time eager render (bit for bit where eager repeats itself,
-    else within REPLAY_SPREAD_X times its spread and phase 4's gates).
+    the capture-time eager render bit for bit (eager repeats itself).
     Returns the replay's largest difference from eager."""
     import gc
     import weakref
@@ -3394,17 +3396,326 @@ def envmap_lifetime_phase(dev):
     torch.cuda.synchronize()
     del junk
     d = float((replay - e0).abs().max())
-    share, mean_rel = image_gates(replay.reshape(-1, 3), e0.reshape(-1, 3))
     log(f"  envmap table after {SNAPSHOTS} snapshots: held by the program "
         f"{table() is not None}; replay against the eager render {d:.3g} "
         f"(eager spread {spread:.3g}; first replay {float((first - e0).abs().max()):.3g})")
-    ok = (torch.equal(replay, e0) if spread == 0.0
-          else (d <= REPLAY_SPREAD_X * spread and share >= IMG_CLOSE_FRAC
-                and mean_rel < IMG_MEAN_REL))
+    ok = spread == 0.0 and torch.equal(replay, e0)
     if table() is None or not ok or not torch.isfinite(replay).all():
         raise AssertionError("phase 30: the replay after the envmap table's "
                              f"eviction differs from eager by {d}")
     return d
+
+
+
+# -- phase 31: reproducibility ------------------------------------------------
+
+class LaunchHasher:
+    """While it stands, every K1 and K2 launch outside a capture leaves a
+    digest of its rays (o, d, active, tmax) and of its record (valid, t,
+    tri_id, uv): a position-weighted sum of each tensor's 32-bit words in
+    int64 (integer adds: one value whatever their order), on the card, and
+    its count of active rays. ``stop()`` ends it and returns [(mode, rays,
+    active rays, [8 digests])], read back once."""
+
+    def __init__(self, intersect):
+        self.intersect = intersect
+        self.k1, self.k2 = intersect.k1_cuda, intersect.k2_cuda
+        self.weights, self.rows = {}, []
+        intersect.k1_cuda, intersect.k2_cuda = self.k1_hash, self.k2_hash
+
+    def digest(self, *xs):
+        out = []
+        for x in xs:
+            v = x.detach().contiguous().reshape(-1)
+            v = (v.to(torch.int32) if v.dtype == torch.bool
+                 else v.view(torch.int32))
+            w = self.weights.get(v.numel())
+            if w is None:
+                w = self.weights[v.numel()] = (torch.arange(
+                    v.numel(), dtype=torch.int64, device=v.device)
+                    * 2654435761 % (1 << 31) + 1)
+            out.append((v.long() * w).sum())
+        return torch.stack(out)
+
+    def record(self, mode, rays, hit):
+        if not torch.cuda.is_current_stream_capturing():
+            o, d, active, tmax = rays
+            self.rows.append((mode, o.shape[0], active.sum(), self.digest(
+                o, d, active, tmax, hit.valid, hit.t, hit.tri_id, hit.uv)))
+        return hit
+
+    def k1_hash(self, bvh, ray_o, ray_d, active, tmax, any_hit=False,
+                counts=None):
+        return self.record("any" if any_hit else "closest",
+                           (ray_o, ray_d, active, tmax),
+                           self.k1(bvh, ray_o, ray_d, active, tmax,
+                                   any_hit=any_hit, counts=counts))
+
+    def k2_hash(self, *args):
+        return self.record("k2", args[3:], self.k2(*args))
+
+    def stop(self):
+        self.intersect.k1_cuda, self.intersect.k2_cuda = self.k1, self.k2
+        torch.cuda.synchronize()
+        return [(m, n, int(a), [int(v) for v in h.cpu()])
+                for m, n, a, h in self.rows]
+
+
+def hashed_trainer(intersect, dev, cfg, steps):
+    """``steps`` eager trainer steps (phase 22's: the textured bench scene
+    at ``cfg``, the occluder from ``flagship_deform``, ``Optimizer`` on its
+    vertices through every boundary term, keys 0, 1, ...) under a
+    ``LaunchHasher``: {"launches": its records, "marks": the launch count
+    after each step, "losses": each step's loss as float.hex, "vertices":
+    the final vertices as float32 bytes in hex}."""
+    import dataclasses
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.opt import Optimizer
+    from psdr_tpu_torch.testing.scenes import flagship_deform
+    sc = textured_cbox(cfg, dev)
+    sc.opts = dataclasses.replace(sc.opts, sppe=cfg["sppe"],
+                                  sppse=cfg["sppse"])
+    integ = DirectIntegrator(1, 1)
+    with torch.no_grad():
+        target = integ.render_fn(sc, with_boundary=False, detached=True)(
+            params_from_numpy(sc.params(), device=dev),
+            threefry.PRNGKey(1000))
+    mesh = sc.meshes[OCCLUDER]
+    mesh.vertex_positions = flagship_deform(np.asarray(mesh.vertex_positions))
+    opt = Optimizer(sc, [f"Mesh[{OCCLUDER}].vertex_positions"], lr=1e-2)
+    render = integ.render_fn(sc, with_boundary=True)
+
+    def loss_fn(p, key):
+        return torch.mean((render(p, key) - target) ** 2)
+    hasher = LaunchHasher(intersect)
+    marks, losses = [], []
+    try:
+        for k in range(steps):
+            losses.append(float(opt.step(loss_fn, threefry.PRNGKey(k))).hex())
+            marks.append(len(hasher.rows))
+    finally:
+        rows = hasher.stop()
+    v = host(opt.params["meshes"][OCCLUDER]["vertex_positions"])
+    return {"launches": rows, "marks": marks, "losses": losses,
+            "vertices": v.astype(np.float32).tobytes().hex()}
+
+
+def first_difference(a, b) -> str | None:
+    """Where two ``hashed_trainer`` runs part: None where they agree in
+    every launch, loss and vertex; else the first differing launch (its
+    step, kind and which digests), or what else differs."""
+    names = ("o", "d", "active", "tmax", "valid", "t", "tri_id", "uv")
+    for i, (x, y) in enumerate(zip(a["launches"], b["launches"])):
+        if x != y:
+            step = sum(1 for m in a["marks"] if m <= i)
+            return (f"launch {i} (step {step}, {x[0]}, {x[1]} rays): "
+                    + ", ".join(n for n, p, q in zip(names, x[3], y[3])
+                                if p != q))
+    for key in ("marks", "losses", "vertices"):
+        if a[key] != b[key] or len(a["launches"]) != len(b["launches"]):
+            return f"{key} differ"
+    return None
+
+
+def repro_child(path: str) -> int:
+    """The second process of phase 31: REPRO_SMALL's hashed trainer run,
+    written to ``path`` as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from psdr_tpu_torch.accel import intersect
+    intersect.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = hashed_trainer(intersect, torch.device(DEVICE), REPRO_SMALL,
+                         REPRO_STEPS)
+    with open(path, "w") as f:
+        json.dump(run, f)
+    return 0
+
+
+def boundary_lanes(intersect, dev):
+    """Phase 12's boundary step (value and gradient, eager) on a scene
+    built afresh: (its ``LaunchHasher`` records, the active rays of each of
+    its launches on the compacted 131,072-lane wavefront)."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**RENDERD, device=dev)
+    prog = DirectIntegrator(1, 1).grad_program(
+        sc, torch.zeros((sc.opts.num_pixels, 3), device=dev),
+        with_boundary=True)
+    params = params_from_numpy(sc.params(), device=dev)
+    hasher = LaunchHasher(intersect)
+    try:
+        with torch.enable_grad():
+            prog.fn(params, threefry.PRNGKey(3))
+    finally:
+        rows = hasher.stop()
+    return rows, [a for _, n, a, _ in rows if n == 131072]
+
+
+def segsum_phase(intersect, dev):
+    """Phase 31, the fixed-order sum (``core/segsum.py``, ``csrc/segsum
+    .cu``; no TPU kernel's port): the kernel against its plain version on
+    the card, bit for bit (tolerance 0), and run twice, equal; on the main
+    path's own inputs (the largest sum of an eager (e) step: the
+    recompute's face-table gather backward) and on a hot-row shape (2^20
+    lanes onto row 0, 2^19 onto row 1, the rest over 20,490 rows), a
+    cold-row one (2^21 lanes spread evenly) and a pixel one (the compacted
+    wavefront's 131,072 lanes, 3 channels); each timed (CUDA events, 20
+    launches behind the spin kernel), beside its sort, its plain version
+    and ``index_add_`` (the library call, atomic), with its bound. Returns
+    {shape: dict}, the main shape's name."""
+    from psdr_tpu_torch.core import segsum
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    seen = []
+    launch = segsum.segsum_cuda
+
+    def record(keys, values, num_rows, order=None):
+        seen.append((keys, values, num_rows, order))
+        return launch(keys, values, num_rows, order)
+    sc = cbox_scene(**BWD, device=dev)
+    prog = DirectIntegrator(1, 1).grad_program(
+        sc, torch.zeros((sc.opts.num_pixels, 3), device=dev),
+        with_boundary=False)
+    segsum.segsum_cuda = record
+    try:
+        with torch.enable_grad():
+            prog.fn(params_from_numpy(sc.params(), device=dev),
+                    threefry.PRNGKey(0))
+    finally:
+        segsum.segsum_cuda = launch
+    main = max(seen, key=lambda a: a[0].numel() * a[1].shape[1])
+    gen = np.random.default_rng(31)
+    n, faces = 1 << 21, main[2]
+    hot = np.concatenate([np.zeros(1 << 20), np.ones(1 << 19),
+                          gen.integers(2, faces, n - (1 << 20) - (1 << 19))])
+    shapes = {"main: (e)'s face-table gather backward": main}
+    for name, idx, rows, c in (
+            ("hot rows", gen.permutation(hot), faces, 32),
+            ("cold rows", gen.integers(0, faces, n), faces, 32),
+            ("pixels", gen.integers(-1, 65536, 131072), 65536, 3)):
+        idx = torch.as_tensor(idx.astype(np.int64), device=dev)
+        keys, order = segsum.sort_keys(idx, rows)
+        shapes[name] = (keys, torch.as_tensor(gen.normal(size=(
+            idx.numel(), c)).astype(np.float32), device=dev), rows, order)
+    out = {}
+    for name, (keys, values, rows, order) in shapes.items():
+        got = segsum.segsum_cuda(keys, values, rows, order)
+        again = segsum.segsum_cuda(keys, values, rows, order)
+        plain = segsum.segsum_plain(keys, values, rows, order)
+        if not (torch.equal(got, again) and torch.equal(got, plain)):
+            raise AssertionError(f"phase 31: segsum on {name}: the kernel "
+                                 f"differs from its plain version by "
+                                 f"{float((got - plain).abs().max())} or "
+                                 "from itself")
+        lane = torch.empty_like(order)
+        lane[order] = torch.arange(order.numel(), device=dev)
+        idx = keys[lane].long()          # each lane's row, in lane order
+        keep = idx >= 0
+        exact = torch.zeros(rows, values.shape[1], dtype=torch.float64,
+                            device=dev).index_add_(
+            0, idx.clamp(min=0), values.double() * keep[:, None])
+        c = values.shape[1]
+        ms, _ = time_ms(lambda: segsum.segsum_cuda(keys, values, rows, order),
+                        20, spin=True)
+        sort_ms, _ = time_ms(lambda: segsum.sort_keys(idx, rows), 20)
+        plain_ms, _ = time_ms(
+            lambda: segsum.segsum_plain(keys, values, rows, order), 3)
+        lib_ms, _ = time_ms(lambda: torch.zeros(
+            rows, c, device=dev).index_add_(0, idx.clamp(min=0), values), 20)
+        # keys (int32), the sort's order (int64) and the values read once,
+        # the rows written once, against n * c float adds
+        n = keys.numel()
+        b_ms, b_by = bound(n * (4 + 8 + 4 * c) + rows * c * 4, n * c)
+        out[name] = {"lanes": keys.numel(), "channels": c, "rows": rows,
+                     "max_abs_err": 0.0,
+                     "err_vs_float64": float((got.double() - exact).abs()
+                                             .max()),
+                     "ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_share": b_ms / ms}
+        log(f"  segsum, {name}: {keys.numel()} lanes x {c} onto {rows} "
+            f"rows: kernel = plain bit for bit and = itself; {ms:.4f} ms "
+            f"(sort {sort_ms:.4f}, plain {plain_ms:.3f}, index_add_ "
+            f"{lib_ms:.4f}), bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / ms:.3f}); against a float64 sum "
+            f"{out[name]['err_vs_float64']:.3g}")
+    return out, next(iter(shapes))
+
+
+def reproducibility_phase(intersect, dev, programs, grad_programs):
+    """Phase 31: the port repeats itself bit for bit.
+    Phases 28 and 29 already replayed each of (a)-(j) twice more at seed
+    0, every output equal to the first, and ran each eager step of (a)-(j)
+    twice, equal (their eager spread is 0; (e), (g) and (i) among them).
+    Here: REPRO_STEPS eager trainer steps at phase 22's config, twice,
+    every K1 and K2 launch's rays and record hashed (``LaunchHasher``),
+    equal launch for launch with equal losses and vertices; a second
+    process (``chip_smoke.py --repro-child``) running REPRO_SMALL's trainer
+    against the same run in this one; phase 12's boundary step on two
+    builds of its scene, equal launch for launch, its compacted
+    wavefront's active lanes equal; the fixed-order sum against its plain
+    version (``segsum_phase``). Returns (a summary, segsum_phase's)."""
+    bad = [label for label, summ in {**programs, **grad_programs}.items()
+           if summ["eager_spread"] != 0.0
+           or not summ.get("replay_repeats_equal")]
+    if bad:
+        raise AssertionError(f"phase 31: not bit for bit: {bad}")
+    log(f"  (a)-(j): each replayed three times at seed 0, equal; each "
+        f"eager step run twice, equal (phases 28, 29)")
+    t0 = time.time()
+    runs = [hashed_trainer(intersect, dev, TRAIN, REPRO_STEPS)
+            for _ in range(2)]
+    diff = first_difference(*runs)
+    if diff is not None:
+        raise AssertionError(f"phase 31: two passes of {REPRO_STEPS} eager "
+                             f"trainer steps part at {diff}")
+    log(f"  {REPRO_STEPS} eager trainer steps at {TRAIN}, twice: "
+        f"{len(runs[0]['launches'])} K1 and K2 launches each, equal launch "
+        f"for launch (rays and records), losses and vertices equal "
+        f"({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    mine = hashed_trainer(intersect, dev, REPRO_SMALL, REPRO_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "child.json")
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--repro-child", path],
+            cwd=ROOT, capture_output=True, text=True, timeout=RANK_TIMEOUT)
+        if child.returncode != 0:
+            raise AssertionError(f"phase 31: the second process failed:\n"
+                                 f"{child.stdout[-2000:]}"
+                                 f"{child.stderr[-4000:]}")
+        with open(path) as f:
+            theirs = json.load(f)
+    theirs["launches"] = [tuple(r) for r in theirs["launches"]]
+    diff = first_difference(mine, theirs)
+    if diff is not None:
+        raise AssertionError(f"phase 31: the second process parts from "
+                             f"this one at {diff}")
+    log(f"  a second process, {REPRO_STEPS} eager trainer steps at "
+        f"{REPRO_SMALL}: its {len(mine['launches'])} launches, losses and "
+        f"vertices equal this process's ({time.time() - t0:.1f} s)")
+    (rows_a, lanes_a), (rows_b, lanes_b) = (boundary_lanes(intersect, dev)
+                                            for _ in range(2))
+    if rows_a != rows_b or not lanes_a:
+        raise AssertionError(f"phase 31: phase 12's boundary step differs "
+                             f"between two builds (compacted active lanes "
+                             f"{lanes_a} / {lanes_b})")
+    log(f"  phase 12's boundary step on two builds: equal launch for launch; "
+        f"active lanes of its compacted sweeps {lanes_a}")
+    seg, main = segsum_phase(intersect, dev)
+    return {"trainer_launches": len(runs[0]["launches"]),
+            "child_launches": len(mine["launches"]),
+            "compacted_active_lanes": lanes_a}, (seg, main)
 
 
 def main() -> int:
@@ -3435,7 +3746,7 @@ def main() -> int:
     t0 = time.time()
     lib_path = intersect.build_library()
     intersect.load_library()
-    log(f"phase 2: K1, K2, K3 built in {time.time() - t0:.1f} s -> "
+    log(f"phase 2: K1, K2, K3 and segsum built in {time.time() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -3633,6 +3944,12 @@ def main() -> int:
     modes = accel_mode_phase(intersect, bvh_mod, dev)
     log(f"  render_program replayed after {SNAPSHOTS} envmap snapshots")
     envmap_lifetime_phase(dev)
+    # -- 31. reproducibility ---------------------------------------------------
+    log("phase 31: reproducibility: replays, eager steps, hashed trainer "
+        "steps in two passes and two processes, boundary lanes across "
+        "builds, the fixed-order sum against its plain version")
+    repro, (seg, seg_main) = reproducibility_phase(intersect, dev, programs,
+                                                   grad_programs)
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
     # launches: the replays of phase 29 (seeds 0, 1, 0 of each of its six
@@ -3756,6 +4073,24 @@ def main() -> int:
         "valid_mismatches": sum(n for _, n in k3_err),
         "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
         "library_ms": None, **k3_ms})
+    # the fixed-order sum: a helper of the port, no TPU kernel's port (on
+    # the TPU these sums are XLA scatter-adds); its launches are those of
+    # phase 29's replays, its times those of the main path's own inputs
+    kernels.append({
+        "name": "segsum (fixed-order segmented sum)", "route": "cuda",
+        "source": "psdr_tpu_torch/csrc/segsum.cu",
+        "replaces": "no TPU kernel (a helper of the port; XLA scatter-adds "
+                    "at psdr_tpu/core/gather.py:89, integrator/base.py:117, "
+                    "integrator/direct.py:642)",
+        "tpu_kernel_port": False,
+        "launches": grad_launches["segsum"],
+        "launches_forward_programs": prog_launches["segsum"],
+        "launches_flagship": flag_launches["segsum"],
+        "launches_trainer": train["segsum"],
+        "max_abs_err": max(v["max_abs_err"] for v in seg.values()),
+        **{k: seg[seg_main][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "shapes": seg, "reproducibility": repro})
     log(json.dumps({"programs": programs}))
     log(json.dumps({"gradient_programs": grad_programs}))
     log(json.dumps({"kernels": kernels}))
@@ -3767,4 +4102,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--repro-child":
+        sys.exit(repro_child(sys.argv[2]))
     sys.exit(main())

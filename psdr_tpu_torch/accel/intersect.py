@@ -49,7 +49,9 @@ _INF = float("inf")
 # Launches of each CUDA kernel (K1 by mode), counted where its wrapper
 # launches it and nowhere else (chip_smoke.py reads them to show the path
 # ran the kernels).
-LAUNCHES = {"closest": 0, "any": 0, "k2": 0, "k3": 0}
+# ``segsum`` is the fixed-order reduction of ``core/segsum.py`` (one count a
+# level's launch), built into the same library.
+LAUNCHES = {"closest": 0, "any": 0, "k2": 0, "k3": 0, "segsum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -118,7 +120,8 @@ def ray_intersect_k3(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
 # -- the CUDA kernels -----------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "intersect.cu", _CSRC / "brute.cu", _CSRC / "culled.cu")
+_SOURCES = (_CSRC / "intersect.cu", _CSRC / "brute.cu", _CSRC / "culled.cu",
+            _CSRC / "segsum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "psdr_tpu_torch"
@@ -133,7 +136,8 @@ def _find_nvcc() -> str | None:
 
 
 def build_library(nvcc: str | None = None) -> Path:
-    """Compile ``csrc/*.cu`` (K1, K2, K3), one ``nvcc`` per source, all
+    """Compile ``csrc/*.cu`` (K1, K2, K3 and ``core/segsum.py``'s
+    reduction), one ``nvcc`` per source, all
     started together, and link them into one library,
     ``build/psdr_tpu_torch/<hash of the sources and flags>/
     libpsdr_kernels.so``, unless that file exists. Each source's
@@ -187,8 +191,10 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
             [ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
         lib.psdr_k3_culled.argtypes = (
             [ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+        lib.psdr_segsum.argtypes = (
+            [ptr] * 3 + [i32] * 2 + [ptr, i32] + [ptr] * 3)
         for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
-                   lib.psdr_k3_culled):
+                   lib.psdr_k3_culled, lib.psdr_segsum):
             fn.restype = i32
         _LIB = lib
     return _LIB

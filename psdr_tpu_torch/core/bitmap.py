@@ -50,9 +50,9 @@ def eval_bitmap(bm: Bitmap, uv: torch.Tensor, flip_v: bool = False,
     half-texel offset, and the upper-left texel clamps to resolution - 2.
 
     The four texels of a lookup are four row gathers of the flat (H*W, C)
-    table at offsets (0, 1, W, W + 1), at every size: their backward is an
-    ``index_add_`` (``core.gather``), never the serial walk of
-    ``table[idx]``'s.
+    table at offsets (0, 1, W, W + 1), at every size: their backward is a
+    fixed-order segmented sum of the lanes sorted once (``core.gather``),
+    never the serial walk of ``table[idx]``'s.
 
     ``active`` (..., bool, optional) names the lanes whose value the caller
     keeps. The others read texels spread over the image instead of the one

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .hoist import const
+from .segsum import prefix_sum
 
 
 class Discrete(NamedTuple):
@@ -30,9 +31,11 @@ class Discrete(NamedTuple):
 
 def discrete_init(pmf: torch.Tensor) -> Discrete:
     pmf = pmf.detach()
-    # a parallel cumsum need not be monotone at f32 rounding level; the
-    # running max keeps the searches below well defined
-    cmf = torch.cummax(torch.cumsum(pmf, dim=0), dim=0).values
+    # a parallel prefix sum need not be monotone at f32 rounding level; the
+    # running max keeps the searches below well defined. prefix_sum: one
+    # order of adds on the card (a 1-D torch.cumsum there rounds otherwise
+    # from run to run)
+    cmf = torch.cummax(prefix_sum(pmf), dim=0).values
     return Discrete(pmf=pmf, cmf=cmf, total=cmf[-1])
 
 

@@ -4,27 +4,36 @@ Counterpart of ``psdr_tpu/core/gather.py``.
 The backward of ``table[idx]`` (idx: N wavefront lanes, table: F rows)
 adds N cotangent rows into F table rows. The modes choose how:
 
-- ``native``: ``torch.index_select``, whose backward is PyTorch's own,
-  an ``index_add_`` (atomic adds on the card). Plain ``table[idx]`` is not
-  used: its backward, an accumulating ``index_put_``, walks each run of
-  equal indices serially on the card, and the wavefront's lanes pile onto
-  a few rows (the walls' and the light's faces);
-- ``scatter``: an explicit ``index_add_`` of the cotangent rows (the same
-  reduction as native; it exists as a named baseline, as in JAX);
-- ``sorted``: sort the lanes by destination row, then a segment sum
-  (``torch.segment_reduce``) over the sorted rows;
+- ``native`` (the default): the lanes are sorted by row in the forward
+  (``core.segsum.sort_keys``, stable), where the table requires grad, and
+  the backward sums the cotangent rows in that order with
+  ``core.segsum.segment_sum_sorted``: one fixed order of adds, the same on
+  every run (``csrc/segsum.cu`` on the card), as XLA's scatter-add is on
+  the JAX package's chip. Neither ``index_select``'s own backward (an
+  atomic ``index_add_`` on the card, whose order changes from run to run)
+  nor plain ``table[idx]`` (an accumulating ``index_put_``, which walks
+  each run of equal indices serially on the card, while the wavefront's
+  lanes pile onto a few rows: the walls' and the light's faces);
+- ``scatter``: an explicit ``index_add_`` of the cotangent rows, the named
+  baseline as in JAX. On the card it is atomic: its sums round in another
+  order on every run;
+- ``sorted``: the same fixed-order reduction, with the sort made in the
+  backward, as the JAX package's ``sorted`` mode argsorts in its
+  transpose;
 - ``cumsum``: sort, an exclusive-padded prefix sum, and per-row
   differences at the segment bounds; no scatter at all, but float32
-  prefix sums lose precision as N grows.
+  prefix sums lose precision as N grows (and a 1-D one, a table of single
+  values, runs CUB's look-back scan on the card, whose order varies).
 
-Every mode but ``native`` is one ``torch.autograd.Function``; its forward
-mode (``jvp``) gathers the tangent rows, as the gather is linear in the
-table. ``PSDR_TPU_GATHER_VJP`` sets the process default (``native``),
-and ``set_gather_vjp_mode`` changes it.
+Every mode is one ``torch.autograd.Function``; its forward mode (``jvp``)
+gathers the tangent rows, as the gather is linear in the table.
+``PSDR_TPU_GATHER_VJP`` sets the process default (``native``), and
+``set_gather_vjp_mode`` changes it.
 
 ``select_rows`` is the JAX package's gather into a small table (up to 16
 rows): a chain of selects, whose backward is a sum over the lanes of each
-row's mask, with no scatter at all.
+row's mask, with no scatter at all. ``segment_sum`` sums values into rows
+through a host-made ``segment_table``, in the order of the positions.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ import os
 
 import numpy as np
 import torch
+
+from .segsum import segment_sum_sorted, sort_keys
 
 _MODES = ("native", "scatter", "sorted", "cumsum")
 # the process default, read at import
@@ -59,11 +70,9 @@ def _resolve(mode: str | None) -> str:
     return mode
 
 
-def _sorted_reduce(mode: str, idx_s, ct_s, F: int):
-    """Reduce cotangent rows sorted by destination into (F, ...) rows."""
-    if mode == "sorted":
-        lengths = torch.bincount(idx_s, minlength=F)
-        return torch.segment_reduce(ct_s, "sum", lengths=lengths, unsafe=True)
+def _cumsum_reduce(idx_s, ct_s, F: int):
+    """Reduce cotangent rows sorted by destination into (F, ...) rows by
+    differences of a prefix sum at the segment bounds."""
     csum = torch.cat([torch.zeros((1,) + ct_s.shape[1:], dtype=ct_s.dtype,
                                   device=ct_s.device),
                       torch.cumsum(ct_s, dim=0)])
@@ -82,7 +91,9 @@ class _GatherRows(torch.autograd.Function):
         ctx.save_for_backward(idx)
         ctx.save_for_forward(idx)
         ctx.offsets, ctx.mode, ctx.table_shape = offsets, mode, table.shape
-        return tuple(table[idx + o] for o in offsets)
+        ctx.sort = (sort_keys(idx, table.shape[0])
+                    if mode == "native" and ctx.needs_input_grad[0] else None)
+        return tuple(_index_select(table, idx + o) for o in offsets)
 
     @staticmethod
     def backward(ctx, *cts):
@@ -90,21 +101,32 @@ class _GatherRows(torch.autograd.Function):
         shape, mode = ctx.table_shape, ctx.mode
         rf = idx.reshape(-1)
         rows = [ct.reshape((-1,) + ct.shape[idx.ndim:]) for ct in cts]
-        d = torch.zeros(shape, dtype=rows[0].dtype, device=rows[0].device)
         if mode == "scatter":
+            d = torch.zeros(shape, dtype=rows[0].dtype, device=rows[0].device)
             for o, ct in zip(ctx.offsets, rows):
                 d.index_add_(0, rf + o, ct)
             return d, None, None, None
-        order = torch.argsort(rf, stable=True)
-        idx_s = rf[order]
+        if mode == "cumsum":
+            order = torch.argsort(rf, stable=True)
+            idx_s = rf[order]
+            d = torch.zeros(shape, dtype=rows[0].dtype, device=rows[0].device)
+            for o, ct in zip(ctx.offsets, rows):
+                d = d + _cumsum_reduce(idx_s + o, ct[order], shape[0])
+            return d, None, None, None
+        keys, order = ctx.sort or sort_keys(idx, shape[0])
+        d = None
         for o, ct in zip(ctx.offsets, rows):
-            d = d + _sorted_reduce(mode, idx_s + o, ct[order], shape[0])
+            part = segment_sum_sorted(
+                torch.where(keys >= 0, keys + o, -1) if o else keys,
+                ct.reshape(ct.shape[0], -1).float().contiguous(), shape[0],
+                order).reshape(shape).to(ct.dtype)
+            d = part if d is None else d + part
         return d, None, None, None
 
     @staticmethod
     def jvp(ctx, t_table, _idx, _offsets, _mode):
         (idx,) = ctx.saved_tensors
-        return tuple(t_table[idx + o] for o in ctx.offsets)
+        return tuple(_index_select(t_table, idx + o) for o in ctx.offsets)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
@@ -124,11 +146,8 @@ def gather_rows_offsets(table: torch.Tensor, idx: torch.Tensor,
                         mode: str | None = None) -> tuple[torch.Tensor, ...]:
     """``tuple(table[idx + o] for o in offsets)`` sharing one backward
     sort."""
-    mode = _resolve(mode)
-    idx = idx.long()
-    if mode == "native":
-        return tuple(_index_select(table, idx + o) for o in offsets)
-    return _GatherRows.apply(table, idx, tuple(offsets), mode)
+    return _GatherRows.apply(table, idx.long(), tuple(offsets),
+                             _resolve(mode))
 
 
 def segment_table(index, n: int) -> np.ndarray:
@@ -147,17 +166,54 @@ def segment_table(index, n: int) -> np.ndarray:
     return table
 
 
-def segment_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``zeros(n).index_add_(0, index, values)`` for ``table =
-    segment_table(index, n)``, summed one slot at a time in the order of
-    the positions: bit for bit a sequential scatter-add (the CPU's), on the
-    card too, where an atomic scatter-add sums in another order on every
-    run. Differentiable in both modes (row gathers and adds)."""
+class _SegmentSum(torch.autograd.Function):
+    """``segment_sum``: the forward sums slot by slot; the backward is the
+    transpose, a gather of each position's row of the cotangent (no
+    scatter); the forward mode sums the tangents as the forward does."""
+
+    @staticmethod
+    def forward(ctx, values, table):
+        ctx.save_for_backward(table)
+        ctx.save_for_forward(table)
+        ctx.n_values = values.shape[0]
+        return _slot_sum(values, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (table,) = ctx.saved_tensors
+        n, k = table.shape
+        # each position's destination: position i sits in row d of the
+        # table; the padding slots all name position n_values, which is
+        # dropped (the only index written twice)
+        rows = torch.arange(n, dtype=table.dtype, device=table.device)
+        dest = torch.full((ctx.n_values + 1,), n, dtype=table.dtype,
+                          device=table.device).scatter_(
+            0, table.reshape(-1), rows[:, None].expand(n, k).reshape(-1))
+        ext = torch.cat([g, torch.zeros_like(g[:1])])
+        return torch.index_select(ext, 0, dest[:-1]), None
+
+    @staticmethod
+    def jvp(ctx, t_values, _table):
+        (table,) = ctx.saved_tensors
+        return _slot_sum(t_values, table)
+
+
+def _slot_sum(values, table):
     pad = torch.cat([values, torch.zeros_like(values[:1])])
     out = torch.index_select(pad, 0, table[:, 0])
     for k in range(1, table.shape[1]):
         out = out + torch.index_select(pad, 0, table[:, k])
     return out
+
+
+def segment_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``zeros(n).index_add_(0, index, values)`` for ``table =
+    segment_table(index, n)``, summed one slot at a time in the order of
+    the positions: bit for bit a sequential scatter-add (the CPU's), on the
+    card too, where an atomic scatter-add sums in another order on every
+    run. Differentiable in both modes; the backward gathers (no
+    scatter-add)."""
+    return _SegmentSum.apply(values, table)
 
 
 def select_rows(table: torch.Tensor, idx: torch.Tensor,

@@ -33,6 +33,7 @@ from ..core import threefry
 from ..core.constants import RayEpsilon
 from ..core.gather import gather_rows
 from ..core.hoist import const, memo
+from ..core.segsum import index_sum
 from ..core.math import ray_intersect_triangle, scrub_nonfinite
 from ..core.records import Ray, RenderOptions, any_requires_grad
 from ..core.sampler import RngStream, ld_2d
@@ -125,12 +126,10 @@ def tile_pos_to_pixel(pos: torch.Tensor, width: int, height: int,
 
 def accumulate_image(value: torch.Tensor, pixel_idx: torch.Tensor,
                      num_pixels: int) -> torch.Tensor:
-    """Sum sample values into a (num_pixels, 3) image; lanes with
-    ``pixel_idx < 0`` go to an overflow row that is dropped."""
-    idx = torch.where(pixel_idx >= 0, pixel_idx, num_pixels).long()
-    img = torch.zeros((num_pixels + 1, 3), dtype=value.dtype,
-                      device=value.device)
-    return img.index_add(0, idx, value)[:num_pixels]
+    """Sum sample values into a (num_pixels, 3) image, each pixel's lanes
+    in one fixed order (``core.segsum.index_sum``); lanes with
+    ``pixel_idx < 0`` are dropped."""
+    return index_sum(value, pixel_idx, num_pixels)
 
 
 def _checkpointed(fn):
@@ -327,8 +326,8 @@ class Integrator:
         rows = tile_img.shape[0]
         rel = inv_order - start // spp
         in_range = (rel >= 0) & (rel < rows)
-        img = torch.where(in_range[..., None],
-                          tile_img[torch.clamp(rel, 0, rows - 1)], 0.0)
+        img = torch.where(in_range[..., None], gather_rows(
+            tile_img, torch.clamp(rel, 0, rows - 1)), 0.0)
         return img / spp
 
     # -- primary boundary ------------------------------------------------------

@@ -36,6 +36,7 @@ from ..core.math import (bilinear, cross, dot, norm, normalize,
                          ray_intersect_triangle, scrub_nonfinite, sqr,
                          squared_norm)
 from ..core.records import Ray, detach_tree
+from ..core.segsum import segment_sum_sorted
 from ..core.sampler import RngStream, ld_2d
 from ..program import Program
 from ..emitter.envmap import envmap_eval_direction
@@ -253,8 +254,9 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
     ``reso`` = (r0, r1, r2, samples per cell); each of ``nrounds`` rounds
     puts every cell's samples through ``eval_value(flat_det, sample3, rng)
     -> (n, 3)`` magnitudes and adds the per-cell sums of their largest
-    channel. The rounds are a loop without a graph and the per-cell sum an
-    ``index_add_`` (atomic adds on the card).
+    channel. The rounds are a loop without a graph and the per-cell sum a
+    fixed-order one (``core.segsum.segment_sum_sorted``: the lanes come in
+    cell order).
 
     All rounds run as one ``Program`` over the key (``PRNGKey(seed)`` on
     the scene's device; the JAX package's jitted ``lax.scan``), kept in
@@ -295,6 +297,9 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
         lanes = start + torch.arange(count, device=dev)
         idx = torch.where(lanes < n, lanes // spp_cell, num_cells)
         base = hc.cells[torch.clamp(idx, max=num_cells - 1)].float()
+        # the lanes' cells ascend (the overflow cell last): sorted keys of a
+        # fixed-order sum, which then needs no sort
+        cell_keys = idx.to(torch.int32)
 
         def masses(key):
             """Every round's cell masses, summed (rank ``mesh.rank``'s
@@ -315,8 +320,9 @@ def _guiding_table(scene: Scene, reso, nrounds: int, seed: int, mesh,
                     flat_det, (base + u3) * hc.unit, rng))
                 if spp_cell > 1:
                     value0 = value0 / spp_cell
-                mass = mass + torch.zeros_like(mass).index_add_(
-                    0, idx, value0.amax(dim=-1))
+                mass = mass + segment_sum_sorted(
+                    cell_keys, value0.amax(dim=-1)[:, None].contiguous(),
+                    num_cells + 1).reshape(-1)
             return mass[:num_cells]
 
         prog = cache[k] = Program(masses, f"guiding table ({kind})")

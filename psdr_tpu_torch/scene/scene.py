@@ -781,7 +781,7 @@ def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
         t=torch.where(valid, hit_e.t, float("inf")))
     # the recompute reads only emitter rows here: select them from the
     # compact (E, 32) emitter slice of the face table
-    rows = select_rows(flat.face_table[idxs], e_local)
+    rows = select_rows(gather_rows(flat.face_table, idxs), e_local)
     return ray_intersect(flat, ray, active, path_space=True, hit=hit,
                          rows=rows, want_tri_info=want_tri_info)
 
@@ -999,7 +999,8 @@ def sec_edge_rows(flat: FlatScene, edge_idx: torch.Tensor,
     row gathers: the endpoint and edge vector, which carry the gradient
     (left out, as None, without ``with_ends``), and the columns that are
     read detached. The lanes are sorted by edge, so equal indices come in
-    long runs: gather_rows (backward: index_add_), not table[idx]."""
+    long runs: gather_rows (backward: a fixed-order segmented sum), not
+    table[idx]."""
     se = flat.sec_edge
     p0 = e1 = None
     if with_ends:

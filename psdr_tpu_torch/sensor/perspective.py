@@ -132,10 +132,10 @@ def build_primary_edges(state: SensorState, vertex_positions: torch.Tensor,
     else:
         keep = (~has_two) | ((dot(e0, n0) > Epsilon) ^ (dot(e1, n1) > Epsilon))
 
-    q0 = xform.transform_pos(state.world_to_sample,
-                             vertex_positions[ei[:, 0]])
-    q1 = xform.transform_pos(state.world_to_sample,
-                             vertex_positions[ei[:, 1]])
+    # one row gather (core.gather), whose backward sums in one fixed order
+    q0, q1 = xform.transform_pos(state.world_to_sample, gather_rows(
+        vertex_positions, torch.cat([ei[:, 0], ei[:, 1]]))).split(
+            ei.shape[0])
 
     e = q1.detach()[..., :2] - q0.detach()[..., :2]
     length = norm(e)
@@ -195,7 +195,8 @@ def sample_primary_edge(state: SensorState,
     idx, pdf, s = discrete_sample_reuse(edges.distrb, sample1)
     # two packed row gathers: the endpoints, which carry the gradient, and
     # the detached columns. Lanes sorted by edge read long runs of equal
-    # rows: gather_rows, whose backward is an index_add_, not table[idx]
+    # rows: gather_rows (a fixed-order segmented sum backward), not
+    # table[idx]
     ends = gather_rows(torch.cat([edges.p0, edges.p1], dim=1), idx)
     rest = gather_rows(torch.cat(
         [edges.edge_normal, edges.edge_length[:, None],

@@ -14,7 +14,8 @@ from ..core import transform as xform
 from ..core import warp
 from ..core.constants import EdgeEpsilon
 from ..core.distribution import Discrete, discrete_sample_reuse
-from ..core.gather import segment_sum, segment_table, select_rows
+from ..core.gather import (gather_rows, segment_sum, segment_table,
+                           select_rows)
 from ..core.hoist import memo, upload
 from ..core.math import bilinear, cross, norm, normalize
 from ..core.records import PositionSample
@@ -62,9 +63,11 @@ def compute_triangle_info(vertex_positions: torch.Tensor,
     direction from run to run, which discrete tests downstream (hit or
     miss, a boundary sample's validity) amplify."""
     faces = faces.long()
-    p0 = vertex_positions[faces[:, 0]]
-    p1 = vertex_positions[faces[:, 1]]
-    p2 = vertex_positions[faces[:, 2]]
+    nf = faces.shape[0]
+    # corner i of face f at row i * F + f, as the corner table counts them;
+    # row gathers (core.gather), whose backward sums in one fixed order
+    corner = faces.t().reshape(-1)
+    p0, p1, p2 = gather_rows(vertex_positions, corner).split(nf)
     e1 = p1 - p0
     e2 = p2 - p0
 
@@ -75,9 +78,9 @@ def compute_triangle_info(vertex_positions: torch.Tensor,
     vw = segment_sum(torch.cat([fa, fa, fa]), corners)
     vn = normalize(vn / torch.clamp(vw, min=1e-20)[:, None])
 
+    n0, n1, n2 = gather_rows(vn, corner).split(nf)
     info = TriangleInfo(
-        p0=p0, e1=e1, e2=e2,
-        n0=vn[faces[:, 0]], n1=vn[faces[:, 1]], n2=vn[faces[:, 2]],
+        p0=p0, e1=e1, e2=e2, n0=n0, n1=n1, n2=n2,
         face_normal=fn / torch.clamp(fa, min=1e-20)[:, None],
         face_area=fa * 0.5,
     )
@@ -92,11 +95,13 @@ def compute_sec_edge_info(vertex_positions: torch.Tensor,
     ei = torch.as_tensor(edge_indices, device=vertex_positions.device).long()
     is_boundary = ei[:, 3] < 0
     f1 = torch.clamp(ei[:, 3], min=0)
-    p0 = vertex_positions[ei[:, 0]]
-    e1 = vertex_positions[ei[:, 1]] - p0
-    n0 = tri_info.face_normal[ei[:, 2]]
-    n1 = torch.where(is_boundary[:, None], n0, tri_info.face_normal[f1])
-    p2 = vertex_positions[ei[:, 4]]
+    ne = ei.shape[0]
+    p0, p1, p2 = gather_rows(vertex_positions, torch.cat(
+        [ei[:, 0], ei[:, 1], ei[:, 4]])).split(ne)
+    e1 = p1 - p0
+    n0, fn1 = gather_rows(tri_info.face_normal,
+                          torch.cat([ei[:, 2], f1])).split(ne)
+    n1 = torch.where(is_boundary[:, None], n0, fn1)
     # dihedral filter: drop edges whose adjacent faces are (nearly) coplanar
     keep = (torch.sum(n0 * n1, dim=-1) < 1.0 - EdgeEpsilon) | is_boundary
     return SecondaryEdgeInfo(valid=keep, is_boundary=is_boundary,

@@ -12,7 +12,9 @@ and the gradient programs (``grad_program``, the optimizer's update, a
 guiding build, ``VJPProgram``) against their eager steps; and the scene
 queries: K1 on sorted rays against unsorted, the compacted occlusion sweep
 against the dense one, ``accel_mode="culled"`` through K3, and a program
-replayed after its envmap table left the host cache.
+replayed after its envmap table left the host cache; and the fixed-order
+sums: the segsum kernel against its plain version, the prefix sum, a
+backward step, a guiding build and five trainer steps run twice, equal.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -1061,3 +1063,92 @@ def test_program_replays_after_its_envmap_table_left_the_cache(cuda):
     assert torch.isfinite(late).all()
     assert float((late - first).abs().max()) <= 8.0 * spread
     del junk
+
+
+# -- reproducibility: the fixed-order sums ---------------------------------------
+
+@pytest.mark.parametrize("shape", ["hot", "cold", "pixels"])
+def test_segsum_kernel_equals_its_plain_version(cuda, shape):
+    """``csrc/segsum.cu`` against ``segsum_plain`` on the same CUDA
+    tensors, bit for bit, and run twice, equal: 2^20 lanes onto two hot
+    rows and 20,490 cold ones (32 columns), lanes spread evenly, and
+    131,072 pixel lanes of 3 channels with dropped lanes."""
+    from psdr_tpu_torch.core import segsum
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    idx, rows, c = {
+        "hot": (rng.permutation(np.concatenate([
+            np.zeros(n // 2), np.ones(n // 4),
+            rng.integers(2, 20492, n - n // 2 - n // 4)])), 20492, 32),
+        "cold": (rng.integers(0, 20492, n), 20492, 32),
+        "pixels": (rng.integers(-1, 65536, 131072), 65536, 3)}[shape]
+    idx = torch.as_tensor(idx.astype(np.int64), device=cuda)
+    values = torch.as_tensor(rng.normal(size=(idx.numel(), c)).astype(
+        np.float32), device=cuda)
+    keys, order = segsum.sort_keys(idx, rows)
+    before = intersect.LAUNCHES["segsum"]
+    got = segsum.segsum_cuda(keys, values, rows, order)
+    assert intersect.LAUNCHES["segsum"] > before
+    assert torch.equal(got, segsum.segsum_cuda(keys, values, rows, order))
+    assert torch.equal(got, segsum.segsum_plain(keys, values, rows, order))
+
+
+def test_prefix_sum_repeats_itself_on_the_card(cuda):
+    """``prefix_sum`` of 300,000 floats run 200 times gives one result (a
+    1-D ``torch.cumsum`` there gives many: CUB's look-back scan)."""
+    from psdr_tpu_torch.core import segsum
+    x = torch.rand(300000, device=cuda)
+    first = segsum.prefix_sum(x)
+    assert all(torch.equal(segsum.prefix_sum(x), first) for _ in range(200))
+    assert float((first.double() - torch.cumsum(x.double(), 0)).abs().max()
+                 ) <= 1e-6 * float(first[-1])
+
+
+def test_backward_step_and_guiding_build_repeat_bit_for_bit(cuda):
+    """Two eager runs of ``grad_program``'s body with every boundary term
+    (64x64, spp 4, sppe 2, sppse 16) give equal losses and gradients bit
+    for bit, and two guiding builds at one seed equal masses."""
+    from torch.utils._pytree import tree_flatten
+    sc = cbox_scene(64, 64, spp=4, sppe=2, sppse=16, occluder_subdiv=3,
+                    device=cuda)
+    integ = DirectIntegrator(1, 1)
+    prog = integ.grad_program(sc, torch.zeros(64 * 64, 3, device=cuda),
+                              with_boundary=True)
+    p = params_from_numpy(sc.params(), device=cuda)
+    with torch.enable_grad():
+        a, b = (tree_flatten(prog.fn(p, threefry.PRNGKey(3)))[0]
+                for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    masses = []
+    for _ in range(2):
+        integ.preprocess_secondary_edges(sc, 0, (8, 3, 3, 4), nrounds=2,
+                                         seed=3)
+        masses.append(integ.warpper[0].distrb.pmf.clone())
+    assert torch.equal(*masses) and float(masses[0].sum()) > 0
+
+
+def test_five_trainer_steps_repeat_bit_for_bit(cuda):
+    """Five ``Optimizer.step``s on the occluder's vertices through every
+    boundary term (32x32, spp 4, sppe 2, sppse 16), twice from the same
+    start: equal losses and vertices bit for bit."""
+    from psdr_tpu_torch.opt import Optimizer
+    from psdr_tpu_torch.testing.scenes import flagship_deform
+    runs = []
+    for _ in range(2):
+        sc = cbox_scene(32, 32, spp=4, sppe=2, sppse=16, occluder_subdiv=3,
+                        device=cuda)
+        integ = DirectIntegrator(1, 1)
+        with torch.no_grad():
+            target = integ.render_fn(sc, with_boundary=False, detached=True)(
+                params_from_numpy(sc.params(), cuda), threefry.PRNGKey(9))
+        sc.meshes[5].vertex_positions = flagship_deform(
+            np.asarray(sc.meshes[5].vertex_positions))
+        opt = Optimizer(sc, ["Mesh[5].vertex_positions"], lr=1e-2)
+        render = integ.render_fn(sc, with_boundary=True)
+        losses = [opt.step(lambda q, k: torch.mean((render(q, k) - target)
+                                                   ** 2), threefry.PRNGKey(s))
+                  for s in range(5)]
+        runs.append((losses, opt.params["meshes"][5]["vertex_positions"]
+                     .clone()))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
