@@ -3564,18 +3564,22 @@ def segsum_phase(intersect, dev):
     .cu``; no TPU kernel's port): the kernel against its plain version on
     the card, bit for bit (tolerance 0), and run twice, equal; on the main
     path's own inputs (the largest sum of an eager (e) step: the
-    recompute's face-table gather backward) and on a hot-row shape (2^20
-    lanes onto row 0, 2^19 onto row 1, the rest over 20,490 rows), a
-    cold-row one (2^21 lanes spread evenly) and a pixel one (the compacted
-    wavefront's 131,072 lanes, 3 channels); each timed (CUDA events, 20
+    recompute's face-table gather backward, and the same step's vertex
+    gather of the occluder, 61,440 corners x 3 onto 10,242 vertices) and
+    on ``bench_kernels.segsum_cases``: a hot-row shape (2^20 lanes onto row
+    0, 2^19 onto row 1, the rest over 20,490 rows), a cold-row one (2^21
+    lanes spread evenly), a pixel one (the compacted wavefront's 131,072
+    lanes, 3 channels) and the guiding masses (GUIDING's 864 lanes x 1, in
+    cell order: no sort, no ``order``); each timed (CUDA events, 20
     launches behind the spin kernel), beside its sort, its plain version
-    and ``index_add_`` (the library call, atomic), with its bound. Returns
-    {shape: dict}, the main shape's name."""
-    from psdr_tpu_torch.core import segsum
-    from psdr_tpu_torch.testing.scenes import cbox_scene
+    and ``index_add_`` (the library call, atomic), with its bound and its
+    launches a sum. Returns {shape: dict}, the main shape's name."""
     from psdr_tpu_torch import DirectIntegrator
     from psdr_tpu_torch.convert import params_from_numpy
-    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.core import segsum, threefry
+    from psdr_tpu_torch.testing.bench_kernels import (segsum_bytes,
+                                                      segsum_cases)
+    from psdr_tpu_torch.testing.scenes import cbox_scene
     seen = []
     launch = segsum.segsum_cuda
 
@@ -3594,22 +3598,25 @@ def segsum_phase(intersect, dev):
     finally:
         segsum.segsum_cuda = launch
     main = max(seen, key=lambda a: a[0].numel() * a[1].shape[1])
-    gen = np.random.default_rng(31)
-    n, faces = 1 << 21, main[2]
-    hot = np.concatenate([np.zeros(1 << 20), np.ones(1 << 19),
-                          gen.integers(2, faces, n - (1 << 20) - (1 << 19))])
-    shapes = {"main: (e)'s face-table gather backward": main}
-    for name, idx, rows, c in (
-            ("hot rows", gen.permutation(hot), faces, 32),
-            ("cold rows", gen.integers(0, faces, n), faces, 32),
-            ("pixels", gen.integers(-1, 65536, 131072), 65536, 3)):
-        idx = torch.as_tensor(idx.astype(np.int64), device=dev)
-        keys, order = segsum.sort_keys(idx, rows)
-        shapes[name] = (keys, torch.as_tensor(gen.normal(size=(
-            idx.numel(), c)).astype(np.float32), device=dev), rows, order)
+    verts = sc.meshes[OCCLUDER].vertex_positions.shape[0]
+    vertex = next(a for a in seen if a[2] == verts and a[1].shape[1] == 3)
+    shapes = {}
+    for name, (keys, values, rows, order) in (
+            ("main: (e)'s face-table gather backward", main),
+            ("vertex gather", vertex)):
+        lane = torch.empty_like(order)
+        lane[order] = torch.arange(order.numel(), device=dev)
+        shapes[name] = (keys, values, rows, order, keys[lane].long())
+    for name, (idx, rows, values, pre) in segsum_cases(
+            dev, main[2]).items():
+        keys, order = ((idx.to(torch.int32), None) if pre
+                       else segsum.sort_keys(idx, rows))
+        shapes[name] = (keys, values, rows, order, idx)
     out = {}
-    for name, (keys, values, rows, order) in shapes.items():
+    for name, (keys, values, rows, order, idx) in shapes.items():
+        before = intersect.LAUNCHES["segsum"]
         got = segsum.segsum_cuda(keys, values, rows, order)
+        levels = intersect.LAUNCHES["segsum"] - before
         again = segsum.segsum_cuda(keys, values, rows, order)
         plain = segsum.segsum_plain(keys, values, rows, order)
         if not (torch.equal(got, again) and torch.equal(got, plain)):
@@ -3617,36 +3624,37 @@ def segsum_phase(intersect, dev):
                                  f"differs from its plain version by "
                                  f"{float((got - plain).abs().max())} or "
                                  "from itself")
-        lane = torch.empty_like(order)
-        lane[order] = torch.arange(order.numel(), device=dev)
-        idx = keys[lane].long()          # each lane's row, in lane order
-        keep = idx >= 0
+        keep = idx >= 0                  # each lane's row, in lane order
         exact = torch.zeros(rows, values.shape[1], dtype=torch.float64,
                             device=dev).index_add_(
             0, idx.clamp(min=0), values.double() * keep[:, None])
         c = values.shape[1]
         ms, _ = time_ms(lambda: segsum.segsum_cuda(keys, values, rows, order),
                         20, spin=True)
-        sort_ms, _ = time_ms(lambda: segsum.sort_keys(idx, rows), 20)
+        sort_ms = (None if order is None else
+                   time_ms(lambda: segsum.sort_keys(idx, rows), 20,
+                           spin=True)[0])
         plain_ms, _ = time_ms(
             lambda: segsum.segsum_plain(keys, values, rows, order), 3)
         lib_ms, _ = time_ms(lambda: torch.zeros(
-            rows, c, device=dev).index_add_(0, idx.clamp(min=0), values), 20)
+            rows, c, device=dev).index_add_(0, idx.clamp(min=0), values), 20,
+            spin=True)
         # keys (int32), the sort's order (int64) and the values read once,
         # the rows written once, against n * c float adds
         n = keys.numel()
-        b_ms, b_by = bound(n * (4 + 8 + 4 * c) + rows * c * 4, n * c)
-        out[name] = {"lanes": keys.numel(), "channels": c, "rows": rows,
-                     "max_abs_err": 0.0,
+        b_ms, b_by = bound(segsum_bytes(n, rows, c, order is not None), n * c)
+        out[name] = {"lanes": n, "channels": c, "rows": rows,
+                     "launches": levels, "max_abs_err": 0.0,
                      "err_vs_float64": float((got.double() - exact).abs()
                                              .max()),
                      "ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bound_share": b_ms / ms}
-        log(f"  segsum, {name}: {keys.numel()} lanes x {c} onto {rows} "
-            f"rows: kernel = plain bit for bit and = itself; {ms:.4f} ms "
-            f"(sort {sort_ms:.4f}, plain {plain_ms:.3f}, index_add_ "
-            f"{lib_ms:.4f}), bound {b_ms:.4f} ms by {b_by} "
+        sort_txt = "none" if sort_ms is None else f"{sort_ms:.4f}"
+        log(f"  segsum, {name}: {n} lanes x {c} onto {rows} rows, "
+            f"{levels} launches: kernel = plain bit for bit and = itself; "
+            f"{ms:.4f} ms (sort {sort_txt}, plain {plain_ms:.3f}, "
+            f"index_add_ {lib_ms:.4f}), bound {b_ms:.4f} ms by {b_by} "
             f"({b_ms / ms:.3f}); against a float64 sum "
             f"{out[name]['err_vs_float64']:.3g}")
     return out, next(iter(shapes))
@@ -4087,6 +4095,9 @@ def main() -> int:
         "launches_forward_programs": prog_launches["segsum"],
         "launches_flagship": flag_launches["segsum"],
         "launches_trainer": train["segsum"],
+        "launches_per_program": {
+            label[0]: summ["launches"]["segsum"]
+            for label, summ in {**programs, **grad_programs}.items()},
         "max_abs_err": max(v["max_abs_err"] for v in seg.values()),
         **{k: seg[seg_main][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},

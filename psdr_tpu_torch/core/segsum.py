@@ -12,10 +12,12 @@ scatter-add and scan), so the port's default path uses these instead:
 * ``segment_sum_sorted(keys, values, num_rows, order)``: ``out[k] = sum of
   values[order[i]] over the lanes i with keys[i] == k``, for keys sorted
   ascending (a key below 0 is dropped), in the fixed order of
-  ``csrc/segsum.cu`` (its module comment): chunks of ``CHUNK`` lanes, a
-  segmented scan inside each, the chunks' pieces of a row added level by
-  level. CUDA tensors launch the kernel (``segsum_cuda``), CPU tensors run
-  ``segsum_plain``, the same order in tensor code, bit for bit;
+  ``csrc/segsum.cu`` (its module comment): each run added left to right
+  inside spans of ``SPAN`` lanes, the spans' pieces joined by a segmented
+  scan over the ``SPANS`` spans of a block, the blocks' pieces of a row
+  added level by level. CUDA tensors launch the kernel (``segsum_cuda``),
+  CPU tensors run ``segsum_plain``, the same order in tensor code, bit for
+  bit;
 * ``sort_keys(idx, num_rows)``: the stable sort of lane indices into
   (keys, order), one sort for every sum keyed by ``idx``; entries outside
   ``[0, num_rows)`` become the dropped key -1;
@@ -31,19 +33,25 @@ from __future__ import annotations
 
 import torch
 
-CHUNK = 256        # lanes a chunk (csrc/segsum.cu kChunk)
+SPAN = 32          # lanes a span: one chain of adds (csrc/segsum.cu kSpan)
+SPANS = 64         # spans a block, one CTA (kSpans)
+BLOCK = SPAN * SPANS
 SCAN_ROW = 1024    # entries a row of prefix_sum's scan on the card
 
 
 def sort_keys(idx: torch.Tensor, num_rows: int):
     """(keys int32 (n,), order int64 (n,)): ``idx`` flattened, entries
     outside ``[0, num_rows)`` set to -1, stably sorted; ``order`` gives the
-    lane of each sorted entry."""
+    lane of each sorted entry. Below 2^15 rows the sort runs on int16 keys
+    (the same permutation: the sort is stable; a radix sort makes half the
+    passes)."""
     if num_rows >= (1 << 31):
         raise ValueError("segment sums index rows with int32")
     idx = idx.reshape(-1)
-    keys = torch.where((idx >= 0) & (idx < num_rows), idx, -1).to(torch.int32)
-    return torch.sort(keys, stable=True)
+    narrow = torch.int16 if num_rows < (1 << 15) else torch.int32
+    keys = torch.where((idx >= 0) & (idx < num_rows), idx, -1).to(narrow)
+    keys, order = torch.sort(keys, stable=True)
+    return keys.to(torch.int32), order
 
 
 def segment_sum_sorted(keys: torch.Tensor, values: torch.Tensor,
@@ -60,26 +68,46 @@ def segment_sum_sorted(keys: torch.Tensor, values: torch.Tensor,
 
 def segsum_plain(keys, values, num_rows: int, order=None) -> torch.Tensor:
     """``csrc/segsum.cu``'s reduction in tensor code, level by level, add
-    for add: the kernel's plain version."""
+    for add: the kernel's plain version. Reads ``SPAN`` and ``SPANS`` when
+    called."""
     c = values.shape[1]
     dev = values.device
+    span, spans = SPAN, SPANS
+    block = span * spans
     out = torch.zeros((num_rows + 1, c), dtype=values.dtype, device=dev)
     vals = values if order is None else torch.index_select(values, 0, order)
     first = True
-    while True:
+    while keys.shape[0] > 0:
         n = keys.shape[0]
-        if n == 0:
-            break
-        nb = -(-n // CHUNK)
-        pad = nb * CHUNK - n
-        k = torch.cat([keys, keys.new_full((pad,), -1)]).reshape(nb, CHUNK)
-        v = torch.cat([vals, vals.new_zeros((pad, c))]).reshape(nb, CHUNK, c)
+        nb = -(-n // block)
+        pad = nb * block - n
+        k = torch.cat([keys, keys.new_full((pad,), -1)]).reshape(-1, span)
+        v = torch.cat([vals, vals.new_zeros((pad, c))]).reshape(-1, span, c)
+        # 1. each run of a span left to right: acc[:, j] sums lane j's run
+        # from its first lane in the span up to lane j
+        acc = v.clone()
+        for j in range(1, span):
+            acc[:, j] = torch.where((k[:, j] == k[:, j - 1])[:, None],
+                                    acc[:, j - 1] + v[:, j], v[:, j])
+        # 2. the spans' last pieces, scanned within the block by key
+        tk = k[:, -1].reshape(nb, spans)
+        z = acc[:, -1].reshape(nb, spans, c)
         s = 1
-        while s < CHUNK:
-            same = (k[:, s:] == k[:, :-s])[..., None]
-            v = torch.cat([v[:, :s], torch.where(same, v[:, s:] + v[:, :-s],
-                                                 v[:, s:])], dim=1)
+        while s < spans:
+            same = (tk[:, s:] == tk[:, :-s])[..., None]
+            z = torch.cat([z[:, :s], torch.where(same, z[:, s:] + z[:, :-s],
+                                                 z[:, s:])], dim=1)
             s *= 2
+        # a run that entered its span from the span before adds that span's
+        # scan to its first piece
+        entered = torch.zeros((nb, spans), dtype=torch.bool, device=dev)
+        entered[:, 1:] = tk[:, :-1] == k[:, 0].reshape(nb, spans)[:, 1:]
+        first_piece = torch.cumprod((k == k[:, :1]).int(), dim=1).bool()
+        prev = torch.cat([z.new_zeros((nb, 1, c)), z[:, :-1]], dim=1)
+        acc = torch.where((entered.reshape(-1, 1) & first_piece)[..., None],
+                          prev.reshape(-1, 1, c) + acc, acc)
+        # 3. the runs' ends in the block: owners and heads
+        k = k.reshape(nb, block)
         before = torch.cat([k.new_full((1,), -1), k[:-1, -1]])
         open_ = (k[:, 0] >= 0) & (before == k[:, 0])
         run_end = torch.ones_like(k, dtype=torch.bool)
@@ -87,31 +115,32 @@ def segsum_plain(keys, values, num_rows: int, order=None) -> torch.Tensor:
         head = run_end & open_[:, None] & (k == k[:, :1])
         owner = run_end & ~head & (k >= 0)
         dst = torch.where(owner, k, num_rows).reshape(-1).long()
-        flat = v.reshape(-1, c)
+        flat = acc.reshape(-1, c)
         out = out.index_put((dst,), flat if first else out[dst] + flat)
         out[num_rows] = 0.0
         if nb == 1:
             break
-        # each chunk's head: its first run's sum where that run is open
-        last = torch.where(head, torch.arange(CHUNK, device=dev), -1).amax(1)
+        # each block's head: its first run's sum where that run is open
+        last = torch.where(head, torch.arange(block, device=dev), -1).amax(1)
         keys = torch.where(open_, k[:, 0], -1)
-        vals = torch.where(open_[:, None], v[torch.arange(nb, device=dev),
-                                             torch.clamp(last, min=0)], 0.0)
+        vals = torch.where(open_[:, None], acc.reshape(nb, block, c)[
+            torch.arange(nb, device=dev), torch.clamp(last, min=0)], 0.0)
         first = False
     return out[:num_rows]
 
 
 def segsum_cuda(keys, values, num_rows: int, order=None) -> torch.Tensor:
-    """Launch ``csrc/segsum.cu`` on the current stream, one launch a level
-    (``accel.intersect.LAUNCHES["segsum"]`` counts each)."""
+    """Launch ``csrc/segsum.cu`` on the current stream, one launch a level:
+    two up to ``BLOCK ** 2`` lanes (``accel.intersect.LAUNCHES["segsum"]``
+    counts each)."""
     from ..accel import intersect as lib_mod
     dev = values.device
     if dev.type != "cuda":
         raise ValueError(f"segsum_cuda takes CUDA tensors, got {dev}")
     m, c = values.shape
     n = keys.shape[0]
-    if n >= (1 << 31):
-        raise ValueError("segsum indexes lanes with int32")
+    if n >= (1 << 31) or m >= (1 << 31):
+        raise ValueError("segsum indexes lanes and rows with int32")
     specs = [("keys", keys, torch.int32, (n,)),
              ("values", values, torch.float32, (m, c))]
     if order is not None:
@@ -123,7 +152,7 @@ def segsum_cuda(keys, values, num_rows: int, order=None) -> torch.Tensor:
     lib = lib_mod.load_library()
     vals, accumulate = values, 0
     while True:
-        nb = -(-n // CHUNK)
+        nb = -(-n // BLOCK)
         heads = ((torch.empty((nb,), dtype=torch.int32, device=dev),
                   torch.empty((nb, c), dtype=torch.float32, device=dev))
                  if nb > 1 else (None, None))

@@ -18,10 +18,12 @@ mode of ``core/gather.py``), on the CPU, where CUDA tensors are absent:
   sum of the row's absolute cotangents (both float32 sums, in other
   orders), and both against a float64 sum; the forward mode (jvp) bit for
   bit;
-* ``segsum_plain``, the order of ``csrc/segsum.cu`` (chunks of 256 lanes,
-  levels of chunk heads), against a float64 sum over sizes that take one to
-  three levels, dropped keys and column counts above the kernel's channel
-  group; ``index_sum`` forward, backward and forward mode; ``segment_sum``'s
+* ``segsum_plain``, the order of ``csrc/segsum.cu`` (runs added left to
+  right in spans of 32 lanes, the spans' pieces scanned over blocks of 64
+  spans, levels of block heads; ``test_torch_segsum.py`` pins it), against
+  a float64 sum over sizes that take one or two levels, dropped keys and
+  column counts above the kernel's channel group; ``index_sum`` forward,
+  backward and forward mode; ``segment_sum``'s
   backward, a gather, equal to the scatter-add's VJP bit for bit;
 * ``prefix_sum``'s row scan (the card's form) against a float64 running sum;
 * the guiding tables of both integrators against the JAX package's
@@ -225,8 +227,8 @@ def test_default_gather_backward_of_hot_rows_matches_jax():
                                       (65537, 7, 2), (70000, 2, 33)])
 def test_segsum_plain_sums_every_row(n, rows, c):
     """``segsum_plain`` (the kernel's order) against a float64 sum: within
-    4e-7 of each row's sum of absolute values, over one to three levels of
-    chunk heads, keys of -1 dropped, and more columns than the kernel's
+    4e-7 of each row's sum of absolute values, over one or two levels of
+    block heads, keys of -1 dropped, and more columns than the kernel's
     channel group of 32; the sorted keys of ``sort_keys``."""
     rng = np.random.default_rng(n)
     idx = torch.as_tensor(rng.integers(-1, rows, n))

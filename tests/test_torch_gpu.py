@@ -1067,12 +1067,16 @@ def test_program_replays_after_its_envmap_table_left_the_cache(cuda):
 
 # -- reproducibility: the fixed-order sums ---------------------------------------
 
-@pytest.mark.parametrize("shape", ["hot", "cold", "pixels"])
+@pytest.mark.parametrize("shape", ["hot", "cold", "pixels", "one row",
+                                   "x1", "x9", "x33"])
 def test_segsum_kernel_equals_its_plain_version(cuda, shape):
     """``csrc/segsum.cu`` against ``segsum_plain`` on the same CUDA
     tensors, bit for bit, and run twice, equal: 2^20 lanes onto two hot
-    rows and 20,490 cold ones (32 columns), lanes spread evenly, and
-    131,072 pixel lanes of 3 channels with dropped lanes."""
+    rows and 20,490 cold ones (32 columns), lanes spread evenly, 131,072
+    pixel lanes of 3 channels with dropped lanes, every lane on one row,
+    and the narrow and wide widths: 1 column in cell order without
+    ``order`` (the guiding masses), 9 columns (two spans a warp) and 33
+    (a second channel group)."""
     from psdr_tpu_torch.core import segsum
     rng = np.random.default_rng(7)
     n = 1 << 20
@@ -1081,11 +1085,17 @@ def test_segsum_kernel_equals_its_plain_version(cuda, shape):
             np.zeros(n // 2), np.ones(n // 4),
             rng.integers(2, 20492, n - n // 2 - n // 4)])), 20492, 32),
         "cold": (rng.integers(0, 20492, n), 20492, 32),
-        "pixels": (rng.integers(-1, 65536, 131072), 65536, 3)}[shape]
+        "pixels": (rng.integers(-1, 65536, 131072), 65536, 3),
+        "one row": (np.full(n, 3), 20492, 32),
+        "x1": (np.arange(n) // 4, n // 4 + 1, 1),
+        "x9": (rng.integers(-1, 5000, n), 5000, 9),
+        "x33": (rng.integers(-1, 20492, n), 20492, 33)}[shape]
     idx = torch.as_tensor(idx.astype(np.int64), device=cuda)
     values = torch.as_tensor(rng.normal(size=(idx.numel(), c)).astype(
         np.float32), device=cuda)
     keys, order = segsum.sort_keys(idx, rows)
+    if shape == "x1":
+        keys, order = idx.to(torch.int32), None
     before = intersect.LAUNCHES["segsum"]
     got = segsum.segsum_cuda(keys, values, rows, order)
     assert intersect.LAUNCHES["segsum"] > before
