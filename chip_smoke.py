@@ -231,7 +231,54 @@ Every phase passes or the script exits nonzero:
     active lanes; and the fixed-order sum (``csrc/segsum.cu``, a helper of
     the port, no TPU kernel's port) against its plain version bit for bit
     on the main path's own inputs and on hot-row, cold-row and pixel
-    shapes, timed beside ``index_add_``.
+    shapes, timed beside ``index_add_``;
+32. the main path of this slice, the reference's representative gradient
+    configuration (BASELINE.md:16): ``preprocess_secondary_edges`` at
+    GUIDING_REF (40000 x 5 x 5 cells, 2 samples a cell, 16 rounds:
+    2,000,000 lanes a round) on phase 12's scene, its first call (eager
+    warm-up, capture, replay), its body eagerly, a build at another seed
+    (replayed, profiled) and a second build at the first seed: replay =
+    eager and build = build bit for bit, every mass finite and >= 0, some
+    positive, the cmf non-decreasing and ending at the total; the guided
+    boundary step at phase 12's config, eager (warm-up, three timed steps,
+    one profiled step without an ``indexing_backward`` kernel in its top
+    ten, the gradient unlike the unguided one) and as ``grad_program``
+    against its eager step at seeds 0, 1, 0 bit for bit (phase 29's gates);
+    the share of a secondary-edge chunk's lanes that are valid, guided and
+    unguided; K1 and K2 at the guided chunk's compacted shapes (524,288
+    lanes) and one round's per-cell sum onto 1,000,001 rows (segsum), each
+    against its plain version and timed; and what the table buys
+    (``scripts/bench_guiding_scale.py``'s measurement): the variance of the
+    boundary derivative image over VARIANCE_SEEDS keys, guided against
+    unguided, below VARIANCE_RATIO. The kernels line's
+    ``launches_guided_boundary`` are the build's first call's and the
+    three timed steps';
+33. the main path of this slice, gradients above ``remat_lanes`` (2^23),
+    where ``remat_passes="auto"`` checkpoints every pass chunk:
+    ``PathTracer(3)`` on ``env_bench_scene`` at 512x512, spp 64 (2^24
+    lanes), eager (peak memory, launches, every leaf finite, its image
+    against the forward's at the same key under phase 4's gates) and as
+    ``grad_program`` (first call, a replay, each equal to eager bit for
+    bit, one profiled replay); ``remat_passes`` True against False at phase
+    19's config (2^22 lanes) eagerly, and at 2^24 lanes on the bench scene
+    under ``DirectIntegrator(1, 1)`` eager and replayed: every form's loss
+    and every leaf equal bit for bit, with the seconds and peak memory of
+    each. The kernels line's ``launches_checkpointed`` are the timed eager
+    step's at 2^24 lanes (a checkpointed backward launches its chunks'
+    kernels again);
+34. the configurations never run on the card before, each on the card
+    against the CPU (``untried_configs``: at 64x64, env_bench_scene's
+    boundary step at 16x16):
+    ``PathTracer(3, camera_depth=3)``'s boundary step, the guided
+    ``PathTracer(2, camera_depth=2)`` under both tables (the card's
+    carried across to the CPU after their masses matched),
+    ``DirectIntegrator(1, 1)``'s boundary step on ``env_bench_scene``,
+    ``DirectIntegrator(2, 2)``, ``camera_hit_prior``,
+    ``primary_edge_vis_check``, the stratified sampler with and without
+    ``stratify_primary`` and the independent one, ``hide_emitters`` on both
+    integrators, ``PathTracer(6)``, and ``PSDR_TPU_VIS_REUSE=off``,
+    ``=bern`` (q 0.0625) and ``PSDR_TPU_SSE_COMPACT=0``: images under phase
+    4's gates, loss and every leaf under phase 10's bounds.
 
 With "auto" on the card every scene query of phases 5-29 runs on K1
 through the sort and the compaction where the JAX package's call site
@@ -249,8 +296,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -327,7 +378,7 @@ SHARD_LANES_SPP = 15
 SHARD_KEY = 11
 MV_RANKS = 3
 MV_STEPS = 3
-MV_SPREAD_RUNS = 3      # runs of phase 26's emulation in each of 3 processes
+MV_SPREAD_RUNS = 2      # runs of phase 26's emulation in each of 3 processes
 # the SGD rate of the checked train steps (phases 25, 26): a step of 1e3
 # times a gradient stands far above the float32 rounding of the parameter
 # it moves, so the updated params carry the gradient's digits (at a rate
@@ -344,9 +395,36 @@ K2_LAUNCHES = 200       # launches per timed run of the emitter-first sweep
 QUERY_REPS = 20         # launches per timed piece of a sort or a compaction
 # phase 31: eager trainer steps hashed launch by launch, twice, at TRAIN;
 # and the same count at REPRO_SMALL in this process and in a second one
-REPRO_STEPS = 30
+REPRO_STEPS = 15
 REPRO_SMALL = dict(width=32, height=32, spp=4, sppe=2, sppse=16,
                    occluder_subdiv=3)
+# phase 32: the reference's representative gradient configuration
+# (BASELINE.md:16): phase 12's boundary step under a secondary-edge guiding
+# table of 40000 x 5 x 5 cells at 2 samples a cell built over 16 rounds
+# (scripts/bench_guiding_scale.py): 1,000,000 cells, 2,000,000 lanes a
+# round. Then what the table buys, as that script measures it: the
+# variance of the boundary derivative image over VARIANCE_SEEDS keys,
+# guided against unguided, on its scene (VARIANCE), below VARIANCE_RATIO
+# (the JAX package's bar, tests/test_reference_parity.py:277)
+GUIDING_REF = dict(reso=(40000, 5, 5, 2), nrounds=16, seed=5)
+VARIANCE = dict(width=64, height=64, spp=0, sppse=64, occluder_subdiv=3)
+VARIANCE_SEEDS = 4
+VARIANCE_RATIO = 0.8
+# phase 34: the configurations never run on the card before, each against
+# the CPU at phases 4, 10 and 13's 64x64 (SMALL, SMALL_BOUNDARY): a lane
+# whose hit differs between K1 and k1_plain (the cull-margin rule) changes
+# a whole path, which at 32x32 weighs four times more in the loss and the
+# image mean (read there: 2.4e-5 of the loss under PathTracer(3,
+# camera_depth=3), 1.16e-4 of the image mean from one pixel under
+# DirectIntegrator(2, 2)); env_bench_scene's boundary step at 16x16, whose
+# CPU run is the costliest
+UNTRIED_ENV_BOUNDARY = dict(width=16, height=16, spp=2, sppe=2, sppse=4)
+UNTRIED_GUIDING = dict(reso=(4, 4, 4, 2), nrounds=2, seed=3)
+# ... whose CPU side runs in a second process from the start, beside the
+# card's phases, on two threads at the lowest priority (nice 19), so that
+# it takes the cores that the host's launches leave idle
+CPU_REFERENCE_THREADS = 2
+CPU_REFERENCE_TIMEOUT = 900     # seconds phase 34 waits for it at most
 SNAPSHOTS = 9           # radiance snapshots that evict a frozen envmap table
 NAN_STREAMS = 64        # streams that refill the freed memory (2 x the pool)
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
@@ -421,6 +499,22 @@ def check_any_hits(label, args, tris, hk, hp):
     log(f"  {label}: {vk.sum()} / {vk.size} occluded, t against the plain "
         f"MT on the kernel's triangle; valid equal, max |dt| {err:.3g}")
     return err, n_bad
+
+
+@contextlib.contextmanager
+def switches(env):
+    """The environment switches ``env`` set for the block and restored
+    after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def time_ms(fn, reps: int, warmup: bool = True, spin: bool = False):
@@ -790,54 +884,71 @@ def k3_phase(intersect, bvh_mod, dev, k1_bound):
                                dense_floor_ms=floor_ms)
 
 
-def grad_step(render, base, dev, key):
+def grad_step(render, base, dev, key, image=False):
     """value_and_grad of mean(img^2) (the bench.py loss, target 0) with
-    respect to every params leaf: (loss, [grad per leaf])."""
+    respect to every params leaf: (loss, [grad per leaf]), and the image
+    last with ``image``."""
     from psdr_tpu_torch.convert import params_from_numpy
     p = params_from_numpy(base, device=dev, requires_grad=True)
-    loss = torch.mean(render(p, key) ** 2)
+    img = render(p, key)
+    loss = torch.mean(img ** 2)
     loss.backward()
     leaves = [x for k in ("meshes", "bsdfs", "emitters", "sensors")
               for d in p[k] for x in d.values()]
-    return loss.detach(), [x.grad for x in leaves]
+    out = (loss.detach(), [x.grad for x in leaves])
+    return (*out, img.detach()) if image else out
 
 
-def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
-    """Phases 8, 10, 13 and 17: the gradient of ``make_scene(**scene,
-    device=...)`` (default ``cbox_scene`` at 64x64, spp 4, interior only)
-    under ``integ`` (default ``DirectIntegrator(1, 1)``) on the card
-    (twice, to read the spread of the backward's scatter-adds) against the
-    CPU; with boundary samples in ``scene``, through
-    ``render_fn(with_boundary=True)``, and each boundary term's image must
-    be exactly zero on both devices. Returns the largest relative L2
-    difference of a leaf, card against CPU."""
-    from psdr_tpu_torch import DirectIntegrator
+def grad_run(phase, make_scene, scene, integ, d, opts=None, tables=None,
+             carry=None):
+    """One device's run of a gradient check: the scene ``make_scene(
+    **scene, device=d)`` with the ``RenderOptions`` fields ``opts``
+    replaced; ``tables(integ, sc)`` builds guiding tables, and ``carry`` (a
+    ``guiding_state``) then takes their place; value_and_grad of mean(img^2)
+    through ``render_fn(with_boundary=...)`` at PRNGKey(7), and with
+    boundary samples in ``scene`` each boundary term's image exactly zero.
+    Returns (loss, [each leaf's gradient, flat numpy], the image as numpy
+    (pixels, 3), the guiding state built on ``d`` or None)."""
+    import dataclasses
+
     from psdr_tpu_torch.convert import params_from_numpy
     from psdr_tpu_torch.core import threefry
-    from psdr_tpu_torch.testing.scenes import cbox_scene
-    scene = scene or SMALL
-    make_scene = make_scene or cbox_scene
     boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
-    integ = integ or DirectIntegrator(1, 1)
-    out = []
-    for d in (dev, dev, torch.device("cpu")):
-        sc = make_scene(**scene, device=d)
-        render = integ.render_fn(sc, with_boundary=boundary)
-        loss, g = grad_step(render, sc.params(), d, threefry.PRNGKey(7))
-        out.append((float(loss), [x.cpu().numpy().ravel() for x in g]))
-        if boundary:
-            with torch.no_grad():
-                flat = sc.build(params_from_numpy(sc.params(), device=d))
-                for name, term in (("primary", integ.render_primary_edges),
-                                   ("secondary",
-                                    integ.render_secondary_edges)):
-                    img = term(sc, flat, 0, threefry.PRNGKey(7))
-                    if (img.shape != (sc.opts.num_pixels, 3)
-                            or bool(img.any())):
-                        raise AssertionError(
-                            f"phase {phase}: the {name}-edge image is not "
-                            f"exactly zero on {d}")
-    (l_a, g_a), (_, g_b), (l_c, g_c) = out
+    sc = make_scene(**scene, device=d)
+    if opts:
+        sc.opts = dataclasses.replace(sc.opts, **opts)
+    state = None
+    if tables is not None:
+        tables(integ, sc)
+        state = guiding_state(integ)
+        if carry is not None:
+            carry_tables(integ, carry, d)
+    render = integ.render_fn(sc, with_boundary=boundary)
+    loss, g, img = grad_step(render, sc.params(), d, threefry.PRNGKey(7),
+                             image=True)
+    if boundary:
+        with torch.no_grad():
+            flat = sc.build(params_from_numpy(sc.params(), device=d))
+            for name, term in (("primary", integ.render_primary_edges),
+                               ("secondary", integ.render_secondary_edges)):
+                t_img = term(sc, flat, 0, threefry.PRNGKey(7))
+                if (t_img.shape != (sc.opts.num_pixels, 3)
+                        or bool(t_img.any())):
+                    raise AssertionError(
+                        f"phase {phase}: the {name}-edge image is not "
+                        f"exactly zero on {d}")
+    return (float(loss), [x.cpu().numpy().ravel() for x in g],
+            img.cpu().numpy().reshape(-1, 3), state)
+
+
+def grad_compare(phase, runs, boundary, images=False):
+    """Two card runs and a CPU run of ``grad_run`` under phase 10's bounds:
+    the loss within 1e-5 relative, each leaf finite on the card and within
+    GRAD_REL_L2 relative L2 of the CPU's plus the card's run-to-run spread
+    (0 since the sums are fixed-order), cosine GRAD_COS; with ``images``
+    the card's image against the CPU's under phase 4's gates. Returns the
+    largest relative L2 difference of a leaf."""
+    (l_a, g_a, img_a, _), (_, g_b, _, _), (l_c, g_c, img_c, _) = runs
 
     def rel(x, y):
         ny = np.linalg.norm(y)
@@ -858,9 +969,11 @@ def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
                 np.linalg.norm(a) * np.linalg.norm(c)))
     loss_rel = abs(l_a - l_c) / l_c
     log(f"  loss card {l_a:.8f} / CPU {l_c:.8f} (relative {loss_rel:.3g}); "
-        f"card run-to-run spread (atomic adds) {spread:.3g}; card vs CPU per "
+        f"card run-to-run spread {spread:.3g}; card vs CPU per "
         f"leaf: worst relative L2 {worst:.3g} (bound {GRAD_REL_L2} + spread "
         f"= {tol:.3g}), worst cosine {worst_cos:.7f} (bound {GRAD_COS})")
+    if images:
+        image_gate(phase, "card and CPU images", img_a, img_c)
     if loss_rel > 1e-5 or worst > tol or worst_cos < GRAD_COS:
         raise AssertionError(f"phase {phase}: card and CPU gradients "
                              "disagree")
@@ -870,11 +983,33 @@ def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
     return worst
 
 
+def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
+    """Phases 8, 10, 13 and 17: the gradient of ``make_scene(**scene,
+    device=...)`` (default ``cbox_scene`` at 64x64, spp 4, interior only)
+    under ``integ`` (default ``DirectIntegrator(1, 1)``) on the card
+    (twice, to read its run-to-run spread, which is 0 since the sums are
+    fixed-order) against the CPU (``grad_run``, ``grad_compare``); with
+    boundary samples in ``scene``, through ``render_fn(with_boundary=
+    True)``, and each boundary term's image must be exactly zero on both
+    devices. Returns the largest relative L2 difference of a leaf, card
+    against CPU."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    scene = scene or SMALL
+    make_scene = make_scene or cbox_scene
+    boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
+    integ = integ or DirectIntegrator(1, 1)
+    runs = [grad_run(phase, make_scene, scene, integ, d)
+            for d in (dev, dev, torch.device("cpu"))]
+    return grad_compare(phase, runs, boundary)
+
+
 def guiding_phase(dev):
     """Phase 11: ``preprocess_secondary_edges`` at GUIDING's size on the
     card (twice: the first call warms up, the second is timed) against the
     CPU: the cell masses within rtol 1e-4 (atol 1e-4 of the largest cell:
-    the per-cell sums are atomic adds on the card). Then one guided
+    the per-cell sums add in one fixed order on both, but the lanes'
+    values round apart between the card's ops and the CPU's). Then one guided
     boundary step on the card under that table: every leaf finite, the
     gradient unlike the unguided one."""
     from psdr_tpu_torch import DirectIntegrator
@@ -919,6 +1054,42 @@ def guiding_phase(dev):
     if not moved > 0.0:
         raise AssertionError("phase 11: guiding changed no gradient")
     return t_card
+
+
+def guiding_state(integ) -> dict:
+    """The guiding tables ``integ`` holds as numpy, ``{(attribute,
+    sensor): (resolution, pmf, cmf)}``: the secondary-edge ones
+    (``warpper``) and the PathTracer's indirect ones (``ind_warpper``)."""
+    return {(attr, k): (hc.resolution, host(hc.distrb.pmf),
+                        host(hc.distrb.cmf))
+            for attr in ("warpper", "ind_warpper")
+            for k, hc in getattr(integ, attr, {}).items()}
+
+
+def tables_match(phase, mine, theirs):
+    """Two devices' guiding tables (``guiding_state``s): the same tables,
+    their masses within rtol 1e-4 (atol 1e-4 of the largest cell), as
+    phase 11."""
+    if mine.keys() != theirs.keys():
+        raise AssertionError(f"phase {phase}: tables {sorted(mine)} on the "
+                             f"card, {sorted(theirs)} on the CPU")
+    for key, (reso, pmf, _) in mine.items():
+        ref = theirs[key][1]
+        np.testing.assert_allclose(
+            pmf, ref, rtol=1e-4, atol=1e-4 * ref.max(),
+            err_msg=f"phase {phase}: card and CPU masses of {key} differ")
+        log(f"  {key[0]}[{key[1]}] {reso}: {int((pmf > 0).sum())} of "
+            f"{pmf.size} cells with mass, card = CPU within rtol 1e-4")
+
+
+def carry_tables(integ, state, device):
+    """Put the tables of ``state`` (a ``guiding_state``, cmf and all) into
+    ``integ`` on ``device``, so that it draws the other device's
+    samples."""
+    from psdr_tpu_torch.convert import hypercube_from_numpy
+    for (attr, k), (reso, pmf, cmf) in state.items():
+        getattr(integ, attr)[k] = hypercube_from_numpy(reso, pmf, cmf,
+                                                       device=device)
 
 
 def require_launches(phase, launches):
@@ -985,11 +1156,13 @@ def profile_step(fn, label):
     return [e.key for e in top], busy, adds_ms
 
 
-def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None):
-    """Phases 5, 14 and 18: the forward of ``integ`` on ``sc`` (default:
-    the bench scene at bench.py's config): one warm-up frame, three timed
-    frames (host clock around a synchronize), then one profiled frame.
-    Returns (the launch counts of the three timed frames, the last frame's
+def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None,
+                  profile=True):
+    """Phases 5, 14, 18, 21 and 24: the forward of ``integ`` on ``sc``
+    (default: the bench scene at bench.py's config): one warm-up frame,
+    three timed frames (host clock around a synchronize), then, with
+    ``profile``, one profiled frame (phases 21 and 24, which repeat phase
+    5's and 18's configurations, skip it). Returns (the launch counts of the three timed frames, the last frame's
     image mean, the median frame seconds)."""
     from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import cbox_scene
@@ -1022,7 +1195,8 @@ def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None):
         f"sample); image mean {img.mean():.6f}; peak memory "
         f"{peak / 2**30:.2f} GiB; launches over 3 frames {launches}")
     # where the time goes: one profiled frame, device time by kernel
-    profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
+    if profile:
+        profile_step(lambda: render(params, threefry.PRNGKey(9)), "frame")
     return launches, float(img.mean()), dt
 
 
@@ -1118,67 +1292,55 @@ def boundary_phase(intersect, dev):
             base, dev, first_key=20)[0]
         log(f"  {label}: steps {', '.join(f'{t:.3f}' for t in t_times)} s; "
             f"median {float(np.median(t_times)):.3f} s")
-    k1_shapes, k2_shapes, err = boundary_shapes(intersect, sc, dev)
+    k1_shapes, k2_shapes, err, _ = boundary_shapes(intersect, sc, dev)
     return launches, k1_shapes, k2_shapes, err
 
 
-def boundary_shapes(intersect, sc, dev):
+def boundary_shapes(intersect, sc, dev, warp=None, tally=None):
     """K1 and K2 at the boundary step's shapes, each compared with its
     plain version, timed, and counted for its bound: the concatenated -/+
     camera sweep of one primary-edge chunk (K1 closest), and on the
     compacted wavefront of one secondary-edge chunk the emitter-first sweep
     (K2), its occlusion sweep (K1 any) and the opposite closest hit (K1
     closest). The rays are made as ``render_primary_edges`` and
-    ``render_secondary_edges`` make them."""
-    from psdr_tpu_torch.core import threefry
+    ``render_secondary_edges`` make them. With ``warp`` (a guiding table)
+    only the secondary-edge chunk, its samples warped by the table and
+    compacted at the guided keep, as ``_boundary_pass`` does, the shapes
+    named "guided ...", and K1 held through ``tolerant`` (its lanes unlike
+    ``k1_plain`` counted into ``tally``). Returns ({shape: dict} of K1, the
+    same of K2, {mode: [(max |dt|, valid mismatches), ...]} with K2's under
+    "k2", the share of the secondary-edge chunk's lanes that are valid)."""
     from psdr_tpu_torch.core.constants import ShadowEpsilon
     from psdr_tpu_torch.core.math import normalize
     from psdr_tpu_torch.core.records import Ray
-    from psdr_tpu_torch.core.sampler import RngStream
     from psdr_tpu_torch.integrator.direct import (_compact_boundary_lanes,
                                                   _compact_eligibility,
                                                   _emitter_meta)
     from psdr_tpu_torch.scene.scene import (detach_flat,
                                             sample_boundary_segment_direct)
-    from psdr_tpu_torch.sensor.perspective import sample_primary_edge
-    opts = sc.opts
     err = {"closest": [], "any": [], "k2": []}
     k1_shapes, k2_shapes = {}, {}
+    guided = "" if warp is None else "guided "
     with torch.no_grad():
         flat = detach_flat(sc.build(sc.params()))
-        compare = comparer(err, (flat.tri.p0, flat.tri.e1, flat.tri.e2))
-        # one primary-edge chunk
-        m = min(max(1, opts.pass_lanes // 2), opts.num_pixels * opts.sppe)
-        rng = RngStream(threefry.PRNGKey(11), salt=1, device=dev)
-        pes = sample_primary_edge(flat.sensors[0],
-                                  torch.sort(rng.next_1d(m)).values)
-        valid = pes.idx >= 0
-        edges = flat.sensors[0].edges
-        log(f"  primary edges: {int(edges.valid.sum())} silhouette edges of "
-            f"{edges.valid.numel()}; {int(valid.sum())} of {m} lanes valid")
-        rays = Ray(torch.cat([pes.ray_n.o, pes.ray_p.o]),
-                   torch.cat([pes.ray_n.d, pes.ray_p.d]))
-        name = "primary-edge -/+ camera sweep"
-        k1_shapes[name] = k1_shape(
-            intersect, name, False,
-            k1_args(flat, rays, torch.cat([valid, valid]), None), compare)
+        tris = (flat.tri.p0, flat.tri.e1, flat.tri.e2)
+        compare = (comparer(err, tris) if warp is None
+                   else tolerant(intersect, err, tris, tally))
+        if warp is None:
+            primary_edge_shape(intersect, sc, flat, dev, compare, k1_shapes)
         # one secondary-edge chunk, compacted
-        m = min(opts.pass_lanes, opts.num_pixels * opts.sppse)
-        rng = RngStream(threefry.PRNGKey(12), salt=2, device=dev)
-        sample3 = rng.next_3d(m)
-        sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
-        s, ks = _compact_eligibility(m)
-        emeta = _emitter_meta(sc)
-        everywhere = torch.ones((m,), dtype=torch.bool, device=dev)
-        bss_v = sample_boundary_segment_direct(
-            flat, sc.face_offset, emeta, sample3, everywhere).valid
+        sample3, bss_v, rng = secondary_chunk(sc, flat, dev, warp)
+        m = bss_v.numel()
+        s, ks = _compact_eligibility(m, guided=warp is not None)
         idx, weight, live = _compact_boundary_lanes(
             bss_v, sample3[:, 0], rng.next_1d(m), s, ks)
         bss = sample_boundary_segment_direct(
-            flat, sc.face_offset, emeta, sample3[idx], everywhere[idx])
-        log(f"  secondary edges: {int(flat.sec_edge.valid.sum())} candidate "
-            f"edges of {flat.sec_edge.valid.numel()}; {int(bss_v.sum())} of "
-            f"{m} lanes valid ({float(bss_v.float().mean()):.4f}); segments "
+            flat, sc.face_offset, _emitter_meta(sc), sample3[idx],
+            torch.ones_like(idx, dtype=torch.bool))
+        share = float(bss_v.float().mean())
+        log(f"  {guided}secondary edges: {int(flat.sec_edge.valid.sum())} "
+            f"candidate edges of {flat.sec_edge.valid.numel()}; "
+            f"{int(bss_v.sum())} of {m} lanes valid ({share:.4f}); segments "
             f"of {s} keep {ks}: {idx.numel()} lanes, {int(live.sum())} live, "
             f"largest weight {float(weight.max()):.3f}")
         p0 = bss.p0.contiguous()
@@ -1188,22 +1350,46 @@ def boundary_shapes(intersect, sc, dev):
         k2_args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
                                                     flat.tri.e2)),
                    p0, direction, bss.valid, inf)
-        name = "secondary-edge emitter-first sweep, compacted"
+        name = f"{guided}secondary-edge emitter-first sweep, compacted"
         e, k2_shapes[name] = k2_timed(intersect, k2_args, name,
                                       f"{idx.numel()} segment rays")
         err["k2"].append(e)
         hit_e = intersect.k2_cuda(*k2_args)
         valid_e = hit_e.valid & bss.valid
         tmax = torch.where(valid_e, hit_e.t, 0.0) - ShadowEpsilon
-        name = "secondary-edge occlusion sweep, compacted"
+        name = f"{guided}secondary-edge occlusion sweep, compacted"
         k1_shapes[name] = k1_shape(
             intersect, name, True,
             k1_args(flat, Ray(p0, direction), valid_e, tmax), compare)
-        name = "secondary-edge opposite closest hit, compacted"
+        name = f"{guided}secondary-edge opposite closest hit, compacted"
         k1_shapes[name] = k1_shape(
             intersect, name, False,
             k1_args(flat, Ray(p0, -direction), valid_e, None), compare)
-    return k1_shapes, k2_shapes, err
+    return k1_shapes, k2_shapes, err, share
+
+
+def primary_edge_shape(intersect, sc, flat, dev, compare, k1_shapes):
+    """K1 on the concatenated -/+ camera sweep of one primary-edge chunk
+    of ``sc`` (``boundary_shapes``), into ``k1_shapes``."""
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.core.records import Ray
+    from psdr_tpu_torch.core.sampler import RngStream
+    from psdr_tpu_torch.sensor.perspective import sample_primary_edge
+    opts = sc.opts
+    m = min(max(1, opts.pass_lanes // 2), opts.num_pixels * opts.sppe)
+    rng = RngStream(threefry.PRNGKey(11), salt=1, device=dev)
+    pes = sample_primary_edge(flat.sensors[0],
+                              torch.sort(rng.next_1d(m)).values)
+    valid = pes.idx >= 0
+    edges = flat.sensors[0].edges
+    log(f"  primary edges: {int(edges.valid.sum())} silhouette edges of "
+        f"{edges.valid.numel()}; {int(valid.sum())} of {m} lanes valid")
+    rays = Ray(torch.cat([pes.ray_n.o, pes.ray_p.o]),
+               torch.cat([pes.ray_n.d, pes.ray_p.d]))
+    name = "primary-edge -/+ camera sweep"
+    k1_shapes[name] = k1_shape(
+        intersect, name, False,
+        k1_args(flat, rays, torch.cat([valid, valid]), None), compare)
 
 
 def path_forward_shapes(intersect, dev):
@@ -1293,11 +1479,8 @@ def path_boundary_phase(intersect, dev):
     if any("indexing_backward" in k for k in top):
         raise AssertionError("phase 16: an indexing_backward kernel is among "
                              "the step's top ten")
-    os.environ["PSDR_TPU_FUSED_BOUNDARY"] = "0"
-    try:
+    with switches({"PSDR_TPU_FUSED_BOUNDARY": "0"}):
         steps("separate passes (PSDR_TPU_FUSED_BOUNDARY=0)")
-    finally:
-        del os.environ["PSDR_TPU_FUSED_BOUNDARY"]
     k1_shapes, err = path_boundary_shapes(intersect, sc, dev)
     return launches, k1_shapes, err
 
@@ -1360,19 +1543,27 @@ def render_match(dev, phase, label, make_scene, scene, integ, tiers):
     within IMG_MEAN_REL."""
     imgs = [integ.renderC(make_scene(**scene, device=d), seed=7).cpu()
             .numpy().reshape(-1, 3) for d in (dev, torch.device("cpu"))]
-    mean_rel = abs(imgs[0].mean() - imgs[1].mean()) / abs(imgs[1].mean())
+    image_gate(phase, f"card and CPU renders of {label}", *imgs, tiers)
+
+
+def image_gate(phase, label, got, want, tiers=((IMG_RTOL, IMG_CLOSE_FRAC),)):
+    """Image ``got`` against ``want`` (numpy, (pixels, 3)) under phase 4's
+    gates: for each (rtol, share) of ``tiers`` at least ``share`` of the
+    pixels within rtol (atol IMG_ATOL), the means within IMG_MEAN_REL, every
+    pixel of ``got`` finite. Returns the share at the first tier."""
+    mean_rel = abs(got.mean() - want.mean()) / abs(want.mean())
     shares = [(rtol, share, float(np.isclose(
-        imgs[0], imgs[1], rtol=rtol, atol=IMG_ATOL).all(axis=-1).mean()))
+        got, want, rtol=rtol, atol=IMG_ATOL).all(axis=-1).mean()))
         for rtol, share in tiers]
     log(f"  {label}: " + ", ".join(
-        f"{got:.6f} of pixels within rtol {rtol} (bound {share})"
-        for rtol, share, got in shares)
-        + f"; image means {imgs[0].mean():.6f} / {imgs[1].mean():.6f}, "
+        f"{s:.6f} of pixels within rtol {rtol} (bound {share})"
+        for rtol, share, s in shares)
+        + f"; image means {got.mean():.6f} / {want.mean():.6f}, "
         f"relative difference {mean_rel:.3g}")
-    if (not np.isfinite(imgs[0]).all() or mean_rel >= IMG_MEAN_REL
-            or any(got < share for _, share, got in shares)):
-        raise AssertionError(f"phase {phase}: card and CPU renders of "
-                             f"{label} disagree")
+    if (not np.isfinite(got).all() or mean_rel >= IMG_MEAN_REL
+            or any(s < share for _, share, s in shares)):
+        raise AssertionError(f"phase {phase}: {label} disagree")
+    return shares[0][2]
 
 
 def material_phase(dev):
@@ -1655,7 +1846,7 @@ def loader_phase(intersect, dev, tmp, fwd_launches):
                  "spp 4", small, {}, DirectIntegrator(1, 1),
                  ((IMG_RTOL, IMG_CLOSE_FRAC),))
     launches, _, dt = forward_phase(intersect, dev, DirectIntegrator(1, 1),
-                                    21, 3, sc=sc)
+                                    21, 3, sc=sc, profile=False)
     if launches != fwd_launches:
         raise AssertionError(f"phase 21: launches {launches}, phase 5 "
                              f"{fwd_launches}")
@@ -2052,7 +2243,7 @@ def small_trainer_phase(dev, tmp):
     resume = max(float((a - b).abs().max()) for (_, a), (_, b) in
                  zip(card.trainable(), again.trainable()))
     log(f"  save / load / step against the step without the round trip: "
-        f"largest |difference| {resume:.3g} (atomic adds)")
+        f"largest |difference| {resume:.3g} (fixed-order sums)")
     if resume > 1e-5:
         raise AssertionError("phase 23: the resumed step differs")
     # the harness: a sphere translation along x
@@ -2096,16 +2287,15 @@ def env_opt_in_phase(intersect, dev):
                                                sun_sky)
     log("  env_bench_scene, the frozen cmf:")
     out = {"cmf": forward_phase(intersect, dev, DirectIntegrator(1, 1), 24, 3,
-                                sc=env_bench_scene(**ENV_BENCH,
-                                                   device=dev))[::2]}
+                                sc=env_bench_scene(**ENV_BENCH, device=dev),
+                                profile=False)[::2]}
 
     def big(**kw):
         return env_scene(sky=sun_sky(*ENV_SKY, seed=4), **kw)
 
     for switch, kind in (("PSDR_TPU_ENV_ALIAS", "alias"),
                          ("PSDR_TPU_ENV_HIER", "hier")):
-        os.environ[switch] = "1"
-        try:
+        with switches({switch: "1"}):
             hc = big(**ENV_OPT_SMALL, device=dev).flat.envmap.cell_distrb
             if getattr(hc, kind) is None:
                 raise AssertionError(f"phase 24: {switch}=1 took no {kind} "
@@ -2125,10 +2315,8 @@ def env_opt_in_phase(intersect, dev):
                 f"{time.perf_counter() - t0:.2f} s")
             launches, _, dt = forward_phase(intersect, dev,
                                             DirectIntegrator(1, 1), 24, 3,
-                                            sc=sc)
+                                            sc=sc, profile=False)
             out[kind] = (launches, dt)
-        finally:
-            del os.environ[switch]
     log(f"  env_bench_scene DirectIntegrator(1, 1) frame: frozen cmf "
         f"{out['cmf'][1]:.3f} s, alias {out['alias'][1]:.3f} s, Hier2D "
         f"{out['hier'][1]:.3f} s")
@@ -2933,6 +3121,138 @@ def gate_replay(phase, label, got, want, spread) -> float:
     return worst
 
 
+def gradient_case(intersect, label, make, expect, phase=29, record=False):
+    """One gradient program against its eager step (phase 29's gates, read
+    in ``gradient_phase``): ``make() -> (eager(seed), replay(seed),
+    [programs], the count of leading outputs gated against eager (None:
+    all), a check of a replay's outputs or None)``, ``expect`` the K1 / K2
+    launches of one eager step or None; ``record`` records the K1 and K2
+    launches of the first eager step (``capture_queries``) and needs K1
+    and K2 launched. Returns (its summary, the launches of the replays at
+    seeds 0, 1, 0, the records or None)."""
+    log(f"  {label}")
+    eager, replay, progs, n_gated, check = make()
+    records = None
+    if record:
+        e0, records = capture_queries(intersect, lambda: eager(0))
+    else:
+        e0 = eager(0)                                 # warm-up
+    torch.cuda.synchronize()
+    intersect.reset_launch_counts()
+    e0b = eager(0)
+    torch.cuda.synchronize()
+    eager_launches = dict(intersect.LAUNCHES)
+    e1 = eager(1)
+    a, b, c = (_floats(x, n_gated) for x in (e0b, e0, e1))
+    if not all(bool(torch.isfinite(x).all()) for x in a):
+        raise AssertionError(f"phase {phase}: {label}: an eager output is "
+                             "not finite")
+    spreads = [rel_l2(host(y), host(x)) for x, y in zip(a, b)]
+    spread = max(spreads)
+    if expect is not None and {
+            k: eager_launches[k] for k in expect} != expect:
+        raise AssertionError(f"phase {phase}: {label}: eager launches "
+                             f"{eager_launches}, expected {expect}")
+    if expect is None and record:
+        require_launches(phase, eager_launches)
+    t0 = time.perf_counter()
+    replay(0)                        # warm-up, capture and a replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not all(p.captured for p in progs):
+        raise AssertionError(f"phase {phase}: {label}: no graph captured")
+    ptrs = [[x.data_ptr() for x in p._outputs[0]] for p in progs]
+    intersect.reset_launch_counts()
+    r0 = replay(0)
+    torch.cuda.synchronize()
+    replay_launches = dict(intersect.LAUNCHES)
+    r1 = replay(1)
+    r0b = replay(0)
+    torch.cuda.synchronize()
+    total = dict(intersect.LAUNCHES)
+    if replay_launches != eager_launches:
+        raise AssertionError(f"phase {phase}: {label}: a replay launched "
+                             f"{replay_launches}, the eager step "
+                             f"{eager_launches}")
+    if [[x.data_ptr() for x in p._outputs[0]] for p in progs] != ptrs:
+        raise AssertionError(f"phase {phase}: {label}: an output buffer "
+                             "moved between replays")
+    if eager_launches["segsum"] == 0:
+        raise AssertionError(f"phase {phase}: {label}: the fixed-order sum "
+                             f"(segsum) never launched ({eager_launches})")
+    if check is not None:
+        check(r0)
+    diffs = {name: gate_replay(phase, f"{label} at {name}",
+                               _floats(r, n_gated), e, spread)
+             for name, r, e in (("seed 0", r0, a), ("seed 1", r1, c),
+                                ("seed 0 again", r0b, a))}
+    # phase 31: two more replays at seed 0, every output the first's
+    # bit for bit (the updated state too, where it is not gated
+    # against eager)
+    first = [host(x) for x in _floats(r0)]
+    for _ in range(2):
+        again = [host(x) for x in _floats(replay(0))]
+        if not all(np.array_equal(x, y) for x, y in zip(again, first)):
+            raise AssertionError(f"phase 31: {label}: a repeated replay "
+                                 "at seed 0 differs from the first")
+    # the first output (the loss, the masses) at seeds 1 and 0: as far
+    # apart replayed as eager, and far beyond its own spread
+    seed_gap = rel_l2(host(_floats(r1, 1)[0]), host(_floats(r0, 1)[0]))
+    eager_gap = rel_l2(host(c[0]), host(a[0]))
+    if not (seed_gap > 0.5 * eager_gap
+            and eager_gap > 100.0 * spreads[0]):
+        raise AssertionError(f"phase {phase}: {label}: seeds 1 and 0 are "
+                             f"{seed_gap:.3g} apart replayed, "
+                             f"{eager_gap:.3g} eager (its spread "
+                             f"{spreads[0]:.3g}): a key was baked in")
+    times = {}
+    for name, fn in (("eager", eager), ("replay", replay)):
+        ts = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(2 + i)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[name] = ts
+    top = []
+    prof = {"eager": program_frame(lambda: eager(9)),
+            "replay": program_frame(lambda: replay(9), top)}
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError(f"phase {phase}: {label}: an indexing_backward "
+                             "kernel is among the replay's top ten")
+    calls = prof["replay"][3]
+    if calls != len(progs):
+        raise AssertionError(f"phase {phase}: {label}: a replay made {calls} "
+                             f"host launch calls, {len(progs)} programs")
+    summary = {
+        "eager_spread": spread, "replay_vs_eager": diffs,
+        "replay_repeats_equal": True,
+        "seed_gap": seed_gap, "eager_seed_gap": eager_gap,
+        "launches": replay_launches, "first_call_s": first_s,
+        "capture_s": sum(p.capture_seconds for p in progs),
+        "nodes": sum(p.nodes for p in progs),
+        "pool_bytes": sum(p.pool_bytes for p in progs),
+        "eager_s": float(np.median(times["eager"])),
+        "replay_s": float(np.median(times["replay"])),
+        "replay_top": top[:3],
+        **{f"{name}_{k}": v for name, (wall, busy, kern, n_calls)
+           in prof.items() for k, v in (
+               ("profiled_wall_ms", wall), ("busy_ms", busy),
+               ("idle", 1.0 - busy / wall), ("kernels", kern),
+               ("host_launch_calls", n_calls))}}
+    log(f"    eager steps {', '.join(f'{t:.4f}' for t in times['eager'])}"
+        f" s, replays {', '.join(f'{t:.4f}' for t in times['replay'])} "
+        f"s; first call (warm-ups, capture, replay) {first_s:.3f} s, "
+        f"capture {summary['capture_s']:.3f} s, {summary['nodes']} graph "
+        f"nodes, pool {summary['pool_bytes'] / 2**30:.3f} GiB; replay "
+        f"within {max(diffs.values()):.3g} of eager (spread "
+        f"{spread:.3g}); loss gap seeds 0 / 1 {seed_gap:.3g} (eager "
+        f"{eager_gap:.3g}); launches {replay_launches}")
+    log(f"    {json.dumps(summary)}")
+    return summary, total, records
+
+
 def gradient_phase(intersect, dev):
     """Phase 29: the gradient programs (``gradient_configs``). For each:
     the eager step at seeds 0, 0 (its run-to-run spread) and 1 and its
@@ -2955,136 +3275,18 @@ def gradient_phase(intersect, dev):
     out, flag = {}, None
     total = {k: 0 for k in intersect.LAUNCHES}
     for label, make, expect in gradient_configs(dev):
-        log(f"  {label}")
-        eager, replay, progs, n_gated, check = make()
-        if label.startswith("h"):
-            e0, records = capture_queries(intersect, lambda: eager(0))
-        else:
-            e0 = eager(0)                                 # warm-up
-        torch.cuda.synchronize()
-        intersect.reset_launch_counts()
-        e0b = eager(0)
-        torch.cuda.synchronize()
-        eager_launches = dict(intersect.LAUNCHES)
-        e1 = eager(1)
-        a, b, c = (_floats(x, n_gated) for x in (e0b, e0, e1))
-        if not all(bool(torch.isfinite(x).all()) for x in a):
-            raise AssertionError(f"phase 29: {label}: an eager output is "
-                                 "not finite")
-        spreads = [rel_l2(host(y), host(x)) for x, y in zip(a, b)]
-        spread = max(spreads)
-        if expect is not None and {
-                k: eager_launches[k] for k in expect} != expect:
-            raise AssertionError(f"phase 29: {label}: eager launches "
-                                 f"{eager_launches}, expected {expect}")
-        if expect is None and label.startswith("h"):
-            require_launches(29, eager_launches)
-        t0 = time.perf_counter()
-        replay(0)                        # warm-up, capture and a replay
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        if not all(p.captured for p in progs):
-            raise AssertionError(f"phase 29: {label}: no graph captured")
-        ptrs = [[x.data_ptr() for x in p._outputs[0]] for p in progs]
-        intersect.reset_launch_counts()
-        r0 = replay(0)
-        torch.cuda.synchronize()
-        replay_launches = dict(intersect.LAUNCHES)
-        r1 = replay(1)
-        r0b = replay(0)
-        torch.cuda.synchronize()
+        record = label.startswith("h")
+        out[label], launches, records = gradient_case(
+            intersect, label, make, expect, record=record)
         for k in total:
-            total[k] += intersect.LAUNCHES[k]
-        if replay_launches != eager_launches:
-            raise AssertionError(f"phase 29: {label}: a replay launched "
-                                 f"{replay_launches}, the eager step "
-                                 f"{eager_launches}")
-        if [[x.data_ptr() for x in p._outputs[0]] for p in progs] != ptrs:
-            raise AssertionError(f"phase 29: {label}: an output buffer "
-                                 "moved between replays")
-        if eager_launches["segsum"] == 0:
-            raise AssertionError(f"phase 29: {label}: the fixed-order sum "
-                                 f"(segsum) never launched ({eager_launches})")
-        if check is not None:
-            check(r0)
-        diffs = {name: gate_replay(29, f"{label} at {name}",
-                                   _floats(r, n_gated), e, spread)
-                 for name, r, e in (("seed 0", r0, a), ("seed 1", r1, c),
-                                    ("seed 0 again", r0b, a))}
-        # phase 31: two more replays at seed 0, every output the first's
-        # bit for bit (the updated state too, where it is not gated
-        # against eager)
-        first = [host(x) for x in _floats(r0)]
-        for _ in range(2):
-            again = [host(x) for x in _floats(replay(0))]
-            if not all(np.array_equal(x, y) for x, y in zip(again, first)):
-                raise AssertionError(f"phase 31: {label}: a repeated replay "
-                                     "at seed 0 differs from the first")
-        # the first output (the loss, the masses) at seeds 1 and 0: as far
-        # apart replayed as eager, and far beyond its own spread
-        seed_gap = rel_l2(host(_floats(r1, 1)[0]), host(_floats(r0, 1)[0]))
-        eager_gap = rel_l2(host(c[0]), host(a[0]))
-        if not (seed_gap > 0.5 * eager_gap
-                and eager_gap > 100.0 * spreads[0]):
-            raise AssertionError(f"phase 29: {label}: seeds 1 and 0 are "
-                                 f"{seed_gap:.3g} apart replayed, "
-                                 f"{eager_gap:.3g} eager (its spread "
-                                 f"{spreads[0]:.3g}): a key was baked in")
-        times = {}
-        for name, fn in (("eager", eager), ("replay", replay)):
-            ts = []
-            for i in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(2 + i)
-                torch.cuda.synchronize()
-                ts.append(time.perf_counter() - t0)
-            times[name] = ts
-        top = []
-        prof = {"eager": program_frame(lambda: eager(9)),
-                "replay": program_frame(lambda: replay(9), top)}
-        if any("indexing_backward" in k for k in top):
-            raise AssertionError(f"phase 29: {label}: an indexing_backward "
-                                 "kernel is among the replay's top ten")
-        calls = prof["replay"][3]
-        if calls != len(progs):
-            raise AssertionError(f"phase 29: {label}: a replay made {calls} "
-                                 f"host launch calls, {len(progs)} programs")
-        summary = {
-            "eager_spread": spread, "replay_vs_eager": diffs,
-            "replay_repeats_equal": True,
-            "seed_gap": seed_gap, "eager_seed_gap": eager_gap,
-            "launches": replay_launches, "first_call_s": first_s,
-            "capture_s": sum(p.capture_seconds for p in progs),
-            "nodes": sum(p.nodes for p in progs),
-            "pool_bytes": sum(p.pool_bytes for p in progs),
-            "eager_s": float(np.median(times["eager"])),
-            "replay_s": float(np.median(times["replay"])),
-            "replay_top": top[:3],
-            **{f"{name}_{k}": v for name, (wall, busy, kern, n_calls)
-               in prof.items() for k, v in (
-                   ("profiled_wall_ms", wall), ("busy_ms", busy),
-                   ("idle", 1.0 - busy / wall), ("kernels", kern),
-                   ("host_launch_calls", n_calls))}}
-        log(f"    eager steps {', '.join(f'{t:.4f}' for t in times['eager'])}"
-            f" s, replays {', '.join(f'{t:.4f}' for t in times['replay'])} "
-            f"s; first call (warm-ups, capture, replay) {first_s:.3f} s, "
-            f"capture {summary['capture_s']:.3f} s, {summary['nodes']} graph "
-            f"nodes, pool {summary['pool_bytes'] / 2**30:.3f} GiB; replay "
-            f"within {max(diffs.values()):.3g} of eager (spread "
-            f"{spread:.3g}); loss gap seeds 0 / 1 {seed_gap:.3g} (eager "
-            f"{eager_gap:.3g}); launches {replay_launches}")
-        log(f"    {json.dumps(summary)}")
-        out[label] = summary
-        if label.startswith("h"):
+            total[k] += launches[k]
+        if record:
             log(f"  K1 and K2 on the flagship step's own inputs (three "
                 f"views, eager): {len(records)} distinct launches")
             flag = captured_shapes(intersect, records, None, "flagship")
-        del eager, replay, progs, check, e0, e0b, e1, r0, r1, r0b, a, b, c
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return out, total, flag
-
 
 
 # -- phase 30: the scene-query layer ------------------------------------------
@@ -3559,6 +3761,61 @@ def boundary_lanes(intersect, dev):
     return rows, [a for _, n, a, _ in rows if n == 131072]
 
 
+def segsum_shape(intersect, dev, name, keys, values, rows, order, idx,
+                 phase=31):
+    """The fixed-order sum of ``values`` onto ``rows`` by the sorted
+    ``keys`` (``order`` their sort, or None; ``idx`` each lane's row in
+    lane order): the kernel against its plain version bit for bit and
+    against itself, timed beside its sort, its plain version and
+    ``index_add_``, with its bound and its launches a sum. Returns its
+    dict."""
+    from psdr_tpu_torch.core import segsum
+    from psdr_tpu_torch.testing.bench_kernels import segsum_bytes
+    before = intersect.LAUNCHES["segsum"]
+    got = segsum.segsum_cuda(keys, values, rows, order)
+    levels = intersect.LAUNCHES["segsum"] - before
+    again = segsum.segsum_cuda(keys, values, rows, order)
+    plain = segsum.segsum_plain(keys, values, rows, order)
+    if not (torch.equal(got, again) and torch.equal(got, plain)):
+        raise AssertionError(f"phase {phase}: segsum on {name}: the kernel "
+                             f"differs from its plain version by "
+                             f"{float((got - plain).abs().max())} or "
+                             "from itself")
+    keep = idx >= 0                  # each lane's row, in lane order
+    exact = torch.zeros(rows, values.shape[1], dtype=torch.float64,
+                        device=dev).index_add_(
+        0, idx.clamp(min=0), values.double() * keep[:, None])
+    c = values.shape[1]
+    ms, _ = time_ms(lambda: segsum.segsum_cuda(keys, values, rows, order),
+                    20, spin=True)
+    sort_ms = (None if order is None else
+               time_ms(lambda: segsum.sort_keys(idx, rows), 20,
+                       spin=True)[0])
+    plain_ms, _ = time_ms(
+        lambda: segsum.segsum_plain(keys, values, rows, order), 3)
+    lib_ms, _ = time_ms(lambda: torch.zeros(
+        rows, c, device=dev).index_add_(0, idx.clamp(min=0), values), 20,
+        spin=True)
+    # keys (int32), the sort's order (int64) and the values read once,
+    # the rows written once, against n * c float adds
+    n = keys.numel()
+    b_ms, b_by = bound(segsum_bytes(n, rows, c, order is not None), n * c)
+    out = {"lanes": n, "channels": c, "rows": rows,
+           "launches": levels, "max_abs_err": 0.0,
+           "err_vs_float64": float((got.double() - exact).abs().max()),
+           "ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms}
+    sort_txt = "none" if sort_ms is None else f"{sort_ms:.4f}"
+    log(f"  segsum, {name}: {n} lanes x {c} onto {rows} rows, "
+        f"{levels} launches: kernel = plain bit for bit and = itself; "
+        f"{ms:.4f} ms (sort {sort_txt}, plain {plain_ms:.3f}, "
+        f"index_add_ {lib_ms:.4f}), bound {b_ms:.4f} ms by {b_by} "
+        f"({b_ms / ms:.3f}); against a float64 sum "
+        f"{out['err_vs_float64']:.3g}")
+    return out
+
+
 def segsum_phase(intersect, dev):
     """Phase 31, the fixed-order sum (``core/segsum.py``, ``csrc/segsum
     .cu``; no TPU kernel's port): the kernel against its plain version on
@@ -3577,8 +3834,7 @@ def segsum_phase(intersect, dev):
     from psdr_tpu_torch import DirectIntegrator
     from psdr_tpu_torch.convert import params_from_numpy
     from psdr_tpu_torch.core import segsum, threefry
-    from psdr_tpu_torch.testing.bench_kernels import (segsum_bytes,
-                                                      segsum_cases)
+    from psdr_tpu_torch.testing.bench_kernels import segsum_cases
     from psdr_tpu_torch.testing.scenes import cbox_scene
     seen = []
     launch = segsum.segsum_cuda
@@ -3612,51 +3868,8 @@ def segsum_phase(intersect, dev):
         keys, order = ((idx.to(torch.int32), None) if pre
                        else segsum.sort_keys(idx, rows))
         shapes[name] = (keys, values, rows, order, idx)
-    out = {}
-    for name, (keys, values, rows, order, idx) in shapes.items():
-        before = intersect.LAUNCHES["segsum"]
-        got = segsum.segsum_cuda(keys, values, rows, order)
-        levels = intersect.LAUNCHES["segsum"] - before
-        again = segsum.segsum_cuda(keys, values, rows, order)
-        plain = segsum.segsum_plain(keys, values, rows, order)
-        if not (torch.equal(got, again) and torch.equal(got, plain)):
-            raise AssertionError(f"phase 31: segsum on {name}: the kernel "
-                                 f"differs from its plain version by "
-                                 f"{float((got - plain).abs().max())} or "
-                                 "from itself")
-        keep = idx >= 0                  # each lane's row, in lane order
-        exact = torch.zeros(rows, values.shape[1], dtype=torch.float64,
-                            device=dev).index_add_(
-            0, idx.clamp(min=0), values.double() * keep[:, None])
-        c = values.shape[1]
-        ms, _ = time_ms(lambda: segsum.segsum_cuda(keys, values, rows, order),
-                        20, spin=True)
-        sort_ms = (None if order is None else
-                   time_ms(lambda: segsum.sort_keys(idx, rows), 20,
-                           spin=True)[0])
-        plain_ms, _ = time_ms(
-            lambda: segsum.segsum_plain(keys, values, rows, order), 3)
-        lib_ms, _ = time_ms(lambda: torch.zeros(
-            rows, c, device=dev).index_add_(0, idx.clamp(min=0), values), 20,
-            spin=True)
-        # keys (int32), the sort's order (int64) and the values read once,
-        # the rows written once, against n * c float adds
-        n = keys.numel()
-        b_ms, b_by = bound(segsum_bytes(n, rows, c, order is not None), n * c)
-        out[name] = {"lanes": n, "channels": c, "rows": rows,
-                     "launches": levels, "max_abs_err": 0.0,
-                     "err_vs_float64": float((got.double() - exact).abs()
-                                             .max()),
-                     "ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "bound_share": b_ms / ms}
-        sort_txt = "none" if sort_ms is None else f"{sort_ms:.4f}"
-        log(f"  segsum, {name}: {n} lanes x {c} onto {rows} rows, "
-            f"{levels} launches: kernel = plain bit for bit and = itself; "
-            f"{ms:.4f} ms (sort {sort_txt}, plain {plain_ms:.3f}, "
-            f"index_add_ {lib_ms:.4f}), bound {b_ms:.4f} ms by {b_by} "
-            f"({b_ms / ms:.3f}); against a float64 sum "
-            f"{out[name]['err_vs_float64']:.3g}")
+    out = {name: segsum_shape(intersect, dev, name, *args)
+           for name, args in shapes.items()}
     return out, next(iter(shapes))
 
 
@@ -3726,6 +3939,646 @@ def reproducibility_phase(intersect, dev, programs, grad_programs):
             "compacted_active_lanes": lanes_a}, (seg, main)
 
 
+# -- phase 32: the reference's representative gradient configuration --------
+
+def guiding_build(intersect, dev, sc, integ):
+    """Phase 32 (1): ``preprocess_secondary_edges`` at GUIDING_REF on
+    ``sc`` through ``integ``: the first call (the program's eager warm-up,
+    its capture and a replay), the program's body eagerly with a host key
+    (its seconds, launches and the segsum launches a round), a replay with
+    a second seed (the build as a later call makes it: seconds, profiled
+    for the replay's idle share), then the build again at the first seed.
+    Gates: the second build at a seed equals the first bit for bit (pmf and
+    cmf), the replay's masses equal the eager body's bit for bit, every
+    mass finite and >= 0, some cell positive, the cmf non-decreasing and
+    ending at the total (the pmf's float64 sum within 1e-5). The cmf's
+    ``prefix_sum`` over the 1,000,000 cells timed, repeated equal. Leaves
+    ``integ`` holding the first seed's table. Returns (a summary, the
+    first call's launches, the inputs of one round's per-cell sum (keys,
+    values, rows))."""
+    from psdr_tpu_torch.core import segsum, threefry
+    from psdr_tpu_torch.integrator.direct import guiding_programs
+    reso, nrounds, seed = (GUIDING_REF[k] for k in ("reso", "nrounds",
+                                                    "seed"))
+    n_cells = int(np.prod(reso[:3]))
+    lanes = n_cells * reso[3]
+    before = dict(intersect.LAUNCHES)
+    t0 = time.perf_counter()
+    integ.preprocess_secondary_edges(sc, 0, **GUIDING_REF)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    build_launches = {k: intersect.LAUNCHES[k] - before[k] for k in before}
+    table = integ.warpper[0]
+    (prog,) = guiding_programs(integ).values()
+    # the body op by op with a host key; the first round's sum recorded
+    seen, launch = [], segsum.segsum_cuda
+
+    def record(keys, values, num_rows, order=None):
+        if not seen:
+            seen.append((keys, values, num_rows))
+        return launch(keys, values, num_rows, order)
+    mid = dict(intersect.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segsum_cuda = record
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            eager = prog.fn(threefry.PRNGKey(seed))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    finally:
+        segsum.segsum_cuda = launch
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_launches = {k: intersect.LAUNCHES[k] - mid[k] for k in mid}
+    replayed = prog(threefry.PRNGKey(seed, device=dev))
+    if not torch.equal(replayed, eager):
+        raise AssertionError(
+            f"phase 32: the build's replay differs from its eager body by "
+            f"{float((replayed - eager).abs().max())}: not bit for bit")
+    t0 = time.perf_counter()
+    integ.preprocess_secondary_edges(sc, 0, **dict(GUIDING_REF,
+                                                   seed=seed + 1))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    other = integ.warpper[0]
+    wall, busy, kern, calls = program_frame(
+        lambda: prog(threefry.PRNGKey(seed + 1, device=dev)))
+    integ.preprocess_secondary_edges(sc, 0, **GUIDING_REF)
+    again = integ.warpper[0]
+    if not (torch.equal(again.distrb.pmf, table.distrb.pmf)
+            and torch.equal(again.distrb.cmf, table.distrb.cmf)):
+        raise AssertionError("phase 32: a second build at the same seed "
+                             "differs from the first")
+    if torch.equal(other.distrb.pmf, table.distrb.pmf):
+        raise AssertionError("phase 32: the builds at two seeds are equal: "
+                             "a key was baked in")
+    pmf, cmf = table.distrb.pmf, table.distrb.cmf
+    total = float(pmf.double().sum())
+    if (pmf.shape != (n_cells,) or not bool(torch.isfinite(pmf).all())
+            or bool((pmf < 0).any()) or not bool((pmf > 0).any())):
+        raise AssertionError(f"phase 32: masses of shape {tuple(pmf.shape)}"
+                             f", finite {bool(torch.isfinite(pmf).all())}, "
+                             f"{int((pmf > 0).sum())} positive, "
+                             f"{int((pmf < 0).sum())} negative")
+    if (bool((cmf[1:] < cmf[:-1]).any())
+            or float(cmf[-1]) != float(table.distrb.total)
+            or abs(float(cmf[-1]) - total) > 1e-5 * total):
+        raise AssertionError(f"phase 32: the cmf decreases or ends at "
+                             f"{float(cmf[-1])}, not at the total {total}")
+    cmf_ms, scan = time_ms(lambda: segsum.prefix_sum(pmf), 5)
+    if not torch.equal(scan, segsum.prefix_sum(pmf)):
+        raise AssertionError("phase 32: prefix_sum over the masses differs "
+                             "from itself")
+    summary = {
+        "cells": n_cells, "lanes_a_round": lanes, "rounds": nrounds,
+        "first_call_s": first_s, "eager_s": eager_s, "replay_s": replay_s,
+        "capture_s": prog.capture_seconds, "nodes": prog.nodes,
+        "pool_bytes": prog.pool_bytes, "eager_peak_bytes": eager_peak,
+        "replay_profiled_wall_ms": wall, "replay_busy_ms": busy,
+        "replay_idle": 1.0 - busy / wall, "replay_host_launch_calls": calls,
+        "eager_launches": eager_launches,
+        "segsum_launches_a_round": eager_launches["segsum"] / nrounds,
+        "cells_with_mass": int((pmf > 0).sum()), "total": total,
+        "largest_cell": float(pmf.max()), "prefix_sum_ms": cmf_ms}
+    log(f"  {n_cells} cells x {reso[3]} samples x {nrounds} rounds "
+        f"({lanes} lanes a round): first call (eager warm-up, capture, "
+        f"replay) {first_s:.3f} s; eager body {eager_s:.3f} s (peak "
+        f"{eager_peak / 2**30:.2f} GiB, launches {eager_launches}); a build "
+        f"at another seed {replay_s:.4f} s (replay busy {busy:.1f} of "
+        f"{wall:.1f} ms, idle {1.0 - busy / wall:.3f}, {calls} host launch "
+        f"calls); capture {prog.capture_seconds:.3f} s, {prog.nodes} graph "
+        f"nodes, pool {prog.pool_bytes / 2**30:.3f} GiB; "
+        f"{summary['cells_with_mass']} cells with mass, largest "
+        f"{summary['largest_cell']:.4g}, total {total:.6g}; replay = eager "
+        f"and build = build at one seed, bit for bit; cmf non-decreasing, "
+        f"ends at the total; prefix_sum of the masses {cmf_ms:.3f} ms")
+    return summary, build_launches, seen[0]
+
+
+def secondary_chunk(sc, flat, dev, warp=None):
+    """One secondary-edge chunk of ``sc`` as ``render_secondary_edges``
+    draws it (the stream under salt 2, here from PRNGKey(12)): the samples
+    sorted by their edge coordinate and warped by the guiding table
+    ``warp`` (None: unguided), and their validity pre-pass on the detached
+    ``flat``. Returns (samples (m, 3), valid (m,), the stream after the
+    samples)."""
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.core.distribution import hypercube_sample_reuse
+    from psdr_tpu_torch.core.sampler import RngStream
+    from psdr_tpu_torch.integrator.direct import _emitter_meta
+    from psdr_tpu_torch.scene.scene import sample_boundary_segment_direct
+    opts = sc.opts
+    m = min(opts.pass_lanes, opts.num_pixels * opts.sppse)
+    rng = RngStream(threefry.PRNGKey(12), salt=2, device=dev)
+    sample3 = rng.next_3d(m)
+    sample3 = sample3[torch.argsort(sample3[:, 0], stable=True)]
+    if warp is not None:
+        sample3, _ = hypercube_sample_reuse(warp, sample3)
+    valid = sample_boundary_segment_direct(
+        flat, sc.face_offset, _emitter_meta(sc), sample3,
+        torch.ones((m,), dtype=torch.bool, device=dev)).valid
+    return sample3, valid, rng
+
+
+def guided_step(intersect, dev, sc, integ):
+    """Phase 32 (2): the boundary step of ``integ`` (guided) on ``sc``
+    through ``render_fn(with_boundary=True)``: one warm-up, three timed
+    steps and one profiled step (no ``indexing_backward`` kernel among its
+    top ten), every leaf finite, the gradient unlike the unguided one at
+    the same key; then as ``grad_program`` against its eager step
+    (``gradient_case``: bit for bit at seeds 0, 1, 0). Returns (a summary,
+    the launches of the three timed steps, the program's summary)."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.core import threefry
+    opts = sc.opts
+    base = sc.params()
+    render = integ.render_fn(sc, with_boundary=True)
+    times, loss, grads, launches, peak = timed_steps(intersect, render, base,
+                                                     dev)
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)) or not float(loss) > 0.0:
+        raise AssertionError(f"phase 32: loss {float(loss)}, leaves without "
+                             f"a finite gradient: {bad}")
+    require_launches(32, launches)
+    top, busy, _ = profile_step(
+        lambda: grad_step(render, base, dev, threefry.PRNGKey(9)),
+        "guided boundary step")
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError("phase 32: an indexing_backward kernel is among "
+                             "the guided step's top ten")
+    _, plain = grad_step(DirectIntegrator(1, 1).render_fn(
+        sc, with_boundary=True), base, dev, threefry.PRNGKey(3))
+    moved = max(float((a - b).abs().max()) for a, b in zip(grads, plain))
+    if not moved > 0.0:
+        raise AssertionError("phase 32: guiding changed no gradient")
+    dt = float(np.median(times))
+    samples = opts.num_pixels * (opts.spp + opts.sppe + opts.sppse)
+    log(f"  guided steps {', '.join(f'{t:.3f}' for t in times)} s; median "
+        f"{dt:.3f} s -> {samples / dt / 1e6:.3f} M grad-samples/s; loss "
+        f"{float(loss):.6f}; {len(grads)} leaves, all finite; largest "
+        f"|guided - unguided| entry {moved:.3g}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches over 3 steps {launches}")
+    target = torch.zeros((opts.num_pixels, 3), device=dev)
+    prog, _, _ = gradient_case(
+        intersect, "k: DirectIntegrator(1, 1) guided boundary step "
+        "grad_program, cbox 256x256 spp 16 sppe 8 sppse 64",
+        lambda: _grad_steps(integ, sc, target, True), None, phase=32)
+    require_launches(32, prog["launches"])
+    return ({"step_s": dt, "peak_bytes": peak, "busy_ms": busy,
+             "moved": moved}, launches, prog)
+
+
+def guiding_variance(dev):
+    """Phase 32 (4), ``scripts/bench_guiding_scale.py``'s measurement:
+    on VARIANCE's scene the forward-mode derivative image of the boundary
+    terms (``testing.harness.run_ad``) at VARIANCE_SEEDS keys, guided by a
+    GUIDING_REF table and unguided; the mean per-pixel variance over the
+    keys, guided against unguided, below VARIANCE_RATIO. The derivative is
+    the occluder's translation along -x: the script's perturbation, a
+    vertex of mesh 0 along -x, moves a corner of this scene's floor within
+    its own plane, whose derivative is 0 but for rounding. Returns (the
+    ratio, a summary)."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.testing import run_ad
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**VARIANCE, device=dev)
+    guided = DirectIntegrator(1, 1)
+    t0 = time.perf_counter()
+    guided.preprocess_secondary_edges(sc, 0, **GUIDING_REF)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    var = {}
+    t0 = time.perf_counter()
+    for name, integ in (("guided", guided), ("unguided",
+                                             DirectIntegrator(1, 1))):
+        imgs = np.stack([run_ad(sc, integ, "mesh_transform", npass=1,
+                                seed0=100 + s, mesh_index=OCCLUDER,
+                                direction=(-1.0, 0.0, 0.0))
+                         for s in range(VARIANCE_SEEDS)])
+        if not np.isfinite(imgs).all():
+            raise AssertionError(f"phase 32: a {name} derivative image is "
+                                 "not finite")
+        var[name] = float(imgs.var(axis=0).mean())
+    ad_s = time.perf_counter() - t0
+    ratio = var["guided"] / var["unguided"]
+    log(f"  what the table buys, {VARIANCE}, {VARIANCE_SEEDS} keys: mean "
+        f"per-pixel variance of the derivative image guided "
+        f"{var['guided']:.4g}, unguided {var['unguided']:.4g}: ratio "
+        f"{ratio:.4f} (bound {VARIANCE_RATIO}); its table built in "
+        f"{build_s:.3f} s, the {2 * VARIANCE_SEEDS} derivative images in "
+        f"{ad_s:.2f} s")
+    if not (var["unguided"] > 0.0 and ratio < VARIANCE_RATIO):
+        raise AssertionError(f"phase 32: guided / unguided variance {ratio} "
+                             f"(bound {VARIANCE_RATIO})")
+    return ratio, {"variance_guided": var["guided"],
+                   "variance_unguided": var["unguided"], "ratio": ratio,
+                   "build_s": build_s}
+
+
+def reference_guiding_phase(intersect, dev):
+    """Phase 32: the reference's representative gradient configuration on
+    the card: the GUIDING_REF table built on phase 12's scene
+    (``guiding_build``), the guided boundary step eager and as its program
+    (``guided_step``), the share of a secondary-edge chunk's lanes that are
+    valid guided and unguided, K1 and K2 at the guided chunk's compacted
+    shapes against their plain versions (``boundary_shapes``), the
+    per-cell sum of one round against its plain version (``segsum_shape``)
+    and the variance ratio (``guiding_variance``). Returns (a summary, the
+    launches of the path: the first build and the three timed steps, K1's
+    shapes, K2's, their comparisons, K1's lanes unlike ``k1_plain``, the
+    segsum shape {name: dict})."""
+    from psdr_tpu_torch import DirectIntegrator
+    from psdr_tpu_torch.scene.scene import detach_flat
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    sc = cbox_scene(**RENDERD, device=dev)
+    integ = DirectIntegrator(1, 1)
+    build, build_launches, (keys, values, rows) = guiding_build(
+        intersect, dev, sc, integ)
+    step, step_launches, prog = guided_step(intersect, dev, sc, integ)
+    launches = {k: build_launches[k] + step_launches[k]
+                for k in step_launches}
+    if launches["segsum"] == 0:
+        raise AssertionError(f"phase 32: the fixed-order sum never launched "
+                             f"({launches})")
+    with torch.no_grad():
+        flat = detach_flat(sc.build(sc.params()))
+        share = {name: float(secondary_chunk(sc, flat, dev, warp)[1].float()
+                             .mean())
+                 for name, warp in (("guided", integ.warpper[0]),
+                                    ("unguided", None))}
+    log(f"  valid lanes of a 2^21-lane secondary-edge chunk: guided "
+        f"{share['guided']:.4f}, unguided {share['unguided']:.4f}")
+    tally = {}
+    k1, k2, err, _ = boundary_shapes(intersect, sc, dev,
+                                     warp=integ.warpper[0], tally=tally)
+    name = "guiding masses, 1,000,000 cells (one round)"
+    lane_rows = keys.long()
+    seg = {name: segsum_shape(intersect, dev, name, keys, values, rows, None,
+                              lane_rows, phase=32)}
+    ratio, var = guiding_variance(dev)
+    summary = {"build": build, "step": step, "program": prog,
+               "valid_share": share, "variance": var, "launches": launches}
+    log(f"  {json.dumps(summary)}")
+    return summary, launches, k1, k2, err, tally, seg
+
+
+# -- phase 33: checkpointed gradients above 2^23 lanes --------------------------
+
+def checkpointed_step(intersect, dev, sc, integ, label):
+    """Phase 33 (1): ``bench.py``'s gradient step (``value_and_grad`` of
+    mean(image^2)) of ``integ`` on ``sc``, whose wavefront lies above
+    ``remat_lanes``, so that ``remat_passes="auto"`` checkpoints every pass
+    chunk: the forward render (``render_fn(detached=True)``), then the
+    eager step at the same key twice (the second timed, its launches and
+    peak memory read, equal to the first bit for bit), its image against
+    the forward's, then
+    ``grad_program``: the first call (three eager warm-ups, the capture, a
+    replay) and a replay, each equal to the eager step bit for bit, one
+    profiled replay without an ``indexing_backward`` kernel in its top
+    ten. Returns (a summary, the timed eager step's launches)."""
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    from psdr_tpu_torch.program import value_and_grad
+    opts = sc.opts
+    n = opts.num_pixels * opts.spp
+    remat = opts.resolve_remat(n)
+    log(f"  {label}: {n} lanes, remat_passes {opts.remat_passes!r} -> "
+        f"{remat} (remat_lanes {opts.remat_lanes})")
+    if not remat:
+        raise AssertionError(f"phase 33: {label}: {n} lanes do not resolve "
+                             "to checkpointed passes")
+    target = torch.zeros((opts.num_pixels, 3), device=dev)
+    render = integ.render_fn(sc, with_boundary=False)
+    images = []
+
+    def loss(params, key):
+        img = render(params, key)
+        images.append(img.detach())
+        return torch.mean((img - target) ** 2)
+    step = value_and_grad(loss)
+    params = params_from_numpy(sc.params(), device=dev)
+
+    def eager(seed):
+        with torch.enable_grad():
+            return step(params, threefry.PRNGKey(seed))
+    # the forward first: it also fills the scene's caches for the step
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = integ.render_fn(sc, with_boundary=False, detached=True)(
+            params, threefry.PRNGKey(0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    e0 = _floats(eager(0))                 # warm-up: the allocator grows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect.reset_launch_counts()
+    t0 = time.perf_counter()
+    e1 = _floats(eager(0))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    launches = dict(intersect.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require_launches(33, launches)
+    if launches["segsum"] == 0:
+        raise AssertionError(f"phase 33: {label}: the fixed-order sum never "
+                             f"launched ({launches})")
+    if not all(bool(torch.isfinite(x).all()) for x in e1):
+        raise AssertionError(f"phase 33: {label}: a leaf is not finite")
+    gate_replay(33, f"{label}: the second eager step", e1, e0, 0.0)
+    img = images[-1]
+    images.clear()
+    if torch.equal(img, fwd):
+        log(f"  {label}: the step's image equals the forward's bit for bit")
+        img_share = 1.0
+    else:
+        img_share = image_gate(33, f"{label}: the step's image and the "
+                               "forward's (the forward reads the hit "
+                               "query's t and uv, the step recomputes the "
+                               "hit on its triangle)", host(img), host(fwd))
+    del e0, img, fwd
+    prog = integ.grad_program(sc, target, with_boundary=False)
+    t0 = time.perf_counter()
+    r0 = _floats(prog(params, threefry.PRNGKey(0, device=dev)))
+    torch.cuda.synchronize()
+    prog_first_s = time.perf_counter() - t0
+    before = dict(intersect.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r1 = _floats(prog(params, threefry.PRNGKey(0, device=dev)))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay_peak = torch.cuda.max_memory_allocated()
+    replay_launches = {k: intersect.LAUNCHES[k] - before[k] for k in before}
+    if replay_launches != launches:
+        raise AssertionError(f"phase 33: {label}: a replay launched "
+                             f"{replay_launches}, the eager step {launches}")
+    gate_replay(33, f"{label}: the first call", r0, e1, 0.0)
+    gate_replay(33, f"{label}: a replay", r1, e1, 0.0)
+    top = []
+    wall, busy, kern, calls = program_frame(
+        lambda: prog(params, threefry.PRNGKey(9, device=dev)), top)
+    if any("indexing_backward" in k for k in top):
+        raise AssertionError(f"phase 33: {label}: an indexing_backward "
+                             "kernel is among the replay's top ten")
+    summary = {"lanes": n, "remat": remat, "forward_first_s": first_s,
+               "eager_s": eager_s, "eager_peak_bytes": peak,
+               "image_share_within_rtol": img_share,
+               "program_first_call_s": prog_first_s, "replay_s": replay_s,
+               "replay_peak_bytes": replay_peak,
+               "capture_s": prog.capture_seconds, "nodes": prog.nodes,
+               "pool_bytes": prog.pool_bytes, "replay_busy_ms": busy,
+               "replay_idle": 1.0 - busy / wall, "launches": launches,
+               "replay_top": top[:3]}
+    log(f"  {label}: eager step {eager_s:.3f} s (the forward before it "
+        f"{first_s:.3f} s with the scene's first build), peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}, every leaf finite, = "
+        f"the first step bit for bit; grad_program: first call "
+        f"{prog_first_s:.3f} s (capture {prog.capture_seconds:.3f} s, "
+        f"{prog.nodes} graph nodes, pool {prog.pool_bytes / 2**30:.3f} "
+        f"GiB), replay {replay_s:.3f} s (busy {busy:.1f} of {wall:.1f} ms, "
+        f"peak {replay_peak / 2**30:.2f} GiB), = eager bit for bit")
+    return summary, launches
+
+
+def remat_forms(intersect, dev, make, integ, label, replay):
+    """Phase 33 (2, 3): the gradient step of ``integ`` on the scene
+    ``make()`` with ``remat_passes`` True and False, each eagerly (a first
+    step, then a timed one with its peak memory) and, with ``replay``, as
+    ``grad_program`` (first call, a timed replay with its peak and the
+    pool): every form's loss and every leaf equal to every other's bit for
+    bit. Returns {form: summary}."""
+    import dataclasses
+
+    from psdr_tpu_torch.convert import params_from_numpy
+    from psdr_tpu_torch.core import threefry
+    out, ref = {}, None
+    for remat in (True, False):
+        sc = make()
+        sc.opts = dataclasses.replace(sc.opts, remat_passes=remat)
+        target = torch.zeros((sc.opts.num_pixels, 3), device=dev)
+        prog = integ.grad_program(sc, target, with_boundary=False)
+        params = params_from_numpy(sc.params(), device=dev)
+        runs = {"eager": lambda: prog.fn(params, threefry.PRNGKey(0))}
+        if replay:
+            runs["replay"] = lambda: prog(params,
+                                          threefry.PRNGKey(0, device=dev))
+        for form, run in runs.items():
+            with torch.enable_grad():
+                t0 = time.perf_counter()
+                got = _floats(run())
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                again = _floats(run())
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            name = f"remat {remat}, {form}"
+            if ref is None:
+                ref = got
+                if not all(bool(torch.isfinite(x).all()) for x in got):
+                    raise AssertionError(f"phase 33: {label}: a leaf is not "
+                                         "finite")
+            gate_replay(33, f"{label}, {name}", got, ref, 0.0)
+            gate_replay(33, f"{label}, {name} again", again, ref, 0.0)
+            out[name] = {"first_s": first_s, "s": dt,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+            if form == "replay":
+                out[name].update(capture_s=prog.capture_seconds,
+                                 nodes=prog.nodes, pool_bytes=prog.pool_bytes)
+            log(f"  {label}, {name}: {dt:.3f} s a step (first call "
+                f"{first_s:.3f} s), peak {out[name]['peak_bytes'] / 2**30:.2f}"
+                f" GiB" + ("" if form == "eager" else
+                           f", pool {prog.pool_bytes / 2**30:.3f} GiB")
+                + "; loss and every leaf = remat True eager bit for bit")
+        del prog, runs, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def checkpointed_phase(intersect, dev):
+    """Phase 33: the gradients above ``RenderOptions.remat_lanes`` (2^23),
+    where ``remat_passes="auto"`` checkpoints every pass chunk: (1)
+    ``PathTracer(3)`` on ``env_bench_scene`` at 512x512, spp 64 (2^24
+    lanes; ``checkpointed_step``); (2) at phase 19's config (2^22 lanes)
+    ``remat_passes`` True against False, eagerly; (3)
+    ``DirectIntegrator(1, 1)`` on the bench scene at 512x512, spp 64 (2^24
+    lanes) True against False, eager and replayed, with the seconds and
+    peak memory of each (``remat_forms``). Returns (a summary, the
+    launches of (1)'s timed eager step)."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.testing.scenes import cbox_scene, env_bench_scene
+    path, launches = checkpointed_step(
+        intersect, dev, env_bench_scene(**ENV_BENCH, device=dev),
+        PathTracer(3), f"PathTracer(3), env_bench_scene {ENV_BENCH}")
+    torch.cuda.empty_cache()
+    env = remat_forms(intersect, dev,
+                      lambda: env_bench_scene(**ENV_BWD, device=dev),
+                      PathTracer(3), f"PathTracer(3), env_bench_scene "
+                      f"{ENV_BWD}", replay=False)
+    direct = remat_forms(intersect, dev,
+                         lambda: cbox_scene(**BENCH, device=dev),
+                         DirectIntegrator(1, 1), f"DirectIntegrator(1, 1), "
+                         f"cbox {BENCH}", replay=True)
+    summary = {"path_2_24": path, "path_2_22_forms": env,
+               "direct_2_24_forms": direct}
+    log(f"  {json.dumps(summary)}")
+    return summary, launches
+
+
+# -- phase 34: the configurations never run on the card -------------------------
+
+def untried_configs():
+    """Phase 34's configurations: (label, scene maker, scene, integrator
+    maker, ``RenderOptions`` fields, environment switches, guiding tables
+    or None)."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.testing.scenes import cbox_scene, env_bench_scene
+
+    def both_tables(integ, sc):
+        integ.preprocess_secondary_edges(sc, 0, **UNTRIED_GUIDING)
+        integ.preprocess_indirect_edges(sc, 0, **UNTRIED_GUIDING)
+    cb, small, bnd = cbox_scene, SMALL, SMALL_BOUNDARY
+    return [
+        ("PathTracer(3, camera_depth=3) boundary step", cb, bnd,
+         lambda: PathTracer(3, camera_depth=3), None, {}, None),
+        ("guided PathTracer(2, camera_depth=2) boundary step, both tables "
+         f"{UNTRIED_GUIDING}", cb, bnd,
+         lambda: PathTracer(2, camera_depth=2), None, {}, both_tables),
+        ("DirectIntegrator(1, 1) boundary step on env_bench_scene",
+         env_bench_scene, UNTRIED_ENV_BOUNDARY,
+         lambda: DirectIntegrator(1, 1), None, {}, None),
+        ("DirectIntegrator(2, 2)", cb, small, lambda: DirectIntegrator(2, 2),
+         None, {}, None),
+        ("camera_hit_prior=True", cb, small, lambda: DirectIntegrator(1, 1),
+         dict(camera_hit_prior=True), {}, None),
+        ("primary_edge_vis_check=True", cb, bnd,
+         lambda: DirectIntegrator(1, 1), dict(primary_edge_vis_check=True),
+         {}, None),
+        ("sampler stratified, stratify_primary True", cb, small,
+         lambda: DirectIntegrator(1, 1), dict(sampler="stratified"), {},
+         None),
+        ("sampler stratified, stratify_primary False", cb, small,
+         lambda: DirectIntegrator(1, 1),
+         dict(sampler="stratified", stratify_primary=False), {}, None),
+        ("sampler independent", cb, small, lambda: DirectIntegrator(1, 1),
+         dict(sampler="independent"), {}, None),
+        ("DirectIntegrator(1, 1, hide_emitters=True)", cb, small,
+         lambda: DirectIntegrator(1, 1, hide_emitters=True), None, {},
+         None),
+        ("PathTracer(3, hide_emitters=True)", cb, small,
+         lambda: PathTracer(3, hide_emitters=True), None, {}, None),
+        ("PathTracer(6)", cb, small, lambda: PathTracer(6), None, {}, None),
+        ("PSDR_TPU_VIS_REUSE=off", cb, bnd, lambda: DirectIntegrator(1, 1),
+         None, {"PSDR_TPU_VIS_REUSE": "off"}, None),
+        ("PSDR_TPU_VIS_REUSE=bern, PSDR_TPU_VIS_REUSE_Q=0.0625", cb, bnd,
+         lambda: DirectIntegrator(1, 1), None,
+         {"PSDR_TPU_VIS_REUSE": "bern", "PSDR_TPU_VIS_REUSE_Q": "0.0625"},
+         None),
+        ("PSDR_TPU_SSE_COMPACT=0", cb, bnd, lambda: DirectIntegrator(1, 1),
+         None, {"PSDR_TPU_SSE_COMPACT": "0"}, None),
+    ]
+
+
+def cpu_reference(path: str) -> int:
+    """``python3 chip_smoke.py --cpu-reference PATH``: the CPU side of
+    phase 34, each of ``untried_configs`` run once on the CPU
+    (``grad_run``) with CPU_REFERENCE_THREADS threads at the lowest
+    priority, pickled to PATH as {label: run}."""
+    sys.path.insert(0, ROOT)
+    os.nice(19)
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    out = {}
+    for label, make, scene, integ, opts, env, tables in untried_configs():
+        t0 = time.perf_counter()
+        with switches(env):
+            out[label] = grad_run(34, make, scene, integ(),
+                                  torch.device("cpu"), opts, tables)
+        log(f"{label}: {time.perf_counter() - t0:.1f} s")
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+    log(f"done in {time.time() - T_START:.0f}")
+    return 0
+
+
+class CpuReference:
+    """Phase 34's CPU side in a second process (``cpu_reference``), started
+    when the kernels are built so that its CPU renders overlap the card's
+    phases; no CUDA device is visible to it. ``result()`` waits for it and
+    loads its runs; ``stop()`` ends it (also at exit) and removes its
+    directory."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        self.path = os.path.join(self.dir, "runs.pkl")
+        self.log = os.path.join(self.dir, "log.txt")
+        self.t0 = time.time()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cpu-reference", self.path], cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        atexit.register(self.stop)
+
+    def result(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=CPU_REFERENCE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(self.log) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"phase 34: the CPU reference process "
+                                 f"ended with {rc}:\n{text[-4000:]}")
+        secs = [line.rsplit(": ", 1)[1] for line in text.splitlines()
+                if line.endswith(" s")]
+        took = text.rsplit("done in ", 1)[1].split()[0]
+        log(f"  the CPU reference process: started {self.t0 - T_START:.0f} "
+            f"s into the run, ran {took} s; a configuration took "
+            f"{', '.join(secs)}")
+        with open(self.path, "rb") as f:
+            runs = pickle.load(f)
+        self.stop()
+        return runs
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def untried_phase(dev, reference):
+    """Phase 34: each of ``untried_configs`` on the card, twice, against
+    its CPU run from ``reference`` (a ``CpuReference``), the same key
+    (``grad_compare``): the images under phase 4's gates, the loss and every
+    leaf under phase 10's bounds, every leaf finite, boundary images exactly
+    zero on both; a guided case's tables built on the card against the
+    CPU's (``tables_match``), the card then rendering under the CPU's
+    tables, cmf and all (``carry_tables``). Returns {label: (worst relative
+    L2 of a leaf, the card's seconds)}."""
+    cpu = reference.result()
+    out = {}
+    for label, make, scene, integ, opts, env, tables in untried_configs():
+        log(f"  {label}: {make.__name__} {scene}"
+            + (f", {opts}" if opts else ""))
+        t0 = time.perf_counter()
+        ref = cpu[label]
+        boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
+        integ = integ()
+        with switches(env):
+            runs = [grad_run(34, make, scene, integ, dev, opts, tables,
+                             carry=ref[3]) for _ in range(2)]
+        if tables is not None:
+            tables_match(34, runs[0][3], ref[3])
+        worst = grad_compare(34, runs + [ref], boundary, images=True)
+        out[label] = (worst, time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3759,6 +4612,8 @@ def main() -> int:
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    # phase 34's CPU side, beside the card's phases from here on
+    reference = CpuReference()
 
     # -- 3. K1 against its plain version -----------------------------------
     log("phase 3: K1 kernel vs plain PyTorch version on the card")
@@ -3958,6 +4813,26 @@ def main() -> int:
         "builds, the fixed-order sum against its plain version")
     repro, (seg, seg_main) = reproducibility_phase(intersect, dev, programs,
                                                    grad_programs)
+    # -- 32. the reference's representative gradient configuration: this
+    # slice's main path -------------------------------------------------------
+    log(f"phase 32: the guided boundary step at the reference scale, "
+        f"{GUIDING_REF} on {RENDERD}")
+    guided, guided_launches, gd_k1, gd_k2, gd_err, gd_tally, gd_seg = (
+        reference_guiding_phase(intersect, dev))
+    shapes.update(gd_k1)
+    for mode in ("closest", "any"):
+        err[mode] += gd_err[mode]
+    k2_err = k2_err + gd_err["k2"]
+    seg.update(gd_seg)
+    log(f"  lanes on which K1 and k1_plain differ: {gd_tally}")
+    # -- 33. checkpointed gradients above 2^23 lanes: this slice's main path --
+    log("phase 33: gradients above remat_lanes (2^23): PathTracer(3) on "
+        f"env_bench_scene {ENV_BENCH}, remat True against False")
+    remat, remat_launches = checkpointed_phase(intersect, dev)
+    # -- 34. the configurations never run on the card -----------------------
+    log("phase 34: configurations never run on the card before, card vs "
+        "CPU")
+    untried = untried_phase(dev, reference)
     log(f"all phases passed in {time.time() - T_START:.0f} s")
 
     # launches: the replays of phase 29 (seeds 0, 1, 0 of each of its six
@@ -4006,6 +4881,8 @@ def main() -> int:
             "launches_loaded_forward": loaded_fwd[mode],
             "launches_env_alias_forward": env_opt["alias"][0][mode],
             "launches_env_hier_forward": env_opt["hier"][0][mode],
+            "launches_guided_boundary": guided_launches[mode],
+            "launches_checkpointed": remat_launches[mode],
             # |t| error of the hits: closest against k1_plain's hit, any
             # against the plain Moller-Trumbore on the kernel's triangle
             "max_abs_err": max(e for e, _ in err[mode]),
@@ -4014,7 +4891,7 @@ def main() -> int:
             # code and not k1_plain (the cull-margin rule), by shape
             "lanes_unlike_k1_plain": {
                 k: v for k, v in {**env_tally, **train_tally,
-                                  **flag_tally}.items()
+                                  **flag_tally, **gd_tally}.items()
                 if shapes[k.split(" ", 1)[1]]["any_hit"] == (mode == "any")},
             "launches_accel_modes": {m: v[mode] for m, v in modes.items()},
             # phase 30: sorted against unsorted, compacted against dense
@@ -4049,6 +4926,8 @@ def main() -> int:
         "launches_loaded_forward": loaded_fwd["k2"],
         "launches_env_alias_forward": env_opt["alias"][0]["k2"],
         "launches_env_hier_forward": env_opt["hier"][0]["k2"],
+        "launches_guided_boundary": guided_launches["k2"],
+        "launches_checkpointed": remat_launches["k2"],
         "launches_accel_modes": {m: v["k2"] for m, v in modes.items()},
         "max_abs_err": max(e for e, _ in k2_err),
         "valid_mismatches": sum(n for _, n in k2_err),
@@ -4056,7 +4935,7 @@ def main() -> int:
         **{k: k2_ms[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shapes": {"emitter-first sweep": k2_ms, **bnd_k2, **pt_k2,
-                   **env_k2, **train_k2, **flag_k2}})
+                   **env_k2, **train_k2, **flag_k2, **gd_k2}})
     kernels.append({
         "name": "ray_intersect_k3 (K3)", "route": "cuda",
         "source": "psdr_tpu_torch/csrc/culled.cu",
@@ -4076,6 +4955,8 @@ def main() -> int:
         "launches_sharded": shard_launches["k3"],
         "launches_multiview": mv_launches["k3"],
         "launches_loaded_forward": loaded_fwd["k3"],
+        "launches_guided_boundary": guided_launches["k3"],
+        "launches_checkpointed": remat_launches["k3"],
         "launches_accel_modes": {m: v["k3"] for m, v in modes.items()},
         "max_abs_err": max(e for e, _ in k3_err),
         "valid_mismatches": sum(n for _, n in k3_err),
@@ -4095,6 +4976,8 @@ def main() -> int:
         "launches_forward_programs": prog_launches["segsum"],
         "launches_flagship": flag_launches["segsum"],
         "launches_trainer": train["segsum"],
+        "launches_guided_boundary": guided_launches["segsum"],
+        "launches_checkpointed": remat_launches["segsum"],
         "launches_per_program": {
             label[0]: summ["launches"]["segsum"]
             for label, summ in {**programs, **grad_programs}.items()},
@@ -4104,6 +4987,8 @@ def main() -> int:
         "shapes": seg, "reproducibility": repro})
     log(json.dumps({"programs": programs}))
     log(json.dumps({"gradient_programs": grad_programs}))
+    log(json.dumps({"guided_reference": guided, "checkpointed": remat,
+                    "untried": untried}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -4115,4 +5000,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--repro-child":
         sys.exit(repro_child(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-reference":
+        sys.exit(cpu_reference(sys.argv[2]))
     sys.exit(main())

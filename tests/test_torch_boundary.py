@@ -738,6 +738,66 @@ def test_guiding_mass_and_guided_gradient_match_jax():
         ti.preprocess_secondary_edges(ts, 0, (4, 4, 4, 2), nrounds=0)
 
 
+def test_guiding_table_above_2_15_cells_matches_jax():
+    """preprocess_secondary_edges(sc, 0, (1400, 5, 5, 1), nrounds=1): 35,000
+    cells, above the 2^15 where both packages leave the small-table search
+    for their large one (``searchsorted`` against the JAX package's blocked
+    count). The masses against the JAX package's within rtol 1e-4 (atol
+    1e-4 of the largest cell, as the small table's test); the port's cmf
+    non-decreasing, ending at its total, and within 1e-5 of the total of
+    the JAX cmf entry by entry (measured 6.1e-7: a sequential sum against
+    XLA's parallel scan round apart in the last places); then, with the
+    JAX table carried across, cmf and all
+    (``convert.hypercube_from_numpy``), the warped samples and their pdf
+    equal the JAX package's lane by lane."""
+    reso = (1400, 5, 5, 1)
+    js, ts = _cbox_pair(width=16, height=16, spp=0, sppse=4,
+                        occluder_subdiv=3)
+    ji, ti = JDirect(1, 1), TDirect(1, 1)
+    ji.preprocess_secondary_edges(js, 0, reso, nrounds=1, seed=3)
+    ti.preprocess_secondary_edges(ts, 0, reso, nrounds=1, seed=3)
+    jd, td = ji.warpper[0].distrb, ti.warpper[0].distrb
+    mj, cj = np.asarray(jd.pmf), np.asarray(jd.cmf)
+    mt, ct = _np(td.pmf), _np(td.cmf)
+    assert mt.shape == (35000,) and 100 < (mt > 0).sum() < 35000
+    np.testing.assert_allclose(mt, mj, rtol=1e-4, atol=1e-4 * mj.max())
+    assert (np.diff(ct) >= 0).all() and ct[-1] == float(td.total)
+    assert np.abs(ct - cj).max() <= 1e-5 * cj[-1]
+
+    hc = hypercube_from_numpy(reso[:3], mj, cj, **CPU)
+    u = np.random.default_rng(4).uniform(size=(20000, 3)).astype(np.float32)
+    wt, pt = t_dist.hypercube_sample_reuse(hc, torch.from_numpy(u))
+    wj, pj = j_dist.hypercube_sample_reuse(ji.warpper[0], jnp.asarray(u))
+    np.testing.assert_array_equal(_np(wt), np.asarray(wj))
+    np.testing.assert_array_equal(_np(pt), np.asarray(pj))
+
+
+def test_guiding_reduces_the_boundary_derivative_variance():
+    """``tests/test_reference_parity.py``'s variance test (the JAX
+    package's, which needs the reference's scenes) in the port at a reduced
+    grid, as ``scripts/bench_guiding_scale.py`` measures it: the
+    forward-mode derivative image of the boundary terms (``run_ad``; cbox
+    24x24, spp 0, sppse 32) with respect to the occluder's translation
+    along -x, at four keys, under a (400, 4, 4, 2) table built over 4
+    rounds and unguided. The mean per-pixel variance over the keys, guided
+    against unguided, below the JAX package's bar of 0.8 (measured
+    0.17)."""
+    from psdr_tpu_torch.testing import run_ad
+    sc = t_scenes.cbox_scene(24, 24, spp=0, sppse=32, occluder_subdiv=3,
+                             **CPU)
+    guided = TDirect(1, 1)
+    guided.preprocess_secondary_edges(sc, 0, (400, 4, 4, 2), nrounds=4)
+    var = []
+    for integ in (guided, TDirect(1, 1)):
+        imgs = np.stack([run_ad(sc, integ, "mesh_transform", npass=1,
+                                seed0=100 + s, mesh_index=5,
+                                direction=(-1.0, 0.0, 0.0))
+                         for s in range(4)])
+        assert np.isfinite(imgs).all()
+        var.append(imgs.var(axis=0).mean())
+    assert var[1] > 0.0 and var[0] < 0.8 * var[1], var
+
+
 def test_guiding_on_a_scene_without_edges_falls_back_to_uniform():
     ts = t_scenes.floor_light_scene(8, 8, 1, **CPU)
     ts.opts = dataclasses.replace(ts.opts, sppse=1)

@@ -14,7 +14,10 @@ queries: K1 on sorted rays against unsorted, the compacted occlusion sweep
 against the dense one, ``accel_mode="culled"`` through K3, and a program
 replayed after its envmap table left the host cache; and the fixed-order
 sums: the segsum kernel against its plain version, the prefix sum, a
-backward step, a guiding build and five trainer steps run twice, equal.
+backward step, a guiding build and five trainer steps run twice, equal;
+and the reference-scale guiding table built twice and replayed, equal,
+checkpointed gradients equal to plain ones, and ``camera_depth=3``'s
+boundary gradient against the CPU.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -233,7 +236,8 @@ def test_boundary_grad_on_card_matches_cpu(cuda):
 def test_guiding_on_card_matches_cpu(cuda):
     """preprocess_secondary_edges at (6, 3, 3, 4), 2 rounds: the cell
     masses on the card within rtol 1e-4 (atol 1e-4 of the largest cell; the
-    per-cell sums are atomic adds) of the CPU's; a guided boundary gradient
+    per-cell sums add in one fixed order on both, but the lanes' values
+    round apart between the devices) of the CPU's; a guided boundary gradient
     on the card matches the CPU's under the same table."""
     out = []
     for dev in (cuda, torch.device("cpu")):
@@ -1162,3 +1166,70 @@ def test_five_trainer_steps_repeat_bit_for_bit(cuda):
                      .clone()))
     assert runs[0][0] == runs[1][0]
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_reference_scale_guiding_table_repeats_and_replays(cuda):
+    """The secondary-edge guiding table at the reference's scale, 40000 x 5
+    x 5 cells x 2 samples over 16 rounds (2,000,000 lanes a round) on the
+    256x256 bench scene: a second build at the same seed equals the first
+    bit for bit (pmf and cmf), the build's replay equals its body run
+    eagerly, the masses are finite and non-negative with some positive, and
+    the cmf is non-decreasing and ends at the total."""
+    from psdr_tpu_torch.integrator.direct import guiding_programs
+    sc = cbox_scene(256, 256, spp=16, sppe=8, sppse=64, occluder_subdiv=5,
+                    device=cuda)
+    integ = DirectIntegrator(1, 1)
+    tables = []
+    for _ in range(2):
+        integ.preprocess_secondary_edges(sc, 0, (40000, 5, 5, 2),
+                                         nrounds=16, seed=5)
+        tables.append(integ.warpper[0].distrb)
+    assert torch.equal(tables[0].pmf, tables[1].pmf)
+    assert torch.equal(tables[0].cmf, tables[1].cmf)
+    (prog,) = guiding_programs(integ).values()
+    with torch.no_grad():
+        eager = prog.fn(threefry.PRNGKey(5))
+    assert torch.equal(prog(threefry.PRNGKey(5, device=cuda)), eager)
+    pmf, cmf = tables[0].pmf, tables[0].cmf
+    assert pmf.shape == (1000000,) and bool(torch.isfinite(pmf).all())
+    assert not bool((pmf < 0).any()) and bool((pmf > 0).any())
+    assert not bool((cmf[1:] < cmf[:-1]).any())
+    total = float(pmf.double().sum())
+    assert abs(float(cmf[-1]) - total) <= 1e-5 * total
+
+
+def test_remat_equals_plain_at_2_22_lanes(cuda):
+    """``PathTracer(3)``'s gradient on ``env_bench_scene`` at 512x512, spp
+    16 (2^22 lanes in two pass chunks): ``remat_passes=True`` (each chunk
+    checkpointed, its forward run again in the backward) gives the loss and
+    every leaf of ``remat_passes=False`` bit for bit."""
+    import dataclasses
+    from torch.utils._pytree import tree_flatten
+    out = []
+    for remat in (True, False):
+        sc = env_bench_scene(512, 512, 16, device=cuda)
+        sc.opts = dataclasses.replace(sc.opts, remat_passes=remat)
+        prog = PathTracer(3).grad_program(
+            sc, torch.zeros(512 * 512, 3, device=cuda), with_boundary=False)
+        p = params_from_numpy(sc.params(), device=cuda)
+        with torch.enable_grad():
+            out.append(tree_flatten(prog.fn(p, threefry.PRNGKey(3)))[0])
+        del prog
+        torch.cuda.empty_cache()
+    assert all(bool(torch.isfinite(x).all()) for x in out[0])
+    assert all(torch.equal(x, y) for x, y in zip(*out))
+
+
+def test_camera_depth_3_boundary_grad_on_card_matches_cpu(cuda):
+    """``PathTracer(3, camera_depth=3)`` with every boundary term (64x64,
+    spp 4, sppe 2, sppse 4), a configuration first run on the card with
+    ``chip_smoke.py`` phase 34: the loss within 1e-5 relative, every leaf
+    finite and within 1e-2 relative L2 and cosine 0.999 of the CPU's; K1
+    in both modes and K2 launched."""
+    integ = PathTracer(3, camera_depth=3)
+    intersect.reset_launch_counts()
+    card_loss, card = _grads(cuda, integ=integ, sppe=2, sppse=4)
+    assert all(intersect.LAUNCHES[k] > 0 for k in ("closest", "any", "k2"))
+    cpu_loss, cpu = _grads(torch.device("cpu"), integ=integ, sppe=2, sppse=4)
+    assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
+    _assert_leaves_close(cpu, card)

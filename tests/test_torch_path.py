@@ -432,13 +432,14 @@ BOUNDARY_KW = dict(width=16, height=16, spp=2, sppe=2, sppse=8,
 
 @pytest.mark.parametrize("max_depth,camera_depth,fused,spp", [
     (2, 1, "1", 0), (1, 2, "1", 0), (2, 2, "1", 0), (1, 2, "0", 0),
-    (2, 2, "0", 0), (2, 2, "1", 2)])
+    (2, 2, "0", 0), (2, 2, "1", 2), (3, 3, "1", 0)])
 def test_boundary_value_and_grad_matches_jax(max_depth, camera_depth, fused,
                                              spp, monkeypatch):
     """value_and_grad through render_fn(with_boundary=True) on cbox 16x16
     (sppe 2, sppse 8: 2,048 secondary lanes, compacted to 512) per leaf
     against jax.value_and_grad, each against its JAX twin under the same
-    ``PSDR_TPU_FUSED_BOUNDARY``. With spp 0 the image is the boundary terms
+    ``PSDR_TPU_FUSED_BOUNDARY``; (3, 3) walks the camera side's importance
+    path two bounces deep. With spp 0 the image is the boundary terms
     alone: exactly zero in both packages, the loss is mean(img) and the
     gradient is all boundary; with spp 2 the loss is mean(img^2) over all
     terms, equal to 1e-5. Leaves within 1e-2 relative L2 and cosine 0.999
@@ -522,6 +523,43 @@ def test_remat_and_chunked_passes_agree():
     for a, b in zip(g0, g1):
         assert np.isfinite(a).all()
         np.testing.assert_array_equal(a, b)
+
+
+def test_remat_on_env_bench_scene_and_the_step_image():
+    """``PathTracer(3)`` on a small ``env_bench_scene`` (rough conductor,
+    textures, authored normals, environment map) in four pass chunks:
+    ``remat_passes=True`` gives the loss, the image and every leaf of
+    ``remat_passes=False`` bit for bit, every leaf finite. The step's image
+    against the forward's (``render_fn(detached=True)``) at the same key,
+    under ``chip_smoke.py`` phase 4's gates (at least 0.99 of the pixels
+    within rtol 1e-4, atol 1e-5; means within 1e-4): not bit for bit, since
+    the forward reads the hit query's own t and uv and the step recomputes
+    each hit on its triangle (measured: every pixel within rtol 1e-4)."""
+    out = []
+    for remat in (False, True):
+        sc = t_scenes.env_bench_scene(32, 32, 4, sphere_subdiv=3,
+                                      small_subdiv=2, env_size=(130, 258),
+                                      tex_size=32, **CPU)
+        sc.opts = dataclasses.replace(sc.opts, pass_lanes=1024,
+                                      remat_passes=remat)
+        p = params_from_numpy(sc.params(), **CPU, requires_grad=True)
+        img = TPath(3).render_fn(sc, with_boundary=False)(
+            p, threefry.PRNGKey(3))
+        loss = torch.mean(img ** 2)
+        loss.backward()
+        out.append((float(loss), img.detach().numpy(),
+                    [x.grad.numpy() for x in _leaves(p) if x.grad is not None]))
+    (l0, i0, g0), (l1, i1, g1) = out
+    assert l0 == l1 and len(g0) == len(g1) > 10
+    np.testing.assert_array_equal(i0, i1)
+    for a, b in zip(g0, g1):
+        assert np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+    with torch.no_grad():
+        fwd = TPath(3).render_fn(sc, with_boundary=False, detached=True)(
+            sc.params(), threefry.PRNGKey(3)).numpy()
+    assert np.isclose(i1, fwd, rtol=1e-4, atol=1e-5).all(axis=-1).mean() >= 0.99
+    assert abs(i1.mean() - fwd.mean()) < 1e-4 * fwd.mean()
 
 
 # -- guiding ------------------------------------------------------------------------
