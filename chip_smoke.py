@@ -19,8 +19,10 @@ Every phase passes or the script exits nonzero:
    path's own shapes, the first 2^21-lane camera chunk in tile order
    (closest) and the bounce and shadow sweeps from its hits (any), and on
    2^21 rays through random pixels, the incoherent case; each timed run's
-   result compared the same way, and each shape's slab and triangle tests
-   counted once by the kernel's counting instantiation, for its bound;
+   result compared the same way (the bounce sweep and the random rays on
+   their first PLAIN_RAYS = 2^18 rays), and each shape's slab and
+   triangle tests counted once by the kernel's counting instantiation, for
+   its bound;
 4. ``renderC`` on the card against ``renderC`` on the CPU (64x64, spp 4,
    1,292 tris), same key;
 5. the forward at full width: ``DirectIntegrator(1, 1)`` through
@@ -54,8 +56,8 @@ Every phase passes or the script exits nonzero:
 14. ``PathTracer(max_depth=3)`` forward at phase 5's config (7 rays a
     sample: 1 camera + 2 a depth), then K1 and K2 on the later bounces'
     own rays: the depth-2 bounce (closest) and the depth-2 and depth-3
-    shadow sweeps (any) of the first chunk, and the depth-3 emitter-first
-    sweep (K2);
+    shadow sweeps (any) of the first chunk (``k1_plain`` on their first
+    PLAIN_RAYS rays), and the depth-3 emitter-first sweep (K2);
 15. ``PathTracer(3)`` backward at phase 9's config;
 16. the full boundary step, ``PathTracer(max_depth=2, camera_depth=2)``
     through ``render_fn(with_boundary=True)`` at phase 12's config, the
@@ -280,6 +282,12 @@ Every phase passes or the script exits nonzero:
     ``=bern`` (q 0.0625) and ``PSDR_TPU_SSE_COMPACT=0``: images under phase
     4's gates, loss and every leaf under phase 10's bounds.
 
+The CPU sides of phases 4, 8, 10, 13, 17, 21, 30 and 34 run in a second
+process (``python3 chip_smoke.py --cpu-reference DIR``, ``CpuReference``),
+started after the build, beside the card's phases; each earlier phase
+runs its card side and holds the comparison until phase 34, so that no
+phase waits for the CPU.
+
 With "auto" on the card every scene query of phases 5-29 runs on K1
 through the sort and the compaction where the JAX package's call site
 asks for them: a compacted sweep is two K1 any-hit launches (the capped
@@ -330,6 +338,7 @@ SMALL_BOUNDARY = dict(SMALL, sppe=2, sppse=4)
 ENV_SMALL = dict(width=64, height=64, spp=4)
 ENV_SMALL_BOUNDARY = dict(ENV_SMALL, sppe=2, sppse=4)
 AOV = dict(width=128, height=128, spp=1, occluder_subdiv=5)
+AOV_FIELDS = ("silhouette", "position", "depth", "geoNormal", "shNormal", "uv")
 ENV_BENCH = dict(width=512, height=512, spp=64)
 ENV_BWD = dict(ENV_BENCH, spp=16)
 # a rough conductor's silhouette lanes divide by a cosine that is itself a
@@ -420,11 +429,12 @@ VARIANCE_RATIO = 0.8
 # CPU run is the costliest
 UNTRIED_ENV_BOUNDARY = dict(width=16, height=16, spp=2, sppe=2, sppse=4)
 UNTRIED_GUIDING = dict(reso=(4, 4, 4, 2), nrounds=2, seed=3)
-# ... whose CPU side runs in a second process from the start, beside the
-# card's phases, on two threads at the lowest priority (nice 19), so that
-# it takes the cores that the host's launches leave idle
-CPU_REFERENCE_THREADS = 2
-CPU_REFERENCE_TIMEOUT = 900     # seconds phase 34 waits for it at most
+# ... whose CPU side, with those of phases 4, 8, 10, 13, 17, 21 and 30,
+# runs in a second process from the start, beside the card's phases, on
+# three threads at the lowest priority (nice 19), so that it takes the
+# cores that the host's launches leave idle
+CPU_REFERENCE_THREADS = 3
+CPU_REFERENCE_TIMEOUT = 1100    # seconds after its start it may take at most
 SNAPSHOTS = 9           # radiance snapshots that evict a frozen envmap table
 NAN_STREAMS = 64        # streams that refill the freed memory (2 x the pool)
 SPIN_CYCLES = 100_000_000   # the spin kernel ahead of those launches
@@ -432,6 +442,11 @@ GRAD_REL_L2, GRAD_COS = 1e-2, 0.999   # per leaf, as tests/test_torch_grad.py
 N_ICO = 1 << 20         # tiled pinhole rays per icosphere (K3's entry point)
 N_CHECK = 1 << 16       # rays per bench-scene comparison
 N_TIME = 1 << 21        # rays per timed sweep: one pass_lanes chunk
+# the first rays of a timed sweep that k1_plain runs on, and that the
+# kernel's result is held to, where its block-culled dense walk takes ~10 s
+# on all 2^21 (phase 3's bounce sweep and random rays, phase 14's later
+# bounces); elsewhere it runs on every ray
+PLAIN_RAYS = 1 << 18
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # float32 outside the tensor cores, published
@@ -634,14 +649,14 @@ def k1_phase(intersect, bvh_mod, dev):
     t_cam, t_bnc, t_shd = tiled_camera_rays(sc, flat, N_TIME, BENCH["spp"], 2)
     r_cam, _, r_shd = scene_rays(sc, flat, N_TIME, 2)
     shapes = {}
-    for name, any_hit, rays in (
-            ("tiled camera chunk", False, t_cam),
-            ("tiled bounce sweep", True, t_bnc),
-            ("tiled shadow sweep", True, t_shd),
-            ("random camera rays", False, r_cam),
-            ("random shadow rays", True, r_shd)):
+    for name, any_hit, rays, plain in (
+            ("tiled camera chunk", False, t_cam, None),
+            ("tiled bounce sweep", True, t_bnc, PLAIN_RAYS),
+            ("tiled shadow sweep", True, t_shd, None),
+            ("random camera rays", False, r_cam, PLAIN_RAYS),
+            ("random shadow rays", True, r_shd, PLAIN_RAYS)):
         shapes[name] = k1_shape(intersect, name, any_hit,
-                                k1_args(flat, *rays), compare)
+                                k1_args(flat, *rays), compare, plain)
     return err, shapes
 
 
@@ -658,16 +673,20 @@ def comparer(err, tris):
     return compare
 
 
-def k1_shape(intersect, name, any_hit, args, compare):
+def k1_shape(intersect, name, any_hit, args, compare, plain_rays=None):
     """K1 timed on the rays ``args`` (kernel, plain once, kernel), its slab
     and triangle tests counted once by the counting instantiation for the
     bound, and the timed result compared with the plain version's through
-    ``compare(label, args, kernel hit, plain hit, any_hit)``. Returns the
-    dict of its mode, ms, plain ms, counts and bound."""
+    ``compare(label, args, kernel hit, plain hit, any_hit)``; with
+    ``plain_rays``, the plain version runs (and the kernel's result is
+    compared) on the first ``plain_rays`` rays only. Returns the dict of
+    its mode, ms, plain ms, counts and bound."""
     n = args[1].shape[0]
+    m = min(plain_rays or n, n)
+    some = (args[0], *(x[:m] for x in args[1:]))
     k1, hk = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20,
                      spin=True)
-    p1, hp = time_ms(lambda: intersect.k1_plain(*args), 1, warmup=False)
+    p1, hp = time_ms(lambda: intersect.k1_plain(*some), 1, warmup=False)
     k2, _ = time_ms(lambda: intersect.k1_cuda(*args, any_hit=any_hit), 20,
                     spin=True)
     counts = torch.zeros((4,), dtype=torch.int64, device=args[1].device)
@@ -680,13 +699,14 @@ def k1_shape(intersect, name, any_hit, args, compare):
     per_ray = " + ".join(f"{c / n:.1f}" for c in n_tri)
     log(f"  {n} rays, {name} ({'any' if any_hit else 'closest'}, "
         f"{int(args[3].sum())} active): kernel {k1:.3f} / {k2:.3f} ms, "
-        f"plain {p1:.1f} ms; {n_box / n:.1f} slab tests and "
+        f"plain {p1:.1f} ms" + (f" on the first {m} rays" if m < n else "")
+        + f"; {n_box / n:.1f} slab tests and "
         f"{per_ray} triangle tests (left after u + left after v + in "
         f"full) a ray, {flops / n:.0f} flops a ray -> bound "
         f"{b_ms:.5f} ms by {b_by}, reached {b_ms / ms:.3f}")
-    compare(f"{n} {name}", args, hk, hp, any_hit)
+    compare(f"{n} {name}", some, type(hk)(*(f[:m] for f in hk)), hp, any_hit)
     return dict(any_hit=any_hit, rays=n, active=int(args[3].sum()), ms=ms,
-                plain_ms=p1,
+                plain_ms=p1, plain_rays=m,
                 slab_tests=n_box, tri_tests_by_stage=n_tri, flops=flops,
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -983,22 +1003,101 @@ def grad_compare(phase, runs, boundary, images=False):
     return worst
 
 
-def grad_phase(dev, phase=8, scene=None, integ=None, make_scene=None):
-    """Phases 8, 10, 13 and 17: the gradient of ``make_scene(**scene,
-    device=...)`` (default ``cbox_scene`` at 64x64, spp 4, interior only)
-    under ``integ`` (default ``DirectIntegrator(1, 1)``) on the card
+def rough_env(**kw):
+    """Phase 17's env_scene under a rough conductor."""
+    from psdr_tpu_torch import RoughConductor
+    from psdr_tpu_torch.testing.scenes import env_scene
+    return env_scene(RoughConductor(alpha_u=0.3, alpha_v=0.2), **kw)
+
+
+def textured(**kw):
+    """Phase 17's textured quad, an 8x8 texture from a seed."""
+    from psdr_tpu_torch.testing.scenes import textured_quad_scene
+    tex = np.random.default_rng(10).uniform(
+        0.1, 0.9, (8, 8, 3)).astype(np.float32)
+    return textured_quad_scene(tex, **kw)
+
+
+def grad_checks():
+    """The gradient checks of phases 8, 10, 13 and 17, card against CPU:
+    {key: (phase, scene maker, scene, integrator maker)}."""
+    from psdr_tpu_torch import DirectIntegrator, PathTracer
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    return {
+        "8": (8, cbox_scene, SMALL, lambda: DirectIntegrator(1, 1)),
+        "10": (10, cbox_scene, SMALL_BOUNDARY,
+               lambda: DirectIntegrator(1, 1)),
+        "13 interior": (13, cbox_scene, SMALL, lambda: PathTracer(3)),
+        "13 boundary": (13, cbox_scene, SMALL_BOUNDARY,
+                        lambda: PathTracer(max_depth=2, camera_depth=2)),
+        "17 rough interior": (17, rough_env, ENV_SMALL, lambda: PathTracer(2)),
+        "17 rough boundary": (17, rough_env, ENV_SMALL_BOUNDARY,
+                              lambda: PathTracer(2)),
+        "17 textured": (17, textured, ENV_SMALL,
+                        lambda: DirectIntegrator(1, 1)),
+    }
+
+
+def accel_scene(mode):
+    """Phase 30's scene maker: ``cbox_scene`` under ``Scene.accel_mode``
+    ``mode``."""
+    def make(**kw):
+        from psdr_tpu_torch.testing.scenes import cbox_scene
+        sc = cbox_scene(**kw)
+        sc.accel_mode = mode
+        return sc
+    return make
+
+
+def render_checks():
+    """The renders of phases 4, 17 and 30, card against CPU (``renderC`` at
+    seed 7): {key: (scene maker, scene, integrator maker)}."""
+    from psdr_tpu_torch import DirectIntegrator, FieldExtractionIntegrator
+    from psdr_tpu_torch.scene.scene import ACCEL_MODES
+    from psdr_tpu_torch.testing.scenes import cbox_scene
+    return {
+        "4": (cbox_scene, SMALL, lambda: DirectIntegrator(1, 1)),
+        "17 rough": (rough_env, ENV_SMALL, lambda: DirectIntegrator(1, 1)),
+        "17 textured": (textured, ENV_SMALL, lambda: DirectIntegrator(1, 1)),
+        **{f"17 AOV {field}": (cbox_scene, AOV,
+                               lambda f=field: FieldExtractionIntegrator(f))
+           for field in AOV_FIELDS},
+        **{f"30 {mode}": (accel_scene(mode), SMALL,
+                          lambda: DirectIntegrator(1, 1))
+           for mode in ACCEL_MODES}}
+
+
+def render_run(make_scene, scene, integ, d) -> np.ndarray:
+    """``renderC`` of ``make_scene(**scene, device=d)`` at seed 7, as numpy
+    (pixels, 3)."""
+    return integ.renderC(make_scene(**scene, device=d), seed=7).cpu() \
+        .numpy().reshape(-1, 3)
+
+
+def grad_phase(dev, reference, key):
+    """Phases 8, 10, 13 and 17: the gradient check ``grad_checks()[key]``,
+    ``make_scene(**scene, device=...)`` under the integrator, on the card
     (twice, to read its run-to-run spread, which is 0 since the sums are
-    fixed-order) against the CPU (``grad_run``, ``grad_compare``); with
+    fixed-order) against the CPU's run from ``reference`` (a
+    ``CpuReference``), the same key (``grad_run``, ``grad_compare``); with
     boundary samples in ``scene``, through ``render_fn(with_boundary=
     True)``, and each boundary term's image must be exactly zero on both
-    devices. Returns the largest relative L2 difference of a leaf, card
-    against CPU."""
-    from psdr_tpu_torch import DirectIntegrator
+    devices. The comparison waits for the CPU's run in phase 34
+    (``CpuReference.later``)."""
+    phase, make_scene, scene, integ = grad_checks()[key]
+    boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
+    integ = integ()
+    runs = [grad_run(phase, make_scene, scene, integ, dev) for _ in range(2)]
+    reference.later(phase, f"the gradient {key}", f"grad {key}",
+                    lambda cpu: grad_compare(phase, runs + [cpu], boundary))
+
+
+def grad_match(dev, phase, scene, integ, make_scene=None):
+    """A gradient check of phases 23 and 24, both sides in this process:
+    ``grad_run`` on the card twice and on the CPU, ``grad_compare``."""
     from psdr_tpu_torch.testing.scenes import cbox_scene
-    scene = scene or SMALL
     make_scene = make_scene or cbox_scene
     boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
-    integ = integ or DirectIntegrator(1, 1)
     runs = [grad_run(phase, make_scene, scene, integ, d)
             for d in (dev, dev, torch.device("cpu"))]
     return grad_compare(phase, runs, boundary)
@@ -1124,6 +1223,31 @@ def timed_steps(intersect, render, base, dev, first_key=0, n_steps=3):
             torch.cuda.max_memory_allocated())
 
 
+def device_work(prof):
+    """The card's work in the trace of ``prof`` (a finished
+    ``torch.profiler.profile``), read from its raw events: ({kernel or copy
+    name: (launches, device ms)}, the host's launch calls:
+    ``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaGraphLaunch`` and their
+    kind). ``key_averages()`` would first build the host's event tree, which
+    takes about a second for every few thousand events: longer than the
+    frame it describes."""
+    kern, calls = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            n, ns = kern.get(name, (0, 0))
+            kern[name] = (n + 1, ns + e.duration_ns())
+        elif "Launch" in name and name.startswith("cu"):
+            calls += 1
+    return {k: (n, ns / 1e6) for k, (n, ns) in kern.items()}, calls
+
+
+def top_kernels(kern):
+    """The ten entries of ``device_work``'s kernels with the most device
+    time: [(name, (launches, ms))]."""
+    return sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+
+
 def profile_step(fn, label):
     """One profiled run of ``fn``: wall and device-busy ms, idle share, the
     intersection kernels' and the ``index_add_`` kernels' device ms and the
@@ -1136,24 +1260,22 @@ def profile_step(fn, label):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    mine = {name: sum(e.self_device_time_total for e in kern
-                      if name in e.key) / 1e3
+    kern, _ = device_work(prof)
+    busy = sum(ms for _, ms in kern.values())
+    mine = {name: sum(ms for k, (_, ms) in kern.items() if name in k)
             for name in ("k1_kernel", "k2_kernel", "k3_kernel")}
-    adds = [e for e in kern if "indexFunc" in e.key or "index_add" in e.key]
-    adds_ms = sum(e.self_device_time_total for e in adds) / 1e3
+    adds = [v for k, v in kern.items()
+            if "indexFunc" in k or "index_add" in k]
+    adds_ms = sum(ms for _, ms in adds)
     log(f"  profiled {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle {1 - busy / wall:.3f} of wall), K1 {mine['k1_kernel']:.2f} "
         f"ms, K2 {mine['k2_kernel']:.3f} ms, index_add kernels "
-        f"{adds_ms:.2f} ms in {sum(e.count for e in adds)} launches, "
-        f"{sum(e.count for e in kern)} kernel launches; top kernels:")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    for e in top:
-        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d}x  {e.key[:100]}")
-    return [e.key for e in top], busy, adds_ms
+        f"{adds_ms:.2f} ms in {sum(n for n, _ in adds)} launches, "
+        f"{sum(n for n, _ in kern.values())} kernel launches; top kernels:")
+    top = top_kernels(kern)
+    for k, (n, ms) in top:
+        log(f"    {ms:9.2f} ms {n:6d}x  {k[:100]}")
+    return [k for k, _ in top], busy, adds_ms
 
 
 def forward_phase(intersect, dev, integ, phase, rays_per_sample, sc=None,
@@ -1410,7 +1532,8 @@ def path_forward_shapes(intersect, dev):
                           ("depth 3 shadow", True)):
         label = f"path {name} sweep"
         k1_shapes[label] = k1_shape(intersect, label, any_hit,
-                                    k1_args(flat, *sweeps[name]), compare)
+                                    k1_args(flat, *sweeps[name]), compare,
+                                    PLAIN_RAYS)
     bounce, alive, _ = sweeps["depth 3 bounce"]
     idxs = flat.em_tri_idx
     args = (*(x[idxs].contiguous() for x in (flat.tri.p0, flat.tri.e1,
@@ -1546,6 +1669,17 @@ def render_match(dev, phase, label, make_scene, scene, integ, tiers):
     image_gate(phase, f"card and CPU renders of {label}", *imgs, tiers)
 
 
+def render_check(dev, reference, phase, label, key, tiers):
+    """``render_match`` of the render ``render_checks()[key]``, its CPU side
+    from ``reference`` (a ``CpuReference``), compared in phase 34."""
+    make_scene, scene, integ = render_checks()[key]
+    img = render_run(make_scene, scene, integ(), dev)
+    reference.later(phase, f"the render {key}", f"render {key}",
+                    lambda cpu: image_gate(
+                        phase, f"card and CPU renders of {label}", img, cpu,
+                        tiers))
+
+
 def image_gate(phase, label, got, want, tiers=((IMG_RTOL, IMG_CLOSE_FRAC),)):
     """Image ``got`` against ``want`` (numpy, (pixels, 3)) under phase 4's
     gates: for each (rtol, share) of ``tiers`` at least ``share`` of the
@@ -1566,41 +1700,21 @@ def image_gate(phase, label, got, want, tiers=((IMG_RTOL, IMG_CLOSE_FRAC),)):
     return shares[0][2]
 
 
-def material_phase(dev):
-    """Phase 17: the materials and lights on the card against the CPU, and
-    the six AOVs on the bench scene."""
-    from psdr_tpu_torch import (DirectIntegrator, FieldExtractionIntegrator,
-                                PathTracer, RoughConductor)
-    from psdr_tpu_torch.testing.scenes import (cbox_scene, env_scene,
-                                               textured_quad_scene)
-
-    def rough_env(**kw):
-        return env_scene(RoughConductor(alpha_u=0.3, alpha_v=0.2), **kw)
-
-    def textured(**kw):
-        tex = np.random.default_rng(10).uniform(
-            0.1, 0.9, (8, 8, 3)).astype(np.float32)
-        return textured_quad_scene(tex, **kw)
-
-    render_match(dev, 17, "env_scene, rough conductor, DirectIntegrator(1, 1)",
-                 rough_env, ENV_SMALL, DirectIntegrator(1, 1),
-                 ROUGH_IMG_TIERS)
-    render_match(dev, 17, "textured quad, DirectIntegrator(1, 1)", textured,
-                 ENV_SMALL, DirectIntegrator(1, 1),
-                 ((IMG_RTOL, IMG_CLOSE_FRAC),))
+def material_phase(dev, reference):
+    """Phase 17: the materials and lights on the card against the CPU
+    (``reference``, a ``CpuReference``), and the six AOVs on the bench
+    scene."""
+    render_check(dev, reference, 17, "env_scene, rough conductor, "
+                 "DirectIntegrator(1, 1)", "17 rough", ROUGH_IMG_TIERS)
+    render_check(dev, reference, 17, "textured quad, DirectIntegrator(1, 1)",
+                 "17 textured", ((IMG_RTOL, IMG_CLOSE_FRAC),))
     log("  env_scene, rough conductor, PathTracer(2): interior gradient")
-    grad_phase(dev, phase=17, scene=ENV_SMALL, integ=PathTracer(2),
-               make_scene=rough_env)
+    grad_phase(dev, reference, "17 rough interior")
     log("  the same with the boundary terms (sppe 2, sppse 4)")
-    grad_phase(dev, phase=17, scene=ENV_SMALL_BOUNDARY, integ=PathTracer(2),
-               make_scene=rough_env)
+    grad_phase(dev, reference, "17 rough boundary")
     log("  textured quad, DirectIntegrator(1, 1): interior gradient")
-    grad_phase(dev, phase=17, scene=ENV_SMALL, make_scene=textured)
-    for field in ("silhouette", "position", "depth", "geoNormal", "shNormal",
-                  "uv"):
-        a, b = (FieldExtractionIntegrator(field).renderC(
-            cbox_scene(**AOV, device=d), seed=7).cpu().numpy().reshape(-1, 3)
-            for d in (dev, torch.device("cpu")))
+    grad_phase(dev, reference, "17 textured")
+    def aov_gate(field, a, b):
         close = np.isclose(a, b, rtol=1e-5, atol=1e-5).all(axis=-1).mean()
         log(f"  AOV {field}: {close:.6f} of {a.shape[0]} pixels within rtol "
             f"1e-5, atol 1e-5; mean |value| {np.abs(a).mean():.6f}")
@@ -1609,6 +1723,11 @@ def material_phase(dev):
                                  "card and the CPU")
         if field == "silhouette" and not (a == b).all():
             raise AssertionError("phase 17: the silhouette AOV must be equal")
+    for field in AOV_FIELDS:
+        make_scene, scene, integ = render_checks()[f"17 AOV {field}"]
+        a = render_run(make_scene, scene, integ(), dev)
+        reference.later(17, f"the AOV {field}", f"render 17 AOV {field}",
+                        lambda b, f=field, a=a: aov_gate(f, a, b))
 
 
 def texel_backward_ms(dev, shape, label):
@@ -1791,21 +1910,59 @@ def host(x) -> np.ndarray:
             else np.asarray(x, np.float32))
 
 
-def loader_phase(intersect, dev, tmp, fwd_launches):
-    """Phase 21: the bench scene written as files into the new directory
-    ``tmp`` and loaded on the card: params, the card-vs-CPU render, and the
-    forward at phase 5's config, whose launch counts must equal phase 5's
-    (``fwd_launches``). Returns those counts and the
-    median frame seconds."""
-    import dataclasses
+def bench_files(tmp):
+    """The bench scene (``textured_cbox(BENCH)``, on the CPU) written as
+    files into the new directory ``tmp``: (the scene, the XML's path, the
+    seconds the writing took, a digest of every file's name and bytes)."""
+    import hashlib
 
-    from psdr_tpu_torch import DirectIntegrator, load_file, load_integrator
     from psdr_tpu_torch.testing.scenes import write_scene
     os.makedirs(tmp)
     written = textured_cbox(BENCH, "cpu")
     t0 = time.perf_counter()
     path = write_scene(written, tmp, name="bench.xml")
     t_write = time.perf_counter() - t0
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(tmp)):
+        with open(os.path.join(tmp, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return written, path, t_write, h.hexdigest()
+
+
+def loaded_small(path):
+    """Phase 21's scene maker: the files at ``path`` loaded on the device
+    asked for, at SMALL's size."""
+    def small(**kw):
+        import dataclasses
+
+        from psdr_tpu_torch import load_file
+        sc = load_file(path, device=kw["device"])
+        sc.opts = dataclasses.replace(sc.opts, **{
+            k: v for k, v in SMALL.items() if k != "occluder_subdiv"})
+        return sc
+    return small
+
+
+def loaded_render(d):
+    """Phase 21's render on ``d``: the bench scene written as files into a
+    temporary directory (``bench_files``), loaded at SMALL's size and
+    rendered (``render_run``): (the files' digest, the image)."""
+    from psdr_tpu_torch import DirectIntegrator
+    with tempfile.TemporaryDirectory() as tmp:
+        _, path, _, digest = bench_files(os.path.join(tmp, "bench"))
+        return digest, render_run(loaded_small(path), {},
+                                  DirectIntegrator(1, 1), d)
+
+
+def loader_phase(intersect, dev, tmp, fwd_launches, reference):
+    """Phase 21: the bench scene written as files into the new directory
+    ``tmp`` and loaded on the card: params, the card-vs-CPU render (the
+    CPU's from ``reference``, which writes the same files, compared in
+    phase 34), and the forward at phase 5's config, whose launch counts
+    must equal phase 5's (``fwd_launches``). Returns those counts and the
+    median frame seconds."""
+    from psdr_tpu_torch import DirectIntegrator, load_file, load_integrator
+    written, path, t_write, digest = bench_files(tmp)
     t0 = time.perf_counter()
     sc = load_file(path, device=dev)
     torch.cuda.synchronize()
@@ -1836,15 +1993,17 @@ def loader_phase(intersect, dev, tmp, fwd_launches):
         f"%.6e's rounding: largest |difference| {worst:.3g}); "
         f"{len(leaf_list(sc.params()))} leaves")
 
-    def small(**kw):
-        s_ = load_file(path, device=kw["device"])
-        s_.opts = dataclasses.replace(s_.opts, **{k: v for k, v in SMALL.items()
-                                                  if k != "occluder_subdiv"})
-        return s_
+    img = render_run(loaded_small(path), {}, DirectIntegrator(1, 1), dev)
 
-    render_match(dev, 21, "the loaded scene, DirectIntegrator(1, 1), 64x64 "
-                 "spp 4", small, {}, DirectIntegrator(1, 1),
-                 ((IMG_RTOL, IMG_CLOSE_FRAC),))
+    def compare(cpu):
+        theirs, want = cpu
+        if theirs != digest:
+            raise AssertionError("phase 21: the CPU process wrote other "
+                                 "files than this one")
+        image_gate(21, "card and CPU renders of the loaded scene, "
+                   "DirectIntegrator(1, 1), 64x64 spp 4 (the same files)",
+                   img, want)
+    reference.later(21, "the loaded scene's render", "render 21", compare)
     launches, _, dt = forward_phase(intersect, dev, DirectIntegrator(1, 1),
                                     21, 3, sc=sc, profile=False)
     if launches != fwd_launches:
@@ -2272,7 +2431,8 @@ def small_trainer_phase(dev, tmp):
         raise AssertionError("phase 23: the harness on the card and on the "
                              "CPU disagree")
     log("  the 1D vertex offset: value_and_grad of every leaf, card vs CPU")
-    grad_phase(dev, phase=23, scene=dict(SMALL_TRAIN, sppe=0, sppse=0),
+    grad_match(dev, 23, dict(SMALL_TRAIN, sppe=0, sppse=0),
+               DirectIntegrator(1, 1),
                make_scene=lambda **k: sphere_light_scene(vertex_offset=True,
                                                          **k))
 
@@ -2304,8 +2464,8 @@ def env_opt_in_phase(intersect, dev):
             render_match(dev, 24, f"env_scene under {switch}=1",
                          big, ENV_OPT_SMALL, DirectIntegrator(1, 1),
                          ((IMG_RTOL, IMG_CLOSE_FRAC),))
-            grad_phase(dev, phase=24, scene=ENV_OPT_BOUNDARY,
-                       integ=PathTracer(2), make_scene=big)
+            grad_match(dev, 24, ENV_OPT_BOUNDARY, PathTracer(2),
+                       make_scene=big)
             t0 = time.perf_counter()
             sc = env_bench_scene(**ENV_BENCH, device=dev)
             res = sc.flat.envmap.cell_distrb.resolution
@@ -2683,16 +2843,11 @@ def program_frame(fn, top=None):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kern = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    calls = sum(e.count for e in events
-                if not str(e.device_type).endswith("CUDA")
-                and "Launch" in e.key and e.key.startswith("cu"))
+    kern, calls = device_work(prof)
+    busy = sum(ms for _, ms in kern.values())
     if top is not None:
-        top.extend(e.key for e in sorted(
-            kern, key=lambda e: -e.self_device_time_total)[:10])
-    return wall, busy, sum(e.count for e in kern), calls
+        top.extend(k for k, _ in top_kernels(kern))
+    return wall, busy, sum(n for n, _ in kern.values()), calls
 
 
 def program_configs(dev):
@@ -3489,29 +3644,25 @@ def ordering_shapes(intersect, dev, env_sc):
     return out
 
 
-def accel_mode_phase(intersect, bvh_mod, dev):
+def accel_mode_phase(intersect, bvh_mod, dev, reference):
     """Phase 30, second part: ``renderC`` of the 64x64 gate scene under
-    each ``Scene.accel_mode`` on the card against the CPU under phase 4's
+    each ``Scene.accel_mode`` on the card against the CPU
+    (``render_check``, its side from ``reference``) under phase 4's
     gates, with the kernels each launched on the card (K1 under "auto",
     "pallas" and "bvh_walk", K3 under "culled" and its alias "bvh", no
     tree under "brute"; K2 always, for the emitter-first sweep); then a
     tree of 8-triangle leaves (``accel_leaf_size``) on the bench scene,
     K1 and K3 against ``k1_plain`` on phase 3's rays. Returns {mode:
     launches}."""
-    from psdr_tpu_torch import DirectIntegrator
     from psdr_tpu_torch.scene.scene import ACCEL_MODES, detach_flat
     from psdr_tpu_torch.testing.scenes import cbox_scene, scene_rays
     kernel = {"auto": "k1", "pallas": "k1", "bvh_walk": "k1", "culled": "k3",
               "bvh": "k3", "brute": None}
     out = {}
     for mode in ACCEL_MODES:
-        def make(**kw):
-            sc = cbox_scene(**kw)
-            sc.accel_mode = mode
-            return sc
         intersect.reset_launch_counts()
-        render_match(dev, 30, f"accel_mode {mode!r}", make, SMALL,
-                     DirectIntegrator(1, 1), ((IMG_RTOL, IMG_CLOSE_FRAC),))
+        render_check(dev, reference, 30, f"accel_mode {mode!r}", f"30 {mode}",
+                     ((IMG_RTOL, IMG_CLOSE_FRAC),))
         got = dict(intersect.LAUNCHES)
         k1 = got["closest"] + got["any"]
         want = kernel[mode]
@@ -4481,68 +4632,128 @@ def untried_configs():
     ]
 
 
+def cpu_jobs():
+    """The CPU sides of the card-against-CPU checks, in the order the card's
+    phases ask for them: [(key, run on the CPU)]: phases 4, 17 and 30's
+    renders (``render_checks``), phases 8, 10, 13 and 17's gradients
+    (``grad_checks``), phase 21's (``loaded_render``), then each of phase
+    34's ``untried_configs``."""
+    from psdr_tpu_torch.scene.scene import ACCEL_MODES
+    cpu = torch.device("cpu")
+    jobs = {f"render {k}": (lambda m=m, s=s, i=i: render_run(m, s, i(), cpu))
+            for k, (m, s, i) in render_checks().items()}
+    jobs.update({f"grad {k}": (lambda p=p, m=m, s=s, i=i: grad_run(
+        p, m, s, i(), cpu)) for k, (p, m, s, i) in grad_checks().items()})
+    jobs["render 21"] = lambda: loaded_render(cpu)
+
+    def untried(make, scene, integ, opts, env, tables):
+        with switches(env):
+            return grad_run(34, make, scene, integ(), cpu, opts, tables)
+    order = ["render 4", "grad 8", "grad 10", "grad 13 interior",
+             "grad 13 boundary", "render 17 rough", "render 17 textured",
+             "grad 17 rough interior", "grad 17 rough boundary",
+             "grad 17 textured", *(f"render 17 AOV {f}" for f in AOV_FIELDS),
+             "render 21", *(f"render 30 {mode}" for mode in ACCEL_MODES)]
+    if sorted(order) != sorted(jobs):
+        raise AssertionError("cpu_jobs: the order misses a check")
+    return [*((k, jobs[k]) for k in order),
+            *((f"untried {label}", lambda c=c: untried(*c))
+              for label, *c in untried_configs())]
+
+
 def cpu_reference(path: str) -> int:
-    """``python3 chip_smoke.py --cpu-reference PATH``: the CPU side of
-    phase 34, each of ``untried_configs`` run once on the CPU
-    (``grad_run``) with CPU_REFERENCE_THREADS threads at the lowest
-    priority, pickled to PATH as {label: run}."""
+    """``python3 chip_smoke.py --cpu-reference DIR``: each of ``cpu_jobs``
+    run once on the CPU with CPU_REFERENCE_THREADS threads at the lowest
+    priority, its result pickled to DIR/<its index>.pkl as it ends."""
     sys.path.insert(0, ROOT)
     os.nice(19)
     torch.set_num_threads(CPU_REFERENCE_THREADS)
-    out = {}
-    for label, make, scene, integ, opts, env, tables in untried_configs():
+    for i, (key, fn) in enumerate(cpu_jobs()):
         t0 = time.perf_counter()
-        with switches(env):
-            out[label] = grad_run(34, make, scene, integ(),
-                                  torch.device("cpu"), opts, tables)
-        log(f"{label}: {time.perf_counter() - t0:.1f} s")
-    with open(path + ".part", "wb") as f:
-        pickle.dump(out, f)
-    os.replace(path + ".part", path)
+        out = fn()
+        part = os.path.join(path, f"{i}.part")
+        with open(part, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(part, os.path.join(path, f"{i}.pkl"))
+        log(f"{key}: {time.perf_counter() - t0:.1f} s")
     log(f"done in {time.time() - T_START:.0f}")
     return 0
 
 
 class CpuReference:
-    """Phase 34's CPU side in a second process (``cpu_reference``), started
-    when the kernels are built so that its CPU renders overlap the card's
-    phases; no CUDA device is visible to it. ``result()`` waits for it and
-    loads its runs; ``stop()`` ends it (also at exit) and removes its
-    directory."""
+    """The CPU sides of the card-against-CPU checks (``cpu_jobs``) in a
+    second process (``cpu_reference``), started when the kernels are built
+    so that its CPU renders overlap the card's phases; no CUDA device is
+    visible to it. ``get(key)`` waits for one job's result and loads it;
+    ``later`` holds a phase's comparison until ``settle()`` (phase 34), so
+    that no phase waits for the CPU; ``summary()`` logs what the process
+    took; ``stop()`` ends it (also at exit) and removes its directory."""
 
     def __init__(self):
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
-        self.path = os.path.join(self.dir, "runs.pkl")
         self.log = os.path.join(self.dir, "log.txt")
+        self.keys = [k for k, _ in cpu_jobs()]
+        self.pending = []
+        self.waited = 0.0
         self.t0 = time.time()
         with open(self.log, "w") as f:
             self.proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__),
-                 "--cpu-reference", self.path], cwd=ROOT, stdout=f,
+                 "--cpu-reference", self.dir], cwd=ROOT, stdout=f,
                 stderr=subprocess.STDOUT,
                 env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         atexit.register(self.stop)
 
-    def result(self) -> dict:
-        try:
-            rc = self.proc.wait(timeout=CPU_REFERENCE_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            rc = None
+    def _text(self) -> str:
         with open(self.log) as f:
-            text = f.read()
+            return f.read()
+
+    def get(self, key: str):
+        """The CPU's result of the job ``key``, once the process has given
+        it (at most CPU_REFERENCE_TIMEOUT seconds after its start)."""
+        path = os.path.join(self.dir, f"{self.keys.index(key)}.pkl")
+        t0 = time.time()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                raise AssertionError(
+                    f"the CPU reference process ended with "
+                    f"{self.proc.returncode} before {key!r}:\n"
+                    f"{self._text()[-4000:]}")
+            if time.time() > self.t0 + CPU_REFERENCE_TIMEOUT:
+                raise AssertionError(f"the CPU reference process gave no "
+                                     f"{key!r} in {CPU_REFERENCE_TIMEOUT} s")
+            time.sleep(0.05)
+        self.waited += time.time() - t0
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def later(self, phase: int, what: str, key: str, compare) -> None:
+        """Hold ``compare(the CPU's result of key)`` for ``settle``: the
+        card's side of a check is done, its CPU side may still run."""
+        self.pending.append((phase, what, key, compare))
+        log(f"  {what}: the card's side done, held against the CPU's in "
+            "phase 34")
+
+    def settle(self) -> None:
+        """Every check held by ``later``, in the order the phases held
+        them; each raises if the card and the CPU disagree."""
+        for phase, what, key, compare in self.pending:
+            log(f"  phase {phase}, {what}:")
+            compare(self.get(key))
+        self.pending.clear()
+
+    def summary(self) -> None:
+        rc = self.proc.wait(timeout=60)
+        text = self._text()
         if rc != 0:
-            raise AssertionError(f"phase 34: the CPU reference process "
-                                 f"ended with {rc}:\n{text[-4000:]}")
-        secs = [line.rsplit(": ", 1)[1] for line in text.splitlines()
-                if line.endswith(" s")]
+            raise AssertionError(f"the CPU reference process ended with "
+                                 f"{rc}:\n{text[-4000:]}")
+        jobs = [line for line in text.splitlines() if line.endswith(" s")]
         took = text.rsplit("done in ", 1)[1].split()[0]
         log(f"  the CPU reference process: started {self.t0 - T_START:.0f} "
-            f"s into the run, ran {took} s; a configuration took "
-            f"{', '.join(secs)}")
-        with open(self.path, "rb") as f:
-            runs = pickle.load(f)
+            f"s into the run, ran {took} s; the card's phases waited "
+            f"{self.waited:.1f} s for it; its jobs: {'; '.join(jobs)}")
         self.stop()
-        return runs
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -4559,14 +4770,17 @@ def untried_phase(dev, reference):
     zero on both; a guided case's tables built on the card against the
     CPU's (``tables_match``), the card then rendering under the CPU's
     tables, cmf and all (``carry_tables``). Returns {label: (worst relative
-    L2 of a leaf, the card's seconds)}."""
-    cpu = reference.result()
+    L2 of a leaf, the card's seconds)}. First the comparisons that earlier
+    phases held (``CpuReference.settle``)."""
+    log("  the card-against-CPU checks held by phases 4, 8, 10, 13, 17, 21 "
+        "and 30:")
+    reference.settle()
     out = {}
     for label, make, scene, integ, opts, env, tables in untried_configs():
         log(f"  {label}: {make.__name__} {scene}"
             + (f", {opts}" if opts else ""))
         t0 = time.perf_counter()
-        ref = cpu[label]
+        ref = reference.get(f"untried {label}")
         boundary = scene.get("sppe", 0) > 0 or scene.get("sppse", 0) > 0
         integ = integ()
         with switches(env):
@@ -4576,6 +4790,7 @@ def untried_phase(dev, reference):
             tables_match(34, runs[0][3], ref[3])
         worst = grad_compare(34, runs + [ref], boundary, images=True)
         out[label] = (worst, time.perf_counter() - t0)
+    reference.summary()
     return out
 
 
@@ -4592,7 +4807,7 @@ def main() -> int:
     from psdr_tpu_torch.accel import bvh as bvh_mod
     from psdr_tpu_torch.accel import intersect
     from psdr_tpu_torch.core import threefry
-    from psdr_tpu_torch.testing.scenes import cbox_scene, env_bench_scene
+    from psdr_tpu_torch.testing.scenes import env_bench_scene
 
     # -- 1. the card --------------------------------------------------------
     card = card_line()
@@ -4612,7 +4827,8 @@ def main() -> int:
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    # phase 34's CPU side, beside the card's phases from here on
+    # the CPU sides of phases 4, 8, 10, 13, 17, 21, 30 and 34, beside the
+    # card's phases from here on
     reference = CpuReference()
 
     # -- 3. K1 against its plain version -----------------------------------
@@ -4623,8 +4839,8 @@ def main() -> int:
 
     # -- 4. the port on the card against the port on the CPU ------------------
     log("phase 4: renderC on the card vs on the CPU (64x64, spp 4)")
-    render_match(dev, 4, "cbox, DirectIntegrator(1, 1)", cbox_scene, SMALL,
-                 DirectIntegrator(1, 1), ((IMG_RTOL, IMG_CLOSE_FRAC),))
+    render_check(dev, reference, 4, "cbox, DirectIntegrator(1, 1)", "4",
+                 ((IMG_RTOL, IMG_CLOSE_FRAC),))
 
     # -- 5. the forward at full width ------------------------------------------
     log("phase 5: DirectIntegrator(1, 1) forward, 512x512, spp 64, "
@@ -4648,7 +4864,7 @@ def main() -> int:
 
     # -- 8. a gradient on the card against the CPU -------------------------------
     log("phase 8: value_and_grad on the card vs on the CPU (64x64, spp 4)")
-    grad_phase(dev)
+    grad_phase(dev, reference, "8")
 
     # -- 9. the backward at bench.py's config ------------------------------------
     log("phase 9: DirectIntegrator(1, 1) backward, 512x512, spp 16, reuse "
@@ -4658,7 +4874,7 @@ def main() -> int:
     # -- 10. the boundary gradient on the card against the CPU --------------------
     log("phase 10: value_and_grad with the boundary terms on the card vs on "
         "the CPU (64x64, spp 4, sppe 2, sppse 4)")
-    grad_phase(dev, phase=10, scene=SMALL_BOUNDARY)
+    grad_phase(dev, reference, "10")
 
     # -- 11. guiding on the card -----------------------------------------------------
     log(f"phase 11: preprocess_secondary_edges {GUIDING} on the card vs on "
@@ -4678,9 +4894,8 @@ def main() -> int:
     log("phase 13: PathTracer(3) interior (64x64, spp 4) and PathTracer(2, "
         "camera_depth=2) with the boundary terms (sppe 2, sppse 4, the fused "
         "pass) on the card vs on the CPU")
-    grad_phase(dev, phase=13, integ=PathTracer(3))
-    grad_phase(dev, phase=13, scene=SMALL_BOUNDARY,
-               integ=PathTracer(max_depth=2, camera_depth=2))
+    grad_phase(dev, reference, "13 interior")
+    grad_phase(dev, reference, "13 boundary")
 
     # -- 14. the PathTracer's forward at full width ---------------------------------
     log("phase 14: PathTracer(3) forward, 512x512, spp 64, reuse "
@@ -4709,7 +4924,7 @@ def main() -> int:
     # -- 17. the materials and lights on the card against the CPU ------------------
     log("phase 17: rough conductor under an environment map, image texture "
         "and AOVs on the card vs on the CPU")
-    material_phase(dev)
+    material_phase(dev, reference)
 
     # -- 18. env_bench_scene forward ---------------------------------------------------
     log(f"phase 18: env_bench_scene forward, {ENV_BENCH}")
@@ -4747,7 +4962,8 @@ def main() -> int:
         log(f"phase 21: the bench scene written as files and loaded on the "
             f"card, {BENCH}")
         loaded_fwd, _ = loader_phase(intersect, dev,
-                                     os.path.join(tmp, "bench"), launches)
+                                     os.path.join(tmp, "bench"), launches,
+                                     reference)
         # -- 22. the trainer at full width: slice 7's main path -----------
         log(f"phase 22: the trainer, {TRAIN}, Optimizer on "
             f"Mesh[{OCCLUDER}].vertex_positions through "
@@ -4804,7 +5020,7 @@ def main() -> int:
     del env_sc
     log("  renderC under each accel_mode on the card vs on the CPU (64x64, "
         "spp 4); a tree of 8-triangle leaves")
-    modes = accel_mode_phase(intersect, bvh_mod, dev)
+    modes = accel_mode_phase(intersect, bvh_mod, dev, reference)
     log(f"  render_program replayed after {SNAPSHOTS} envmap snapshots")
     envmap_lifetime_phase(dev)
     # -- 31. reproducibility ---------------------------------------------------
