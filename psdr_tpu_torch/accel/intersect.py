@@ -40,6 +40,7 @@ from pathlib import Path
 
 import torch
 
+from .. import profiling
 from ..core.constants import RayEpsilon
 from .bruteforce import HitRecord, _accept, brute_plain, moller_trumbore_tile
 from .bvh import BVH, wide_layout
@@ -48,10 +49,11 @@ _INF = float("inf")
 
 # Launches of each CUDA kernel (K1 by mode), counted where its wrapper
 # launches it and nowhere else (chip_smoke.py reads them to show the path
-# ran the kernels).
+# ran the kernels): the counters ``launches.<key>`` of ``profiling``.
 # ``segsum`` is the fixed-order reduction of ``core/segsum.py`` (one count a
 # level's launch), built into the same library.
-LAUNCHES = {"closest": 0, "any": 0, "k2": 0, "k3": 0, "segsum": 0}
+LAUNCHES = profiling.CounterGroup(
+    "launches", ("closest", "any", "k2", "k3", "segsum"))
 
 
 def reset_launch_counts() -> None:
@@ -79,6 +81,7 @@ def _device_of(ray_o, name):
     return dev.type
 
 
+@profiling.span("intersect")
 def ray_intersect_k1(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
                      active: torch.Tensor | None = None,
                      tmax: torch.Tensor | None = None,
@@ -91,6 +94,7 @@ def ray_intersect_k1(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
     return k1_plain(*args)
 
 
+@profiling.span("intersect")
 def ray_intersect_brute(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
                         ray_o: torch.Tensor, ray_d: torch.Tensor,
                         active: torch.Tensor | None = None,
@@ -104,6 +108,7 @@ def ray_intersect_brute(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
     return brute_plain(*args)
 
 
+@profiling.span("intersect")
 def ray_intersect_k3(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
                      active: torch.Tensor | None = None,
                      tmax: torch.Tensor | None = None,
@@ -182,21 +187,22 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library(nvcc)))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.psdr_k1_intersect.argtypes = (
-            [ptr, i32, i32, i32] + [ptr] * 3 + [i32] + [ptr] * 4 + [i32, i32]
-            + [ptr] * 3 + [ptr, ptr])
-        lib.psdr_k2_brute.argtypes = (
-            [ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
-        lib.psdr_k3_culled.argtypes = (
-            [ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
-        lib.psdr_segsum.argtypes = (
-            [ptr] * 3 + [i32] * 2 + [ptr, i32] + [ptr] * 3)
-        for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
-                   lib.psdr_k3_culled, lib.psdr_segsum):
-            fn.restype = i32
-        _LIB = lib
+        with profiling.span("accel.load_library"):
+            lib = ctypes.CDLL(str(build_library(nvcc)))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.psdr_k1_intersect.argtypes = (
+                [ptr, i32, i32, i32] + [ptr] * 3 + [i32] + [ptr] * 4
+                + [i32, i32] + [ptr] * 3 + [ptr, ptr])
+            lib.psdr_k2_brute.argtypes = (
+                [ptr] * 3 + [i32] + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+            lib.psdr_k3_culled.argtypes = (
+                [ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
+            lib.psdr_segsum.argtypes = (
+                [ptr] * 3 + [i32] * 2 + [ptr, i32] + [ptr] * 3)
+            for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
+                       lib.psdr_k3_culled, lib.psdr_segsum):
+                fn.restype = i32
+            _LIB = lib
     return _LIB
 
 
@@ -291,6 +297,7 @@ def k1_cuda(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
             tri.data_ptr(), uv.data_ptr(),
             None if counts is None else counts.data_ptr(), dev=dev)
     LAUNCHES["any" if any_hit else "closest"] += 1
+    profiling.count("k1.rays", n)
     return HitRecord(valid=tri >= 0, tri_id=tri, uv=uv, t=t)
 
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..core.records import BSDFSample, Intersection
 from .diffuse import Diffuse, eval_diffuse, pdf_diffuse, sample_diffuse
 from .roughconductor import (RoughConductor, eval_roughconductor,
@@ -35,6 +36,7 @@ def all_reflective_one_sided(kinds) -> bool:
     return all(_REFLECTIVE_ONE_SIDED.get(k, False) for k in kinds)
 
 
+@profiling.span("bsdf")
 def eval_bsdf(kinds, params_list, its: Intersection, wo: torch.Tensor,
               active: torch.Tensor) -> torch.Tensor:
     result = torch.zeros(wo.shape[:-1] + (3,), dtype=wo.dtype,
@@ -46,6 +48,7 @@ def eval_bsdf(kinds, params_list, its: Intersection, wo: torch.Tensor,
     return result
 
 
+@profiling.span("bsdf")
 def pdf_bsdf(kinds, params_list, its: Intersection, wo: torch.Tensor,
              active: torch.Tensor) -> torch.Tensor:
     result = torch.zeros(wo.shape[:-1], dtype=wo.dtype, device=wo.device)
@@ -56,6 +59,7 @@ def pdf_bsdf(kinds, params_list, its: Intersection, wo: torch.Tensor,
     return result
 
 
+@profiling.span("bsdf")
 def sample_bsdf(kinds, params_list, its: Intersection, sample3: torch.Tensor,
                 active: torch.Tensor) -> BSDFSample:
     n = sample3.shape[:-1]

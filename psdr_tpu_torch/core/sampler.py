@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import threefry
 
 _M32 = 0xFFFFFFFF
@@ -96,6 +97,7 @@ def _lp32(n: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@profiling.span("rng")
 def ld_2d(index: torch.Tensor, scramble_x: torch.Tensor,
           scramble_y: torch.Tensor) -> torch.Tensor:
     """Scrambled (0,2)-sequence point for each ``index``; the scramble words

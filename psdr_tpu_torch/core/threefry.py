@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from .. import profiling
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -107,6 +109,7 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return _key(0, seed & _M32, device)
 
 
+@profiling.span("rng")
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of counters (0, data) under key."""
     k0, k1 = _words(key)
@@ -116,6 +119,7 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _key(*_hash_ints(k0, k1, 0, int(data) & _M32))
 
 
+@profiling.span("rng")
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (fold-like form): row i hashes counters (0, i)."""
     k0, k1 = _words(key)
@@ -136,6 +140,7 @@ def _bits(k0, k1, n: int, device) -> torch.Tensor:
     return b0 ^ b1
 
 
+@profiling.span("rng")
 def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2^32)): the hash of the
     flat element index as a (hi=0, lo=i) counter, words XORed."""
@@ -148,6 +153,7 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
                  ).reshape(shape)
 
 
+@profiling.span("rng")
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` in [0, 1): the top 23
     bits as a mantissa under exponent 0, minus one."""
@@ -155,6 +161,7 @@ def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
+@profiling.span("rng")
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,
             device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)``, including

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core import transform as xform
 from ..core.bitmap import Bitmap, eval_bitmap, from_array
 from ..core.constants import Epsilon, InvPi, InvTwoPi, Pi, TwoPi
@@ -138,6 +139,7 @@ def _frozen_on_device(host_radiance, gw, gh, gw_f, gh_f, kind: str, dev):
     return hold(entry[2][dev])
 
 
+@profiling.span("envmap.tables")
 def _frozen_entry(host_radiance, gw, gh, gw_f, gh_f, kind: str):
     key = (id(host_radiance), tuple(host_radiance.shape), gw, gh, kind)
     hit = _FROZEN_CACHE.get(key)
@@ -257,6 +259,7 @@ def _direction_uv(v: torch.Tensor) -> torch.Tensor:
     return uv - torch.floor(uv)
 
 
+@profiling.span("emitter")
 def envmap_eval_direction(st: EnvmapState, wi: torch.Tensor,
                           active: torch.Tensor) -> torch.Tensor:
     """Radiance arriving *from* direction wi."""
@@ -265,6 +268,7 @@ def envmap_eval_direction(st: EnvmapState, wi: torch.Tensor,
     return torch.where(active[..., None], val, 0.0)
 
 
+@profiling.span("emitter")
 def envmap_sample_direction(st: EnvmapState, sample2: torch.Tensor):
     """(direction, pdf in solid angle)."""
     uv, pdf = hypercube_sample_reuse(st.cell_distrb, sample2)
@@ -280,6 +284,7 @@ def envmap_sample_direction(st: EnvmapState, sample2: torch.Tensor):
     return d, pdf
 
 
+@profiling.span("emitter")
 def envmap_sample_position(st: EnvmapState, ref_p: torch.Tensor,
                            sample2: torch.Tensor,
                            active: torch.Tensor) -> PositionSample:
@@ -295,6 +300,7 @@ def envmap_sample_position(st: EnvmapState, ref_p: torch.Tensor,
                                              device=pdf.device))
 
 
+@profiling.span("emitter")
 def envmap_position_pdf(st: EnvmapState, ref_p: torch.Tensor,
                         its_p: torch.Tensor, its_n: torch.Tensor,
                         active: torch.Tensor) -> torch.Tensor:

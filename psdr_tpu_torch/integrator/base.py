@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import profiling
 from ..core import threefry
 from ..core.constants import RayEpsilon
 from ..core.gather import gather_rows
@@ -45,6 +46,7 @@ from ..sensor.perspective import sample_primary_edge, sample_primary_ray
 _M32 = 0xFFFFFFFF
 
 
+@profiling.span("camera")
 def camera_prior_rows(flat: FlatScene, sensor_id: int, pix_order: torch.Tensor,
                       opts: RenderOptions) -> torch.Tensor:
     """Detached per-pixel candidate rows for the camera-hit prior: one
@@ -67,6 +69,7 @@ def camera_prior_rows(flat: FlatScene, sensor_id: int, pix_order: torch.Tensor,
     return torch.cat([rows, tid[:, None]], dim=1)
 
 
+@profiling.span("intersect")
 def camera_prior_for_rays(prior_rows_c: torch.Tensor, ray, spp: int):
     """Per-lane prior tuple for ``ray_intersect_with_prior``: each pixel's
     candidate row goes to its spp lanes, and each lane's ray is
@@ -124,6 +127,7 @@ def tile_pos_to_pixel(pos: torch.Tensor, width: int, height: int,
     return y * width + x
 
 
+@profiling.span("film")
 def accumulate_image(value: torch.Tensor, pixel_idx: torch.Tensor,
                      num_pixels: int) -> torch.Tensor:
     """Sum sample values into a (num_pixels, 3) image, each pixel's lanes
@@ -179,6 +183,7 @@ def shard_lane_range(n: int, shard) -> tuple[int, int]:
     return d * count, count
 
 
+@profiling.span("rng")
 def _pix_hash(idx: torch.Tensor, word) -> torch.Tensor:
     """Per-pixel 32-bit hash of (pixel id, word), as the JAX package's
     scramble words (uint32 in int64); ``word`` is an int or a 0-dim
@@ -231,52 +236,55 @@ class Integrator:
         remat = opts.resolve_remat(count)
 
         def lane_values(lane, key_c, prior_rows_c=None):
-            pos = torch.clamp(lane // spp, max=num_pixels - 1)
-            idx = tile_pos_to_pixel(pos, opts.width, opts.height)
-            if idx is None:
-                idx = pix_order[pos]
-            base = torch.stack([(idx % opts.width).float(),
-                                (idx // opts.width).float()], dim=-1)
-            rng = RngStream(key_c, salt=0, device=dev)
-            if aligned:
-                rng.vis_spp = spp
-            m = lane.shape[0]
-            if use_sobol:
-                # the JAX package draws a uniform jitter here and replaces
-                # it; only its counter slot matters
-                rng._subkey()
-                # XOR-scrambled (0,2)-sequence for the subpixel jitter and
-                # the first NEE/BSDF samples, one scramble pair each per
-                # pixel; the words stay 0-dim tensors on the key's device
-                # (a CPU scalar in the card's ops where the key is a host
-                # key)
-                w = threefry.randint(rng._subkey(), (6,), 0,
-                                     np.iinfo(np.int32).max)
-                s_idx = lane % spp
-                jitter = ld_2d(s_idx, _pix_hash(idx, w[0]),
-                               _pix_hash(idx, w[1]))
-                rng.ld = (s_idx,) + tuple(_pix_hash(idx, w[k])
-                                          for k in range(2, 6))
-            else:
-                jitter = rng.next_2d(m)
-            if strat is not None:
-                sa, sb = strat
-                s_idx = lane % spp
-                cell = torch.stack([(s_idx % sa).float(),
-                                    (s_idx // sa).float()], dim=-1)
-                jitter = (cell + jitter) / const((sa, sb), torch.float32, dev)
-                # per-pixel rotations of the stratum index for the NEE and
-                # the BSDF sample, independent hashes of the pixel, so that
-                # subpixel and light strata decorrelate across pixels
-                # ("padded" stratified sampling); the (sa, sb) grid rides
-                # along so _stratify2 shares this factorization
-                w = threefry.randint(rng._subkey(), (2,), 0,
-                                     np.iinfo(np.int32).max)
-                rng.strata = (s_idx, spp, (sa, sb),
-                              _pix_hash(idx, w[0]) % spp,
-                              _pix_hash(idx, w[1]) % spp)
-            ray = sample_primary_ray(flat.sensors[sensor_id],
-                                     (base + jitter) / film)
+            with profiling.span("camera"):
+                pos = torch.clamp(lane // spp, max=num_pixels - 1)
+                idx = tile_pos_to_pixel(pos, opts.width, opts.height)
+                if idx is None:
+                    idx = pix_order[pos]
+                base = torch.stack([(idx % opts.width).float(),
+                                    (idx // opts.width).float()], dim=-1)
+                rng = RngStream(key_c, salt=0, device=dev)
+                if aligned:
+                    rng.vis_spp = spp
+                m = lane.shape[0]
+                if use_sobol:
+                    # the JAX package draws a uniform jitter here and
+                    # replaces it; only its counter slot matters
+                    rng._subkey()
+                    # XOR-scrambled (0,2)-sequence for the subpixel jitter
+                    # and the first NEE/BSDF samples, one scramble pair
+                    # each per pixel; the words stay 0-dim tensors on the
+                    # key's device (a CPU scalar in the card's ops where
+                    # the key is a host key)
+                    w = threefry.randint(rng._subkey(), (6,), 0,
+                                         np.iinfo(np.int32).max)
+                    s_idx = lane % spp
+                    jitter = ld_2d(s_idx, _pix_hash(idx, w[0]),
+                                   _pix_hash(idx, w[1]))
+                    rng.ld = (s_idx,) + tuple(_pix_hash(idx, w[k])
+                                              for k in range(2, 6))
+                else:
+                    jitter = rng.next_2d(m)
+                if strat is not None:
+                    sa, sb = strat
+                    s_idx = lane % spp
+                    cell = torch.stack([(s_idx % sa).float(),
+                                        (s_idx // sa).float()], dim=-1)
+                    jitter = (cell + jitter) / const((sa, sb), torch.float32,
+                                                     dev)
+                    # per-pixel rotations of the stratum index for the NEE
+                    # and the BSDF sample, independent hashes of the pixel,
+                    # so that subpixel and light strata decorrelate across
+                    # pixels ("padded" stratified sampling); the (sa, sb)
+                    # grid rides along so _stratify2 shares this
+                    # factorization
+                    w = threefry.randint(rng._subkey(), (2,), 0,
+                                         np.iinfo(np.int32).max)
+                    rng.strata = (s_idx, spp, (sa, sb),
+                                  _pix_hash(idx, w[0]) % spp,
+                                  _pix_hash(idx, w[1]) % spp)
+                ray = sample_primary_ray(flat.sensors[sensor_id],
+                                         (base + jitter) / film)
             if prior_rows_c is None:
                 value = self.Li(scene, flat, rng, ray, lane < n)
             else:
@@ -313,22 +321,24 @@ class Integrator:
                 s = min(start // spp + c * ppc, prior_rows.shape[0] - ppc)
                 pr_c = prior_rows[s:s + ppc]
             value, _ = lane_values(lane, key_c, pr_c)
-            return value.reshape(ppc, spp, 3).sum(dim=1)
+            with profiling.span("film"):
+                return value.reshape(ppc, spp, 3).sum(dim=1)
 
         if remat:
             chunk_block = _checkpointed(chunk_block)
 
         keys = [key] if n_chunks == 1 else threefry.split(key, n_chunks)
-        tile_img = torch.cat([chunk_block(c, keys[c])
-                              for c in range(n_chunks)])
-        # pixel p sits at tile position inv_order[p]; this slice's blocks
-        # cover positions [start / spp, start / spp + rows)
-        rows = tile_img.shape[0]
-        rel = inv_order - start // spp
-        in_range = (rel >= 0) & (rel < rows)
-        img = torch.where(in_range[..., None], gather_rows(
-            tile_img, torch.clamp(rel, 0, rows - 1)), 0.0)
-        return img / spp
+        blocks = [chunk_block(c, keys[c]) for c in range(n_chunks)]
+        with profiling.span("film"):
+            tile_img = torch.cat(blocks)
+            # pixel p sits at tile position inv_order[p]; this slice's
+            # blocks cover positions [start / spp, start / spp + rows)
+            rows = tile_img.shape[0]
+            rel = inv_order - start // spp
+            in_range = (rel >= 0) & (rel < rows)
+            img = torch.where(in_range[..., None], gather_rows(
+                tile_img, torch.clamp(rel, 0, rows - 1)), 0.0)
+            return img / spp
 
     # -- primary boundary ------------------------------------------------------
     def render_primary_edges(self, scene: Scene, flat: FlatScene,
@@ -427,6 +437,7 @@ class Integrator:
         no graph, and the hit records are read without a recompute."""
         scene.prepare_accel()
 
+        @profiling.span("render")
         def f(params, key):
             if not detached:
                 return self.radiance_image(scene, scene.build(params),
@@ -497,6 +508,7 @@ class Integrator:
             if len(cache) > 16:
                 cache.clear()
 
+            @profiling.span("render")
             def run(key_):
                 fl = detach_flat(flat) if detached else flat
                 return self.radiance_image(scene, fl, sensor_id, key_,

@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from .. import profiling
 from ..accel.bruteforce import HitRecord
 from ..bsdf import all_reflective_one_sided, eval_bsdf, pdf_bsdf, sample_bsdf
 from ..core import threefry
@@ -140,6 +141,7 @@ def _emitter_meta(scene: Scene):
     return tuple(meta) if meta else (("area", 0),)
 
 
+@profiling.span("emitter")
 def _sampled_radiance(flat: FlatScene, ps, wo, active):
     """Radiance of a light sample ``ps`` seen along ``wo``: its area
     light's, or the environment map's where the sample's ``emitter`` is
@@ -472,6 +474,7 @@ class DirectIntegrator(Integrator):
                 return occ & active
         return ray_test(flat, Ray(p, wo), dist, active)
 
+    @profiling.span("intersect")
     def _nee_visibility(self, flat, rng, p, wo, dist, active1, n):
         return DirectIntegrator._nee_visibility_impl(
             flat, rng, p, wo, dist, active1, n,

@@ -39,14 +39,21 @@ what cannot be captured between its forward and its backward (a gloo
 collective): the forward, whose saved tensors stay in the pool, and the
 vector-Jacobian product fed a cotangent.
 
-A replay launches the captured kernels without running the Python wrappers
-that count them, so a program records what its capture added to
-``accel.intersect.LAUNCHES``, takes it back (a capture launches nothing)
-and adds it on every replay.
+A replay launches the captured kernels without running the Python code
+that counts them, so a program records what its capture added to the
+counters of ``profiling`` (``accel.intersect.LAUNCHES`` among them), takes
+it back (a capture launches nothing) and adds it on every replay. It
+counts its captures (``program.captures.first``,
+``program.captures.retrace``) and replays (``program.replays``), and
+spans its warm-up, capture and calls (``program.warm_up``,
+``program.capture``, ``program.call``).
 
-``capture_seconds``, ``nodes`` (the graph's node count) and
-``pool_bytes`` (the device memory of its private pool) report on the
-capture. Dropping a program frees its graph and its pool.
+``capture_seconds`` (the ``program.capture`` span: capture, instantiation
+and a synchronize), ``nodes`` (the graph's node count) and ``pool_bytes``
+(the device memory of its private pool) report on the capture. Dropping a
+program frees its graph and its pool. ``Program.profile_layers`` times the
+layers of its graph on the device, in a twin graph whose span boundaries
+record events; the graph that calls replay is never touched.
 
 What a body reads outside its pool must live as long as the graph: a
 program holds every cached tensor that its capture was handed
@@ -58,12 +65,11 @@ from __future__ import annotations
 
 import ctypes
 import gc
-import time
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from .accel.intersect import LAUNCHES
+from . import profiling
 from .core.hoist import holding
 
 
@@ -81,18 +87,77 @@ def _signature(leaves, spec, name: str):
     return spec, tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
 
 
+def _libcuda():
+    return ctypes.CDLL("libcuda.so.1")
+
+
 def _graph_nodes(raw_graph: int) -> int:
     """The node count of a ``cudaGraph_t`` (``cuGraphGetNodes`` of
-    ``libcuda``)."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    ``libcuda``), finished or still capturing."""
+    fn = _libcuda().cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
     n = ctypes.c_size_t(0)
-    err = cuda.cuGraphGetNodes(raw_graph, None, ctypes.byref(n))
+    err = fn(raw_graph, None, ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"cuGraphGetNodes returned {err}")
     return n.value
+
+
+def _capturing_graph(stream: int) -> int:
+    """The graph that ``stream`` (a ``cudaStream_t``) captures into
+    (``cuStreamGetCaptureInfo``); raises where it captures none."""
+    cuda = _libcuda()
+    p, sz = ctypes.c_void_p, ctypes.c_size_t
+    status, graph, n = ctypes.c_int(0), p(), sz(0)
+    ident, deps = ctypes.c_uint64(0), p()
+    fn = getattr(cuda, "cuStreamGetCaptureInfo_v3", None)
+    if fn is not None:        # CUDA 12.3 on: edge data (not asked for)
+        fn.restype = ctypes.c_int
+        err = fn(p(stream), ctypes.byref(status), ctypes.byref(ident),
+                 ctypes.byref(graph), ctypes.byref(deps), None,
+                 ctypes.byref(n))
+    else:
+        fn = cuda.cuStreamGetCaptureInfo_v2
+        fn.restype = ctypes.c_int
+        err = fn(p(stream), ctypes.byref(status), ctypes.byref(ident),
+                 ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(n))
+    if err != 0 or status.value != 1:     # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"cuStreamGetCaptureInfo returned {err}, "
+                           f"status {status.value}: the stream captures "
+                           "no graph")
+    return graph.value
+
+
+def _check_chain(raw_graph: int, name: str) -> None:
+    """Raise unless the graph's nodes form one chain, as one stream
+    captures them: n - 1 edges, no node with two successors or two
+    predecessors (``cuGraphGetEdges``)."""
+    cuda = _libcuda()
+    n_nodes = _graph_nodes(raw_graph)
+    fn = getattr(cuda, "cuGraphGetEdges_v2", None)
+    fn = fn if fn is not None else cuda.cuGraphGetEdges
+    fn.restype = ctypes.c_int
+    edge_data = (None,) if fn is not cuda.cuGraphGetEdges else ()
+
+    def edges(src, dst, num):
+        err = fn(ctypes.c_void_p(raw_graph), src, dst, *edge_data,
+                 ctypes.byref(num))
+        if err != 0:
+            raise RuntimeError(f"cuGraphGetEdges returned {err}")
+
+    num = ctypes.c_size_t(0)
+    edges(None, None, num)
+    src = (ctypes.c_void_p * max(num.value, 1))()
+    dst = (ctypes.c_void_p * max(num.value, 1))()
+    edges(src, dst, num)
+    m = num.value
+    if (m != n_nodes - 1 or len(set(src[:m])) != m
+            or len(set(dst[:m])) != m):
+        raise RuntimeError(f"{name}: the graph's {n_nodes} nodes and {m} "
+                           "edges are not one chain on one stream; its "
+                           "layers' device time cannot be attributed")
 
 
 def _grad_mode(grad: bool):
@@ -124,15 +189,15 @@ def _warm_up(dev, body, times: int) -> None:
 
 def _capture(dev, body, pool=None):
     """``body()`` captured into a new graph (in ``pool``, or a pool of its
-    own) and instantiated: (graph, body's result, the launch counts the
-    capture recorded, graph nodes). The counts are taken back from
-    ``LAUNCHES`` whether or not the capture succeeds.
+    own) and instantiated: (graph, body's result, the counts the capture
+    added to ``profiling``'s counters, graph nodes). The counts are taken
+    back whether or not the capture succeeds.
 
     Python's cyclic garbage is collected before the capture and not during
     it: a program caught in a reference cycle (an integrator and its
     program cache) frees its graph when the collector reaches it, and a
     graph freed while a stream captures invalidates that capture."""
-    before = dict(LAUNCHES)
+    before = profiling.counters()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     gc.collect()
     gc_was_on = gc.isenabled()
@@ -145,9 +210,8 @@ def _capture(dev, body, pool=None):
     finally:
         if gc_was_on:
             gc.enable()
-        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-        LAUNCHES.update(before)
-    return graph, out, launches, nodes
+        counts = profiling.take_back(before)
+    return graph, out, counts, nodes
 
 
 def _pool_bytes(graph) -> int:
@@ -251,10 +315,11 @@ class Program:
                 for buf, x in zip(self._inputs, leaves):
                     buf.copy_(x)
 
-    def _replay(self, graph, launches) -> None:
+    def _replay(self, graph, counts) -> None:
         graph.replay()
-        for k, v in launches.items():
-            LAUNCHES[k] += v
+        profiling.count("program.replays")
+        for k, v in counts.items():
+            profiling.count(k, v)
 
     def _capture_or_fail(self, dev, body, pool=None):
         """``_capture(dev, body, pool)``; a failure raises, for good."""
@@ -268,6 +333,7 @@ class Program:
             raise RuntimeError(f"the capture of {self.name} failed; it does "
                                "not run eagerly") from e
 
+    @profiling.span("program.call")
     def __call__(self, *args):
         leaves, spec, dev = self._bind(args)
         if dev.type == "cpu":
@@ -284,16 +350,127 @@ class Program:
         with _grad_mode(self.grad):
             return self.fn(*tree_unflatten(self._inputs, spec))
 
-    def _capture(self, spec, dev) -> None:
-        _warm_up(dev, lambda: self._body(spec), 3 if self.grad else 1)
-        t0 = time.perf_counter()
-        graph, out, self._launches, self.nodes = self._capture_or_fail(
-            dev, lambda: _tensor_leaves(self._body(spec), self.name))
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = _pool_bytes(graph)
+    def _count_capture(self) -> None:
+        profiling.count("program.captures.retrace" if self.captures
+                        else "program.captures.first")
         self.captures += 1
+
+    def _capture(self, spec, dev) -> None:
+        with profiling.span("program.warm_up"):
+            _warm_up(dev, lambda: self._body(spec), 3 if self.grad else 1)
+        with profiling.span("program.capture") as span:
+            graph, out, self._launches, self.nodes = self._capture_or_fail(
+                dev, lambda: _tensor_leaves(self._body(spec), self.name))
+            torch.cuda.synchronize(dev)
+        self.capture_seconds = span.elapsed
+        self.pool_bytes = _pool_bytes(graph)
+        self._count_capture()
         self._graph, self._outputs = graph, out
+
+    def profile_layers(self, *args, replays: int = 20) -> dict:
+        """The device time of each layer of the program's graph, measured
+        where the work runs; CUDA tensors only (raises on the CPU).
+
+        The body is captured again into a twin graph with a pool of its
+        own. A layer is the innermost open span (``profiling.span``;
+        ``program`` outside every span). At each span boundary where the
+        layer changes, and at the body's start and end, the twin records
+        a timing event: an event node, or none where no node came since
+        the last one. The twin's nodes must form one chain and, less its
+        events, number as the program's graph's, or this raises. A layer's
+        time is the time between consecutive events while it is the layer
+        (its self time), its nodes those issued meanwhile.
+
+        Each of ``replays`` rounds calls the program with the device idle
+        (the host time of its ``program.call`` span), then replays the
+        program's graph and the twin, both launched while the call's
+        replay keeps the device busy, with an event around each. The twin
+        is freed after. The program's own graph is replayed only to be
+        timed; nothing of it changes, and no counter counts these
+        replays.
+
+        Returns a dict, each time a mean over the rounds: ``layers_ms``
+        (self device milliseconds a replay by layer), ``layer_nodes``
+        (graph nodes by layer), ``sum_ms`` (the layers' sum), ``twin_ms``
+        and ``plain_ms`` (device milliseconds a replay of the twin and of
+        the program's graph), ``call_ms`` (host milliseconds a call),
+        ``nodes`` (of the program's graph), ``events`` and ``replays``."""
+        _, spec, dev = self._bind(args)
+        if dev.type != "cuda":
+            raise RuntimeError(f"{self.name}.profile_layers times a CUDA "
+                               f"graph; its arguments lie on {dev}")
+        self(*args)
+        events, marks, inner, last = [], [], [], [-1]
+
+        def boundary(name, entering):
+            before = inner[-1] if inner else None
+            if entering:
+                inner.append(name)
+            else:
+                inner.pop()
+            after = inner[-1] if inner else None
+            if after == before:
+                return                    # the same layer goes on
+            stream = torch.cuda.current_stream(dev)
+            n = _graph_nodes(_capturing_graph(stream.cuda_stream))
+            work = n - len(events)
+            if n != last[0]:
+                ev = torch.cuda.Event(enable_timing=True, external=True)
+                ev.record(stream)
+                events.append(ev)
+                last[0] = n + 1
+            marks.append((len(events) - 1, work, after))
+
+        def body():
+            boundary("program", True)
+            out = _tensor_leaves(self._body(spec), self.name)
+            boundary("program", False)
+            return out
+
+        with holding(), profiling.boundaries(boundary):
+            twin, _, _, twin_nodes = _capture(dev, body)
+        plain = self._graph
+        call_ns, plain_ms, twin_ms = [], 0.0, 0.0
+        gaps = [0.0] * (len(events) - 1)
+        try:
+            _check_chain(twin.raw_cuda_graph(), self.name)
+            if twin_nodes - len(events) != self.nodes:
+                raise RuntimeError(
+                    f"{self.name}: the twin graph has {twin_nodes} nodes with "
+                    f"{len(events)} events, the program's {self.nodes}")
+            ends = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            for _ in range(replays):
+                torch.cuda.synchronize(dev)
+                with profiling.recording() as done:
+                    self(*args)           # with the device idle before it
+                call_ns += [s.end_ns - s.start_ns for s in done
+                            if s.name == "program.call"]
+                # launched while the call's replay keeps the device busy
+                ends[0].record()
+                plain.replay()
+                ends[1].record()
+                twin.replay()
+                ends[2].record()
+                torch.cuda.synchronize(dev)
+                plain_ms += ends[0].elapsed_time(ends[1]) / replays
+                twin_ms += ends[1].elapsed_time(ends[2]) / replays
+                for i, ev in enumerate(events[:-1]):
+                    gaps[i] += ev.elapsed_time(events[i + 1]) / replays
+        finally:
+            twin.reset()
+            del twin
+            torch.cuda.empty_cache()
+        layers_ms: dict = {}
+        layer_nodes: dict = {}
+        for (e0, w0, layer), (e1, w1, _) in zip(marks, marks[1:]):
+            layers_ms[layer] = layers_ms.get(layer, 0.0) + sum(gaps[e0:e1])
+            layer_nodes[layer] = layer_nodes.get(layer, 0) + w1 - w0
+        return {"layers_ms": layers_ms, "layer_nodes": layer_nodes,
+                "sum_ms": sum(layers_ms.values()), "twin_ms": twin_ms,
+                "plain_ms": plain_ms,
+                "call_ms": sum(call_ns) / len(call_ns) * 1e-6,
+                "nodes": self.nodes, "events": len(events),
+                "replays": replays}
 
 
 class VJPProgram(Program):
@@ -343,6 +520,7 @@ class VJPProgram(Program):
         return tree_unflatten([torch.zeros_like(x) if g is None else g
                                for x, g in zip(live, grads)], x_spec)
 
+    @profiling.span("program.call")
     def __call__(self, *args):
         leaves, spec, dev = self._bind(args)
         if dev.type == "cpu":
@@ -366,23 +544,29 @@ class VJPProgram(Program):
         grads, g_spec = self._grads
         return tree_unflatten([g.clone() for g in grads], g_spec)
 
+    def profile_layers(self, *args, replays: int = 20) -> dict:
+        raise NotImplementedError(f"{self.name}: profile_layers times one "
+                                  "graph; a VJPProgram has two")
+
     def _capture(self, spec, dev) -> None:
         def warm():
             saved = self._forward(self._inputs, spec)
             self._backward(saved, torch.ones_like(saved[0]), retain=False)
-        _warm_up(dev, warm, 3)
-        t0 = time.perf_counter()
-        fgraph, saved, self._launches, nodes = self._capture_or_fail(
-            dev, lambda: self._forward(self._inputs, spec))
-        self._cot = torch.zeros_like(saved[0])
-        bgraph, grads, launches, bnodes = self._capture_or_fail(
-            dev, lambda: _tensor_leaves(
-                self._backward(saved, self._cot, retain=True), self.name),
-            pool=fgraph.pool())
-        self._grads, self._bwd_launches = grads, launches
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+        with profiling.span("program.warm_up"):
+            _warm_up(dev, warm, 3)
+        with profiling.span("program.capture") as span:
+            fgraph, saved, self._launches, nodes = self._capture_or_fail(
+                dev, lambda: self._forward(self._inputs, spec))
+            self._cot = torch.zeros_like(saved[0])
+            bgraph, grads, launches, bnodes = self._capture_or_fail(
+                dev, lambda: _tensor_leaves(
+                    self._backward(saved, self._cot, retain=True),
+                    self.name),
+                pool=fgraph.pool())
+            self._grads, self._bwd_launches = grads, launches
+            torch.cuda.synchronize(dev)
+        self.capture_seconds = span.elapsed
         self.nodes = nodes + bnodes
         self.pool_bytes = _pool_bytes(fgraph)
-        self.captures += 1
+        self._count_capture()
         self._graph, self._bwd, self._saved = fgraph, bgraph, saved

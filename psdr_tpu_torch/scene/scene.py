@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..accel.bruteforce import HitRecord
 from ..accel.bvh import (BVH, BVHTopology, build_bvh_topology,
                          ray_intersect_bvh, ray_intersect_culled, refit_bvh)
@@ -250,6 +251,7 @@ class Scene:
             return self.accel_mode
         return "pallas" if self.device.type == "cuda" else "culled"
 
+    @profiling.span("scene.prepare_accel")
     def prepare_accel(self) -> None:
         """Build the static BVH topology (triangle Morton order + skip
         links) on the host from the current geometry; later builds only
@@ -343,6 +345,7 @@ class Scene:
         return tuple(b.kind for b in self.bsdfs)
 
     # -- the build ------------------------------------------------------------
+    @profiling.span("scene.build")
     def build(self, params: dict) -> FlatScene:
         if not self.meshes or not self.sensors:
             raise ValueError("a scene needs meshes and a sensor")
@@ -648,6 +651,7 @@ def _unpermuted(hit: HitRecord, perm: torch.Tensor) -> HitRecord:
         tri_id=back(hit.tri_id), uv=back(hit.uv), t=back(hit.t))
 
 
+@profiling.span("intersect")
 def _closest_hit(flat: FlatScene, ray: Ray, active: torch.Tensor, tmax=None,
                  sort_rays: bool = False, any_hit: bool = False,
                  test_only: bool = False):
@@ -690,6 +694,7 @@ def _closest_hit(flat: FlatScene, ray: Ray, active: torch.Tensor, tmax=None,
     return hit if perm is None else _unpermuted(hit, perm)
 
 
+@profiling.span("intersect")
 def ray_test(flat: FlatScene, ray: Ray, dist: torch.Tensor,
              active: torch.Tensor, sort_rays: bool = False,
              sparse: bool = False) -> torch.Tensor:
@@ -708,6 +713,7 @@ def ray_test(flat: FlatScene, ray: Ray, dist: torch.Tensor,
     return occ & active
 
 
+@profiling.span("intersect")
 def _ray_test_sparse(flat: FlatScene, ray: Ray, tmax: torch.Tensor,
                      active: torch.Tensor, frac_shift: int = 3,
                      seg: int = 1 << 15):
@@ -758,6 +764,7 @@ def _scattered(perm, occ_head, occ_rest, s: int, ks: int):
     return torch.zeros_like(occ_rest).scatter_(0, perm, occ.reshape(n))
 
 
+@profiling.span("intersect")
 def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
                                 active: torch.Tensor,
                                 sort_rays: bool = True,
@@ -786,6 +793,7 @@ def ray_intersect_emitter_first(flat: FlatScene, ray: Ray,
                          rows=rows, want_tri_info=want_tri_info)
 
 
+@profiling.span("intersect")
 def ray_intersect(flat: FlatScene, ray: Ray, active: torch.Tensor,
                   path_space: bool = False, want_tri_info: bool = False,
                   sort_rays: bool = False, hit=None, rows=None):
@@ -890,6 +898,7 @@ def _intersection_detached(flat: FlatScene, ray: Ray, hit: HitRecord,
         emitter_id=torch.where(valid, emitter_id_g, -1))
 
 
+@profiling.span("intersect")
 def ray_intersect_with_prior(flat: FlatScene, ray: Ray, active: torch.Tensor,
                              prior=None) -> Intersection:
     """Camera closest hit bounded by the camera-hit prior
@@ -912,6 +921,7 @@ def ray_intersect_with_prior(flat: FlatScene, ray: Ray, active: torch.Tensor,
     return ray_intersect(flat, ray, active, hit=hit)
 
 
+@profiling.span("emitter")
 def scene_le(flat: FlatScene, its: Intersection,
              active: torch.Tensor) -> torch.Tensor:
     """Emitted radiance toward the viewer at a hit (one-sided)."""
@@ -929,6 +939,7 @@ def scene_le(flat: FlatScene, its: Intersection,
     return le
 
 
+@profiling.span("emitter")
 def sample_emitter_position(flat: FlatScene, face_offsets, emitter_meta,
                             ref_p: torch.Tensor, sample2: torch.Tensor,
                             active: torch.Tensor) -> PositionSample:
@@ -974,6 +985,7 @@ def sample_emitter_position(flat: FlatScene, face_offsets, emitter_meta,
     return out._replace(pdf=out.pdf * sel_pdf, valid=out.valid & active)
 
 
+@profiling.span("emitter")
 def emitter_position_pdf(flat: FlatScene, emitter_meta, ref_p: torch.Tensor,
                          its: Intersection,
                          active: torch.Tensor) -> torch.Tensor:

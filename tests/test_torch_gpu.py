@@ -17,7 +17,10 @@ sums: the segsum kernel against its plain version, the prefix sum, a
 backward step, a guiding build and five trainer steps run twice, equal;
 and the reference-scale guiding table built twice and replayed, equal,
 checkpointed gradients equal to plain ones, and ``camera_depth=3``'s
-boundary gradient against the CPU.
+boundary gradient against the CPU; and the tracing: the layers'
+device times of ``Program.profile_layers`` against the replay, a program
+under ``torch.profiler`` bit-equal to one without, and the counters a
+replay adds against the eager body's.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -1233,3 +1236,78 @@ def test_camera_depth_3_boundary_grad_on_card_matches_cpu(cuda):
     cpu_loss, cpu = _grads(torch.device("cpu"), integ=integ, sppe=2, sppse=4)
     assert abs(card_loss - cpu_loss) <= 1e-5 * cpu_loss
     _assert_leaves_close(cpu, card)
+
+
+_LAYERS = ("render", "camera", "rng", "intersect", "bsdf", "emitter",
+           "film")
+
+
+def _cbox_program(cuda, size=256, spp=8):
+    sc = cbox_scene(size, size, spp=spp, occluder_subdiv=3, device=cuda)
+    p = params_from_numpy(sc.params(), device=cuda)
+    prog = DirectIntegrator(2, 2).render_program(sc)
+    return sc, prog, p, threefry.PRNGKey(7, device=cuda)
+
+
+def test_profile_layers_accounts_for_the_replay(cuda):
+    """``profile_layers`` on a small cbox (256x256, spp 8,
+    ``DirectIntegrator(2, 2)``): every layer reads a time; their self
+    times add up to the twin's replay within 1%; their nodes to the
+    program's graph; the twin replays within 3% of the program's graph;
+    and the program's graph and output are as they were."""
+    _, prog, p, key = _cbox_program(cuda)
+    want = prog(p, key)
+    nodes = prog.nodes
+    res = prog.profile_layers(p, key, replays=20)
+    assert prog.nodes == res["nodes"] == nodes
+    assert set(_LAYERS) <= set(res["layers_ms"])
+    assert all(v >= 0 for v in res["layers_ms"].values())
+    assert all(res["layers_ms"][k] > 0 for k in _LAYERS)
+    assert sum(res["layer_nodes"].values()) == nodes
+    assert abs(res["sum_ms"] - res["twin_ms"]) <= 0.01 * res["twin_ms"]
+    assert abs(res["twin_ms"] - res["plain_ms"]) <= 0.03 * res["plain_ms"]
+    assert res["call_ms"] > 0 and res["events"] > len(_LAYERS)
+    assert torch.equal(prog(p, key), want)
+
+
+def test_program_output_is_bit_equal_under_a_profiler(cuda):
+    """A replay under ``torch.profiler`` (the spans then open
+    ``record_function``s) equals one without, and a program captured
+    under the profiler has the same graph, node for node, and output."""
+    from torch.profiler import ProfilerActivity, profile
+    _, prog, p, key = _cbox_program(cuda, size=64, spp=4)
+    want = prog(p, key)
+    _, prog2, p2, _ = _cbox_program(cuda, size=64, spp=4)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = prog(p, key)
+        got2 = prog2(p2, key)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got2, want)
+    assert prog2.nodes == prog.nodes
+
+
+def test_counters_per_replay_equal_the_eager_counts(cuda):
+    """The launch counters and ``k1.rays`` a replay adds equal what the
+    eager body counts; a capture counts one first capture, each call one
+    replay."""
+    from psdr_tpu_torch import profiling
+    sc, prog, p, key = _cbox_program(cuda, size=64, spp=4)
+    keys = ("launches.closest", "launches.any", "launches.k2",
+            "launches.segsum", "k1.rays")
+    with torch.no_grad():
+        prog.fn(p, key)                  # fills the caches
+        c0 = profiling.counters()
+        prog.fn(p, key)
+        c1 = profiling.counters()
+    eager = {k: c1.get(k, 0) - c0.get(k, 0) for k in keys}
+    assert eager["launches.closest"] > 0 and eager["k1.rays"] > 0
+    prog(p, key)
+    c2 = profiling.counters()
+    prog(p, key)
+    prog(p, key)
+    c3 = profiling.counters()
+    assert {k: c3.get(k, 0) - c2.get(k, 0) for k in keys} == {
+        k: 2 * v for k, v in eager.items()}
+    assert c3["program.replays"] - c2["program.replays"] == 2
+    assert c2.get("program.captures.first", 0) >= 1
+    assert dict(intersect.LAUNCHES)["closest"] == c3["launches.closest"]
