@@ -7,8 +7,9 @@ Every phase passes or the script exits nonzero:
 1. the card: a CUDA device, its name and power limit (``nvidia-smi``);
    TF32 off for matmuls and convolutions;
 2. build the kernels (``psdr_tpu_torch/csrc/*.cu``: K1 ``intersect.cu``,
-   K2 ``brute.cu``, K3 ``culled.cu``, and the fixed-order sum
-   ``segsum.cu``), one ``nvcc`` per source in parallel;
+   K2 ``brute.cu``, K3 ``culled.cu``, the fixed-order sum ``segsum.cu``,
+   the random stream ``rng.cu`` and ``Program.profile_layers``' timestamp
+   ``stamp.cu``), one ``nvcc`` per source in parallel;
 3. K1 against its plain PyTorch version on the card, closest hits bit for
    bit and any hits in ``valid``: a random triangle soup (2048 tris, 600
    rays, mixed ``active`` and ``tmax``), a soup whose tree has an even
@@ -29,6 +30,9 @@ Every phase passes or the script exits nonzero:
    ``render_fn(with_boundary=False, detached=True)`` on
    ``cbox_scene(512, 512, spp=64, occluder_subdiv=5)``: one warm-up frame,
    three timed frames, then one profiled frame; K1 and K2 must launch;
+   then the random stream's kernels (``csrc/rng.cu``) against the tensor
+   code on the card, bit for bit, at the cells' shapes, each timed
+   (``rng_phase``);
 6. K2 against its plain version, bit for bit: the 700- and 24-triangle
    soups, then the bench scene's emitter-first sweep of 2^21
    bounce rays (its 2 emitter faces), timed;
@@ -296,8 +300,10 @@ head, then the residue past the cap).
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its operations on these rays over
 67 TFLOP/s (float32 outside the tensor cores), the published peaks of the
-H100 SXM. No single PyTorch call computes a ray / triangle closest hit, so
-``library_ms`` is null throughout.
+H100 SXM; the random stream's integer operations count against one
+instruction a lane a clock (INT32_OPS). No single PyTorch call computes a
+ray / triangle closest hit or a Threefry draw, so ``library_ms`` is null
+throughout.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. No JAX is imported.
@@ -458,6 +464,28 @@ K3_SLAB_FLOPS = 25
 MT_FLOPS = (25, 43, 51)
 LANE_BYTES = 1 + 16         # every lane: active read; t, tri_id, uv written
 ACTIVE_BYTES = 28           # an active lane besides: o, d, tmax read
+# the random stream (csrc/rng.cu): 32-bit integer operations an element as
+# the algorithm states them, a funnel-shift rotation one, against one
+# instruction a lane a clock: 132 SMs x 4 schedulers x 32 lanes at the
+# 1.98 GHz boost clock.
+# A Threefry-2x32 block: the key schedule's 2 xors, 2 + 15 adds of key
+# words, 20 rounds of an add, a rotation and an xor. Then a uniform's xor,
+# shift, or and float subtraction; random_bits' xor; randint's four blocks,
+# two remainders, a product, a sum and a remainder, and the offset's add.
+# A (0,2)-point: the bit reversal, the LP matrix's 32 bit tests and 32
+# xors, two scramble hashes of 9, two xors, two conversions, two scalings.
+INT32_OPS = 132 * 4 * 32 * 1.98e9
+THREEFRY_OPS = 79
+RNG_OPS = {"uniform": THREEFRY_OPS + 4, "random_bits": THREEFRY_OPS + 1,
+           "split": THREEFRY_OPS, "fold_in": THREEFRY_OPS,
+           "randint": 4 * THREEFRY_OPS + 6, "ld_2d": 89}
+# bytes an element: the output written (a (0,2)-point also reads its int64
+# sample index and pixel id)
+RNG_BYTES = {"uniform": 4, "random_bits": 8, "split": 16, "fold_in": 16,
+             "randint": 4, "ld_2d": 24}
+# the draws' element counts on the cells' paths: a 2^21-lane chunk's
+# next_3d (bunny_env), a chunk's next_2d lanes, and cbox_direct's 2^19 lanes
+RNG_SIZES = (3 << 21, 1 << 21, 1 << 19)
 
 
 T_START = time.time()
@@ -904,6 +932,111 @@ def k3_phase(intersect, bvh_mod, dev, k1_bound):
                                dense_floor_ms=floor_ms)
 
 
+def int_bound(n_bytes, ops):
+    """(bound ms, the side that sets it) for integer work: ``ops`` 32-bit
+    operations at INT32_OPS."""
+    by, op = n_bytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def rng_shape(intersect, name, what, n, fn, plain):
+    """One of the random stream's kernels on ``n`` elements: ``fn()``
+    launched twice, each one launch of ``launches.rng`` and equal to
+    ``plain()`` (its plain version, the tensor code, on the card on the
+    same inputs) bit for bit; both timed (the kernel as 20 launches behind
+    the spin kernel), with the kernel's bound (RNG_BYTES and RNG_OPS of
+    ``what``). Returns its dict."""
+    def launch():
+        before = intersect.RNG_LAUNCHES["rng"]
+        out = fn()
+        if intersect.RNG_LAUNCHES["rng"] - before != 1:
+            raise AssertionError(f"phase 5: rng {name}: not one launch")
+        return out
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    got, again, want = launch(), launch(), plain()
+    if not (got.is_cuda and want.is_cuda and got.dtype == want.dtype
+            and torch.equal(bits(got), bits(want))
+            and torch.equal(bits(again), bits(got))):
+        raise AssertionError(f"phase 5: rng {name}: the kernel differs from "
+                             "the tensor code or from itself")
+    ms, _ = time_ms(fn, 20, spin=True)
+    plain_ms, _ = time_ms(plain, 3)
+    b_ms, b_by = int_bound(n * RNG_BYTES[what], n * RNG_OPS[what])
+    log(f"  rng {name}: kernel = tensor code bit for bit and = itself; "
+        f"{ms:.5f} ms (tensor code {plain_ms:.3f}), bound {b_ms:.5f} ms by "
+        f"{b_by} ({b_ms / ms:.3f})")
+    return {"elements": n, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms}
+
+
+def rng_phase(intersect, dev):
+    """Phase 5's random stream (``core/threefry.py``, ``core/sampler.py``,
+    ``csrc/rng.cu``; no TPU kernel's port): each kernel against its plain
+    version, the tensor code run on the card on the same inputs, bit for
+    bit and against itself, one launch of ``launches.rng`` each, timed
+    beside it (``rng_shape``). ``uniform`` and ``random_bits`` at
+    RNG_SIZES under a key on the card (read from device memory), a host
+    key (its words passed as arguments) and a row of a split block on the
+    card; ``split(8)`` and ``fold_in`` (a chunk's key derivations) on the
+    card's key and on the row; ``randint(6)`` (a chunk's scramble words)
+    under the card's key, the host key and the row; ``ld_2d_scrambled`` at
+    RNG_SIZES, words on the card and on the host, sample indices up to
+    2^32 - 1 and pixel ids of a 384 x 384 film. Returns {shape: dict}; the
+    first is the main shape."""
+    from psdr_tpu_torch.core import sampler, threefry
+    host = threefry.fold_in(threefry.PRNGKey(271828), 18)
+    card = host.to(dev)
+    row = threefry.split(card, 8)[5]
+    out = {}
+    for n in RNG_SIZES:
+        for mode, key, draw_dev in (("key on the card", card, None),
+                                    ("host key", host, dev),
+                                    ("split row", row, None)):
+            for what, fn, plain in (
+                    ("uniform", threefry.uniform, threefry.uniform_plain),
+                    ("random_bits", threefry.random_bits,
+                     threefry.random_bits_plain)):
+                out[f"{what}, {n}, {mode}"] = rng_shape(
+                    intersect, f"{what}, {n}, {mode}", what, n,
+                    lambda: fn(key, (n,), draw_dev),
+                    lambda: plain(key, (n,), dev))
+    for mode, key in (("key on the card", card), ("split row", row)):
+        out[f"split(8), {mode}"] = rng_shape(
+            intersect, f"split(8), {mode}", "split", 8,
+            lambda: threefry.split(key, 8),
+            lambda: threefry.split_plain(key, 8))
+        for data in (0, 2**32 - 1):
+            out[f"fold_in({data}), {mode}"] = rng_shape(
+                intersect, f"fold_in({data}), {mode}", "fold_in", 1,
+                lambda: threefry.fold_in(key, data),
+                lambda: threefry.fold_in_plain(key, data))
+    for mode, key, draw_dev in (("key on the card", card, None),
+                                ("host key", host, dev),
+                                ("split row", row, None)):
+        out[f"randint(6), {mode}"] = rng_shape(
+            intersect, f"randint(6), {mode}", "randint", 6,
+            lambda: threefry.randint(key, (6,), 0, 2**31 - 1, draw_dev),
+            lambda: threefry.randint_plain(key, (6,), 0, 2**31 - 1, dev))
+    words = threefry.randint(host, (6,), 0, 2**31 - 1)
+    g = torch.Generator(device=dev).manual_seed(31)
+    for n in RNG_SIZES:
+        idx = torch.randint(0, 2**32, (n,), dtype=torch.int64, device=dev,
+                            generator=g)
+        idx[: n // 2] %= 64                     # a lane's index in its pixel
+        pix = torch.randint(0, 384 * 384, (n,), dtype=torch.int64,
+                            device=dev, generator=g)
+        for mode, w in (("words on the card", words.to(dev)),
+                        ("host words", words)):
+            out[f"ld_2d_scrambled, {n}, {mode}"] = rng_shape(
+                intersect, f"ld_2d_scrambled, {n}, {mode}", "ld_2d", n,
+                lambda: sampler.ld_2d_scrambled(idx, pix, w, 2),
+                lambda: sampler.ld_2d_plain(idx, pix, w, 2))
+    return out
+
+
 def grad_step(render, base, dev, key, image=False):
     """value_and_grad of mean(img^2) (the bench.py loss, target 0) with
     respect to every params leaf: (loss, [grad per leaf]), and the image
@@ -1189,6 +1322,13 @@ def carry_tables(integ, state, device):
     for (attr, k), (reso, pmf, cmf) in state.items():
         getattr(integ, attr)[k] = hypercube_from_numpy(reso, pmf, cmf,
                                                        device=device)
+
+
+def counted(intersect) -> dict:
+    """The launches counted since the last ``reset_launch_counts``: K1-K3
+    and segsum (``intersect.LAUNCHES``) and the random stream's kernels
+    (``launches.rng``)."""
+    return {**dict(intersect.LAUNCHES), **dict(intersect.RNG_LAUNCHES)}
 
 
 def require_launches(phase, launches):
@@ -2912,7 +3052,7 @@ def program_phase(intersect, dev):
     cache. Returns ({label: summary}, the launch counts of the replays at
     seeds 0, 1, 0 summed over a-d)."""
     out = {}
-    total = {k: 0 for k in intersect.LAUNCHES}
+    total = {k: 0 for k in counted(intersect)}
     for label, eager, replay, program, expect in program_configs(dev):
         log(f"  {label}")
         e0 = eager(0).reshape(-1, 3)                     # warm-up
@@ -2943,8 +3083,8 @@ def program_phase(intersect, dev):
         r1 = replay(1).reshape(-1, 3)
         r0b = replay(0).reshape(-1, 3)
         torch.cuda.synchronize()
-        for k in total:
-            total[k] += intersect.LAUNCHES[k]
+        for k, v in counted(intersect).items():
+            total[k] += v
         if replay_launches != eager_launches:
             raise AssertionError(f"phase 28: {label}: a replay launched "
                                  f"{replay_launches}, the eager frame "
@@ -3324,7 +3464,7 @@ def gradient_case(intersect, label, make, expect, phase=29, record=False):
     r1 = replay(1)
     r0b = replay(0)
     torch.cuda.synchronize()
-    total = dict(intersect.LAUNCHES)
+    total = counted(intersect)
     if replay_launches != eager_launches:
         raise AssertionError(f"phase {phase}: {label}: a replay launched "
                              f"{replay_launches}, the eager step "
@@ -3428,7 +3568,7 @@ def gradient_phase(intersect, dev):
     the replays at seeds 0, 1, 0 summed over e-j, the flagship's
     ``captured_shapes``)."""
     out, flag = {}, None
-    total = {k: 0 for k in intersect.LAUNCHES}
+    total = {k: 0 for k in counted(intersect)}
     for label, make, expect in gradient_configs(dev):
         record = label.startswith("h")
         out[label], launches, records = gradient_case(
@@ -4806,7 +4946,6 @@ def main() -> int:
     from psdr_tpu_torch import DirectIntegrator, PathTracer
     from psdr_tpu_torch.accel import bvh as bvh_mod
     from psdr_tpu_torch.accel import intersect
-    from psdr_tpu_torch.core import threefry
     from psdr_tpu_torch.testing.scenes import env_bench_scene
 
     # -- 1. the card --------------------------------------------------------
@@ -4822,7 +4961,8 @@ def main() -> int:
     t0 = time.time()
     lib_path = intersect.build_library()
     intersect.load_library()
-    log(f"phase 2: K1, K2, K3 and segsum built in {time.time() - t0:.1f} s -> "
+    log(f"phase 2: K1, K2, K3, segsum, rng and stamp built in "
+        f"{time.time() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -4847,10 +4987,8 @@ def main() -> int:
         f"reuse {os.environ.get('PSDR_TPU_VIS_REUSE', 'edge')}")
     launches, mean_direct, _ = forward_phase(intersect, dev,
                                              DirectIntegrator(1, 1), 5, 3)
-    # the random stream: one chunk's (n, 3) uniform draw in tensor code
-    key = threefry.PRNGKey(1)
-    rng_ms, _ = time_ms(lambda: threefry.uniform(key, (N_TIME, 3), dev), 5)
-    log(f"  threefry uniform of ({N_TIME}, 3): {rng_ms:.2f} ms")
+    log("  the random stream's kernels against the tensor code on the card")
+    rng = rng_phase(intersect, dev)
 
     # -- 6. K2 against its plain version --------------------------------------
     log("phase 6: K2 kernel vs plain PyTorch version on the card")
@@ -5201,6 +5339,30 @@ def main() -> int:
         **{k: seg[seg_main][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         "shapes": seg, "reproducibility": repro})
+    # the random stream: a helper of the port, no TPU kernel's port; its
+    # launches are those of phases 29's and 28's replays (counted anew
+    # after each reset before them), its times those of phase 5
+    if grad_launches["rng"] == 0 or prog_launches["rng"] == 0:
+        raise AssertionError(f"the random stream's kernels did not launch in "
+                             f"the programs' replays (phase 29: "
+                             f"{grad_launches['rng']}, phase 28: "
+                             f"{prog_launches['rng']})")
+    rng_main = next(iter(rng))
+    kernels.append({
+        "name": "rng (Threefry-2x32 draws and key derivations, scrambled "
+                "(0,2)-points)", "route": "cuda",
+        "source": "psdr_tpu_torch/csrc/rng.cu",
+        "replaces": "no TPU kernel (a helper of the port; jax.random and the "
+                    "sampler's bit arithmetic, which XLA fuses, at "
+                    "psdr_tpu/core/sampler.py and psdr_tpu/integrator/"
+                    "base.py)",
+        "tpu_kernel_port": False,
+        "launches": grad_launches["rng"],
+        "launches_forward_programs": prog_launches["rng"],
+        "max_abs_err": 0.0, "main_shape": rng_main,
+        **{k: rng[rng_main][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "shapes": rng})
     log(json.dumps({"programs": programs}))
     log(json.dumps({"gradient_programs": grad_programs}))
     log(json.dumps({"guided_reference": guided, "checkpointed": remat,

@@ -9,7 +9,8 @@ lights and the environment map, the XML loader with OBJ and EXR IO, the
 masked-Adam ``opt.Optimizer`` and the AD-vs-FD harness (``testing``), the
 sharded render and train steps on ``torch.distributed`` (``parallel``) and
 the six examples (``examples``), with the intersection kernels
-(``accel/intersect.py``, ``csrc/*.cu``) written by hand for Hopper, and
+(``accel/intersect.py``, ``csrc/*.cu``) and the random stream's
+(``csrc/rng.cu``) written by hand for Hopper, and
 the forward renders as captured CUDA graphs (``program.py``; renderC,
 renderD and ``render_program``), their random keys on the device.
 """

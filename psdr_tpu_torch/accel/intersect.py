@@ -54,11 +54,19 @@ _INF = float("inf")
 # level's launch), built into the same library.
 LAUNCHES = profiling.CounterGroup(
     "launches", ("closest", "any", "k2", "k3", "segsum"))
+# Launches of the random stream's kernels (``csrc/rng.cu``, in the same
+# library: ``core/threefry.py``'s draws and key derivations,
+# ``core/sampler.py``'s (0,2)-points and pixel scrambles), one count a
+# launch: the counter ``launches.rng``. Apart from ``LAUNCHES``, whose
+# counts are the same for a render under a host key and under a key on
+# the card; this one is not, since host words derive keys on the host.
+RNG_LAUNCHES = profiling.CounterGroup("launches", ("rng",))
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for group in (LAUNCHES, RNG_LAUNCHES):
+        for k in group:
+            group[k] = 0
 
 
 def _rays(ray_o, ray_d, active, tmax):
@@ -126,7 +134,7 @@ def ray_intersect_k3(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "intersect.cu", _CSRC / "brute.cu", _CSRC / "culled.cu",
-            _CSRC / "segsum.cu")
+            _CSRC / "segsum.cu", _CSRC / "rng.cu", _CSRC / "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "psdr_tpu_torch"
@@ -141,8 +149,9 @@ def _find_nvcc() -> str | None:
 
 
 def build_library(nvcc: str | None = None) -> Path:
-    """Compile ``csrc/*.cu`` (K1, K2, K3 and ``core/segsum.py``'s
-    reduction), one ``nvcc`` per source, all
+    """Compile ``csrc/*.cu`` (K1, K2, K3, ``core/segsum.py``'s reduction,
+    the random stream's kernels and ``Program.profile_layers``' timestamp),
+    one ``nvcc`` per source, all
     started together, and link them into one library,
     ``build/psdr_tpu_torch/<hash of the sources and flags>/
     libpsdr_kernels.so``, unless that file exists. Each source's
@@ -199,8 +208,18 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
                 [ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] + [ptr] * 3 + [ptr])
             lib.psdr_segsum.argtypes = (
                 [ptr] * 3 + [i32] * 2 + [ptr, i32] + [ptr] * 3)
+            u32, i64 = ctypes.c_uint32, ctypes.c_int64
+            lib.psdr_threefry.argtypes = (
+                [ptr, u32, u32, u32, i64, i32, ptr, ptr])
+            lib.psdr_randint.argtypes = (
+                [ptr, u32, u32, i64, u32, u32, i32, ptr, ptr])
+            lib.psdr_ld2d.argtypes = (
+                [ptr, ptr, i64, ptr, u32, u32, ptr, ptr])
+            lib.psdr_stamp.argtypes = [ptr, i32, ptr]
             for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
-                       lib.psdr_k3_culled, lib.psdr_segsum):
+                       lib.psdr_k3_culled, lib.psdr_segsum,
+                       lib.psdr_threefry, lib.psdr_randint, lib.psdr_ld2d,
+                       lib.psdr_stamp):
                 fn.restype = i32
             _LIB = lib
     return _LIB

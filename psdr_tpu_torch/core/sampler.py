@@ -3,7 +3,9 @@
 Counterpart of ``psdr_tpu/core/sampler.py``. A stream is a base key; every
 draw folds an incrementing counter into it (``core/threefry.py``), so the
 draws equal the JAX package's bit for bit. uint32 values are held in int64
-tensors.
+tensors. A scrambled (0,2)-point on CUDA tensors is one launch of
+``csrc/rng.cu`` (``psdr_ld2d``; counted in ``launches.rng``), whose plain
+version is the tensor code here (``ld_2d_plain``).
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ class RngStream:
 
     The interior renderer attaches the lane structure that downstream
     samplers use: ``vis_spp`` (lanes per pixel, for NEE visibility reuse)
-    ``ld`` (sample index + per-pixel scramble words of the (0,2)-sequence
-    for the first NEE and BSDF samples) and ``strata`` (sample index, spp,
-    the (a, b) jitter grid and the per-pixel NEE and BSDF rotations of the
-    stratified sampler)."""
+    ``ld`` (sample index, pixel id and the pixel's six scramble words of
+    the (0,2)-sequence, ``ld_2d_scrambled``'s arguments: words 2, 3 for the
+    first NEE sample, 4, 5 for the first BSDF sample) and ``strata``
+    (sample index, spp, the (a, b) jitter grid and the per-pixel NEE and
+    BSDF rotations of the stratified sampler)."""
 
     BLOCK = 8   # subkeys a tensor-word stream derives at once
 
@@ -110,3 +113,69 @@ def ld_2d(index: torch.Tensor, scramble_x: torch.Tensor,
     inv = 2.3283064365386963e-10  # 2^-32
     return torch.stack([x.to(torch.float32) * inv,
                         y.to(torch.float32) * inv], dim=-1)
+
+
+@profiling.span("rng")
+def _pix_hash(idx: torch.Tensor, word) -> torch.Tensor:
+    """Per-pixel 32-bit hash of (pixel id, word), as the JAX package's
+    scramble words (uint32 in int64); ``word`` is an int or a 0-dim
+    tensor."""
+    h = (idx & _M32) ^ word
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
+    return h ^ (h >> 16)
+
+
+@profiling.span("rng")
+def ld_2d_scrambled(index: torch.Tensor, pixel: torch.Tensor,
+                    words: torch.Tensor, k: int) -> torch.Tensor:
+    """The (0,2)-point of each sample ``index`` under its pixel's scramble
+    words k and k + 1 (``ld_2d_plain``). ``words`` is a 1-D tensor of
+    words in [0, 2^32) (``randint``'s int32 words); on the card it may lie
+    there, and is then read at launch."""
+    if pixel.is_cuda:
+        return _ld_cuda(index, pixel, words, k)
+    return ld_2d_plain(index, pixel, words, k)
+
+
+def ld_2d_plain(index: torch.Tensor, pixel: torch.Tensor,
+                words: torch.Tensor, k: int) -> torch.Tensor:
+    """``ld_2d(index, _pix_hash(pixel, words[k]), _pix_hash(pixel,
+    words[k + 1]))``: ``psdr_ld2d``'s plain version, on any device."""
+    return ld_2d(index, _pix_hash(pixel, words[k]),
+                 _pix_hash(pixel, words[k + 1]))
+
+
+# -- the CUDA kernel (csrc/rng.cu) ----------------------------------------------
+
+def _ld_cuda(index: torch.Tensor, pixel: torch.Tensor, words: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """One launch of ``psdr_ld2d`` on the pixel's device: the (..., 2)
+    float32 points."""
+    from ..accel import intersect as lib_mod
+    dev, shape = pixel.device, tuple(pixel.shape)
+    if index.device != dev or tuple(index.shape) != shape:
+        raise ValueError(f"ld2d: index {tuple(index.shape)} on "
+                         f"{index.device}, pixel {shape} on {dev}")
+    if words.dim() != 1 or not 0 <= k <= words.shape[0] - 2:
+        raise ValueError(f"ld2d: words {tuple(words.shape)} hold no word "
+                         f"{k + 1}")
+    pixel = pixel.to(torch.int64).contiguous()
+    index = index.to(torch.int64).contiguous()
+    out = torch.empty(shape + (2,), dtype=torch.float32, device=dev)
+    n = pixel.numel()
+    if n == 0:
+        return out
+    if words.is_cuda:
+        # int64 words in [0, 2^32) keep their low 32 bits as int32
+        words = words.to(dev, torch.int32).contiguous()
+        ptr, w0, w1 = words[k:].data_ptr(), 0, 0
+    else:
+        ptr = None
+        w0, w1 = (int(v) & _M32 for v in words[k:k + 2].tolist())
+    lib = lib_mod.load_library()
+    lib_mod._launch("ld2d", lib.psdr_ld2d, index.data_ptr(),
+                    pixel.data_ptr(), n, ptr, w0, w1, out.data_ptr(),
+                    dev=dev)
+    lib_mod.RNG_LAUNCHES["rng"] += 1
+    return out

@@ -37,13 +37,11 @@ from ..core.hoist import const, memo
 from ..core.segsum import index_sum
 from ..core.math import ray_intersect_triangle, scrub_nonfinite
 from ..core.records import Ray, RenderOptions, any_requires_grad
-from ..core.sampler import RngStream, ld_2d
+from ..core.sampler import RngStream, _pix_hash, ld_2d_scrambled
 from ..program import Program, value_and_grad
 from ..scene.scene import (FlatScene, Scene, _closest_hit, detach_flat,
                            ray_test)
 from ..sensor.perspective import sample_primary_edge, sample_primary_ray
-
-_M32 = 0xFFFFFFFF
 
 
 @profiling.span("camera")
@@ -183,17 +181,6 @@ def shard_lane_range(n: int, shard) -> tuple[int, int]:
     return d * count, count
 
 
-@profiling.span("rng")
-def _pix_hash(idx: torch.Tensor, word) -> torch.Tensor:
-    """Per-pixel 32-bit hash of (pixel id, word), as the JAX package's
-    scramble words (uint32 in int64); ``word`` is an int or a 0-dim
-    tensor."""
-    h = (idx & _M32) ^ word
-    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
-    h = ((h ^ (h >> 16)) * 0x45D9F3B) & _M32
-    return h ^ (h >> 16)
-
-
 class Integrator:
     """Base class; subclasses implement ``Li(scene, flat, rng, ray, active,
     prior=None)``. ``prior`` is the optional camera-hit prior for the
@@ -259,10 +246,8 @@ class Integrator:
                     w = threefry.randint(rng._subkey(), (6,), 0,
                                          np.iinfo(np.int32).max)
                     s_idx = lane % spp
-                    jitter = ld_2d(s_idx, _pix_hash(idx, w[0]),
-                                   _pix_hash(idx, w[1]))
-                    rng.ld = (s_idx,) + tuple(_pix_hash(idx, w[k])
-                                              for k in range(2, 6))
+                    jitter = ld_2d_scrambled(s_idx, idx, w, 0)
+                    rng.ld = (s_idx, idx, w)
                 else:
                     jitter = rng.next_2d(m)
                 if strat is not None:

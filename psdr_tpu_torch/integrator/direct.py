@@ -38,7 +38,7 @@ from ..core.math import (bilinear, cross, dot, norm, normalize,
                          squared_norm)
 from ..core.records import Ray, detach_tree
 from ..core.segsum import segment_sum_sorted
-from ..core.sampler import RngStream, ld_2d
+from ..core.sampler import RngStream, ld_2d_scrambled
 from ..program import Program
 from ..emitter.envmap import envmap_eval_direction
 from ..scene.scene import (FlatScene, Scene, _ray_test_sparse, detach_flat,
@@ -65,10 +65,8 @@ def _stratify2(u2: torch.Tensor, rng: RngStream, which: int) -> torch.Tensor:
 
     Otherwise (the boundary estimators' streams) return u2."""
     if rng.ld is not None:
-        s_idx, nee_x, nee_y, bsdf_x, bsdf_y = rng.ld
-        if which == 0:
-            return ld_2d(s_idx, nee_x, nee_y)
-        return ld_2d(s_idx, bsdf_x, bsdf_y)
+        s_idx, pixel, words = rng.ld
+        return ld_2d_scrambled(s_idx, pixel, words, 2 if which == 0 else 4)
     if rng.strata is None:
         return u2
     s_idx, spp, (a, b), rot_nee, rot_bsdf = rng.strata

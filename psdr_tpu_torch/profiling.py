@@ -14,7 +14,8 @@ timers built on them. Counterpart of ``psdr_tpu/profiling.py``.
   two clock reads.
 * ``count(name, n)`` adds to a counter, ``counters()`` reads them all.
   ``CounterGroup`` is a fixed set of counters read as a dict: the kernel
-  launches of ``accel.intersect.LAUNCHES`` are the group ``launches``.
+  launches of ``accel.intersect.LAUNCHES`` are the group ``launches``,
+  and ``accel.intersect.RNG_LAUNCHES`` its counter ``launches.rng``.
   A captured program takes back what its capture counted and adds it on
   every replay (``program.py``), so a counter means the same eager or
   replayed.
@@ -162,8 +163,8 @@ def recording():
 @contextlib.contextmanager
 def boundaries(fn):
     """Call ``fn(name, entering)`` at each span boundary inside the block,
-    as the span opens and as it closes (``Program.profile_layers`` records
-    a device event there)."""
+    as the span opens and as it closes (``Program.profile_layers`` takes a
+    device timestamp there)."""
     global _hook
     outer, _hook = _hook, fn
     try:

@@ -53,7 +53,7 @@ and a synchronize), ``nodes`` (the graph's node count) and ``pool_bytes``
 (the device memory of its private pool) report on the capture. Dropping a
 program frees its graph and its pool. ``Program.profile_layers`` times the
 layers of its graph on the device, in a twin graph whose span boundaries
-record events; the graph that calls replay is never touched.
+take timestamps; the graph that calls replay is never touched.
 
 What a body reads outside its pool must live as long as the graph: a
 program holds every cached tensor that its capture was handed
@@ -374,12 +374,14 @@ class Program:
         The body is captured again into a twin graph with a pool of its
         own. A layer is the innermost open span (``profiling.span``;
         ``program`` outside every span). At each span boundary where the
-        layer changes, and at the body's start and end, the twin records
-        a timing event: an event node, or none where no node came since
-        the last one. The twin's nodes must form one chain and, less its
-        events, number as the program's graph's, or this raises. A layer's
-        time is the time between consecutive events while it is the layer
-        (its self time), its nodes those issued meanwhile.
+        layer changes, and at the body's start and end, the twin takes a
+        timestamp: a one-thread kernel node that writes the device's
+        nanosecond clock into a slot (``psdr_stamp``, ``csrc/stamp.cu``),
+        or none where no node came since the last one. The twin's nodes
+        must form one chain and, less its stamps, number as the program's
+        graph's, or this raises. A layer's time is the time between
+        consecutive stamps while it is the layer (its self time), its nodes
+        those issued meanwhile.
 
         Each of ``replays`` rounds calls the program with the device idle
         (the host time of its ``program.call`` span), then replays the
@@ -394,15 +396,22 @@ class Program:
         (graph nodes by layer), ``sum_ms`` (the layers' sum), ``twin_ms``
         and ``plain_ms`` (device milliseconds a replay of the twin and of
         the program's graph), ``call_ms`` (host milliseconds a call),
-        ``nodes`` (of the program's graph), ``events`` and ``replays``."""
+        ``nodes`` (of the program's graph), ``events`` (the twin's stamps)
+        and ``replays``."""
+        from .accel import intersect
         _, spec, dev = self._bind(args)
         if dev.type != "cuda":
             raise RuntimeError(f"{self.name}.profile_layers times a CUDA "
                                f"graph; its arguments lie on {dev}")
         self(*args)
-        events, marks, inner, last = [], [], [], [-1]
+        lib = intersect.load_library()
+        # a stamp comes only after a node of the program's, but the first
+        slots = torch.zeros(self.nodes + 2, dtype=torch.int64, device=dev)
+        marks, inner, last = [], [], [-1]
+        stamps = 0
 
         def boundary(name, entering):
+            nonlocal stamps
             before = inner[-1] if inner else None
             if entering:
                 inner.append(name)
@@ -413,13 +422,16 @@ class Program:
                 return                    # the same layer goes on
             stream = torch.cuda.current_stream(dev)
             n = _graph_nodes(_capturing_graph(stream.cuda_stream))
-            work = n - len(events)
+            work = n - stamps
             if n != last[0]:
-                ev = torch.cuda.Event(enable_timing=True, external=True)
-                ev.record(stream)
-                events.append(ev)
+                if stamps == slots.numel():
+                    raise RuntimeError(f"{self.name}: more stamps than the "
+                                       f"{slots.numel()} slots")
+                intersect._launch("stamp", lib.psdr_stamp, slots.data_ptr(),
+                                  stamps, dev=dev)
+                stamps += 1
                 last[0] = n + 1
-            marks.append((len(events) - 1, work, after))
+            marks.append((stamps - 1, work, after))
 
         def body():
             boundary("program", True)
@@ -431,13 +443,13 @@ class Program:
             twin, _, _, twin_nodes = _capture(dev, body)
         plain = self._graph
         call_ns, plain_ms, twin_ms = [], 0.0, 0.0
-        gaps = [0.0] * (len(events) - 1)
+        gaps = torch.zeros(stamps - 1, dtype=torch.float64)
         try:
             _check_chain(twin.raw_cuda_graph(), self.name)
-            if twin_nodes - len(events) != self.nodes:
+            if twin_nodes - stamps != self.nodes:
                 raise RuntimeError(
                     f"{self.name}: the twin graph has {twin_nodes} nodes with "
-                    f"{len(events)} events, the program's {self.nodes}")
+                    f"{stamps} stamps, the program's {self.nodes}")
             ends = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             for _ in range(replays):
                 torch.cuda.synchronize(dev)
@@ -454,12 +466,13 @@ class Program:
                 torch.cuda.synchronize(dev)
                 plain_ms += ends[0].elapsed_time(ends[1]) / replays
                 twin_ms += ends[1].elapsed_time(ends[2]) / replays
-                for i, ev in enumerate(events[:-1]):
-                    gaps[i] += ev.elapsed_time(events[i + 1]) / replays
+                t = slots[:stamps].cpu()
+                gaps += (t[1:] - t[:-1]).double() * 1e-6 / replays
         finally:
             twin.reset()
             del twin
             torch.cuda.empty_cache()
+        gaps = gaps.tolist()
         layers_ms: dict = {}
         layer_nodes: dict = {}
         for (e0, w0, layer), (e1, w1, _) in zip(marks, marks[1:]):
@@ -469,7 +482,7 @@ class Program:
                 "sum_ms": sum(layers_ms.values()), "twin_ms": twin_ms,
                 "plain_ms": plain_ms,
                 "call_ms": sum(call_ns) / len(call_ns) * 1e-6,
-                "nodes": self.nodes, "events": len(events),
+                "nodes": self.nodes, "events": stamps,
                 "replays": replays}
 
 

@@ -20,7 +20,9 @@ checkpointed gradients equal to plain ones, and ``camera_depth=3``'s
 boundary gradient against the CPU; and the tracing: the layers'
 device times of ``Program.profile_layers`` against the replay, a program
 under ``torch.profiler`` bit-equal to one without, and the counters a
-replay adds against the eager body's.
+replay adds against the eager body's; and the random stream's kernels
+(``csrc/rng.cu``) against the tensor code, and their launches in a
+render body, where the tensor code runs nothing.
 Needs a CUDA device and nvcc; skips elsewhere. Imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -1293,7 +1295,7 @@ def test_counters_per_replay_equal_the_eager_counts(cuda):
     from psdr_tpu_torch import profiling
     sc, prog, p, key = _cbox_program(cuda, size=64, spp=4)
     keys = ("launches.closest", "launches.any", "launches.k2",
-            "launches.segsum", "k1.rays")
+            "launches.segsum", "launches.rng", "k1.rays")
     with torch.no_grad():
         prog.fn(p, key)                  # fills the caches
         c0 = profiling.counters()
@@ -1301,6 +1303,7 @@ def test_counters_per_replay_equal_the_eager_counts(cuda):
         c1 = profiling.counters()
     eager = {k: c1.get(k, 0) - c0.get(k, 0) for k in keys}
     assert eager["launches.closest"] > 0 and eager["k1.rays"] > 0
+    assert eager["launches.rng"] > 0
     prog(p, key)
     c2 = profiling.counters()
     prog(p, key)
@@ -1311,3 +1314,127 @@ def test_counters_per_replay_equal_the_eager_counts(cuda):
     assert c3["program.replays"] - c2["program.replays"] == 2
     assert c2.get("program.captures.first", 0) >= 1
     assert dict(intersect.LAUNCHES)["closest"] == c3["launches.closest"]
+
+
+# -- the random stream (csrc/rng.cu) -------------------------------------------
+
+_RNG_SIZES = [1, 7, 2**16 + 3, 3 << 21]
+
+
+def _bit_equal(got, want):
+    assert got.is_cuda and got.dtype == want.dtype
+    assert tuple(got.shape) == tuple(want.shape)
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+def _rng_keys(cuda):
+    """(key the kernel reads, the same key on the CPU, output device):
+    a key on the card (its words read from device memory), a host key
+    drawing onto the card (words as arguments), and a row of a split
+    block on the card (a view into a two-column key table)."""
+    host = threefry.fold_in(threefry.PRNGKey(12345), 11)
+    card = host.to(cuda)
+    return ((card, host, None), (host, host, cuda),
+            (threefry.split(card, 4)[2], threefry.split(host, 4)[2], None))
+
+
+@pytest.mark.parametrize("n", _RNG_SIZES)
+def test_threefry_kernels_equal_the_tensor_code(cuda, n):
+    """``uniform``, ``random_bits``, ``split`` and ``fold_in`` on the card
+    (``psdr_threefry``) bit for bit against the tensor code on the CPU on
+    the same keys, in both key modes and on a row of a split block; one
+    launch each."""
+    want = functools.lru_cache(lambda draw, kh: draw(kh, (n,)))
+    keys = _rng_keys(cuda)
+    before = intersect.RNG_LAUNCHES["rng"]
+    launches = 0
+    for kc, kh, dev in keys:
+        for draw in (threefry.uniform, threefry.random_bits):
+            _bit_equal(draw(kc, (n,), dev), want(draw, kh))
+            launches += 1
+        if dev is None:
+            with threefry.tensor_words():    # host words split in Python
+                _bit_equal(threefry.split(kc, n), threefry.split(kh, n))
+            for data in (0, 7, n, 2**32 - 1):
+                _bit_equal(threefry.fold_in(kc, data),
+                           threefry.fold_in(kh, data))
+            launches += 5
+    assert intersect.RNG_LAUNCHES["rng"] - before == launches
+
+
+@pytest.mark.parametrize("n", _RNG_SIZES)
+def test_randint_kernel_equals_the_tensor_code(cuda, n):
+    """``randint`` on the card (``psdr_randint``: the key split, both draws
+    and the modular reduction in one launch) against the tensor code, in
+    both key modes and on a row of a split block."""
+    bounds = ([(0, 2**31 - 1), (-5, 1000), (3, 4), (-2**31, 2**31 - 1),
+               (9, 2)] if n < 2**16 else [(0, 2**31 - 1)])
+    want = functools.lru_cache(
+        lambda kh, lo, hi: threefry.randint(kh, (n,), lo, hi))
+    keys = _rng_keys(cuda)
+    before = intersect.RNG_LAUNCHES["rng"]
+    for kc, kh, dev in keys:
+        for lo, hi in bounds:
+            _bit_equal(threefry.randint(kc, (n,), lo, hi, dev),
+                       want(kh, lo, hi))
+    assert intersect.RNG_LAUNCHES["rng"] - before == len(keys) * len(bounds)
+
+
+def test_ld2d_kernel_equals_the_tensor_code(cuda):
+    """The scrambled (0,2)-points on the card (``psdr_ld2d``) against the
+    tensor code: sample indices up to 2^32 - 1, words on the card and on
+    the host, and points whose coordinate rounds to 1.0."""
+    from psdr_tpu_torch.core import sampler
+    rng = np.random.default_rng(5)
+    n = 2**16 + 3
+    idx = np.concatenate([np.arange(n // 2),
+                          rng.integers(2**32 - 2**20, 2**32, n - n // 2)])
+    idx = torch.from_numpy(idx.astype(np.int64))
+    pix = torch.from_numpy(rng.integers(0, 1 << 22, n))
+    words = threefry.randint(threefry.PRNGKey(3), (6,), 0, 2**31 - 1)
+    # the first 256 lanes: bitrev(i) ^ h(p, w0) = 2^32 - 1 - j, so x
+    # rounds to 1.0 for j < 128
+    h = sampler._pix_hash(pix[:256], words[0])
+    x = (2**32 - 1 - torch.arange(256)) ^ h
+    idx[:256] = torch.tensor([int(f"{v:032b}"[::-1], 2) for v in x.tolist()])
+    for w in (words, words.to(cuda)):
+        for k in range(5):
+            want = sampler.ld_2d_scrambled(idx, pix, words, k)
+            got = sampler.ld_2d_scrambled(idx.to(cuda), pix.to(cuda), w, k)
+            _bit_equal(got, want)
+            if k == 0:
+                assert int((got[:256, 0] == 1.0).sum()) == 128
+
+
+def test_rng_launches_count_an_eager_program_body(cuda, monkeypatch):
+    """``launches.rng`` counts each launch of the random stream's kernels
+    in one eager ``render_program`` body, and the tensor code of the
+    layer (the Threefry rounds, the (0,2)-sequence's bit loops, the pixel
+    hash) runs nothing there."""
+    from psdr_tpu_torch.core import sampler
+    _, prog, p, key = _cbox_program(cuda, size=64, spp=4)
+    launched = []
+    launch = intersect._launch
+
+    def spy(kernel, fn, *args, dev):
+        if kernel in ("threefry", "randint", "ld2d"):
+            launched.append(kernel)
+        return launch(kernel, fn, *args, dev=dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the random stream's tensor code ran on the "
+                             "card")
+
+    monkeypatch.setattr(intersect, "_launch", spy)
+    monkeypatch.setattr(threefry, "_tensor_rotl", refuse)
+    for name in ("_lp32", "_bit_reverse32", "_pix_hash"):
+        monkeypatch.setattr(sampler, name, refuse)
+    before = intersect.RNG_LAUNCHES["rng"]
+    with torch.no_grad():
+        prog.fn(p, key)
+    torch.cuda.synchronize()
+    assert intersect.RNG_LAUNCHES["rng"] - before == len(launched) > 0
+    assert {"threefry", "randint", "ld2d"} <= set(launched)

@@ -180,3 +180,14 @@ def test_profile_layers_raises_on_the_cpu():
     p = params_from_numpy(sc.params(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         prog.profile_layers(p, threefry.PRNGKey(0))
+
+
+def test_profile_layers_stamp_builds_with_the_library():
+    """``profile_layers``' timestamp kernel (``csrc/stamp.cu``) is one of
+    the library's sources: a one-thread kernel that writes the device's
+    nanosecond clock into a slot, behind a C launcher."""
+    src = intersect._CSRC / "stamp.cu"
+    assert src in intersect._SOURCES and src.is_file()
+    text = src.read_text()
+    assert 'extern "C" int psdr_stamp(int64_t* slots, int slot,' in text
+    assert "%%globaltimer" in text and "<<<1, 1, 0," in text
