@@ -7,20 +7,38 @@ name leads to files of its own under ``benchmark/``:
   ``configs/<config>.py``, whose ``scene(cfg)`` makes its scene as host
   arrays (``scenes.py``) and ``build(port, data, opts, device)`` hands
   them to the port with its integrator;
-* ``workloads/<cell>.json``, the job: its kind (``forward``: images
-  rendered back to back, each the mean of ``passes`` replays of the
-  render program, read on the host), film, samples, and the size and
-  limits of its check;
+* ``references/<config>.py``, the plain reference that the
+  configuration's answers are judged against, where the configuration
+  brings one of its own, and ``reference.py`` where it does not
+  (``Bench.reference``);
+* ``workloads/<cell>.json``, the cell's job: its ``kind``, film, samples,
+  and the size and limits of its check;
+* ``jobs/<kind>.py``, one kind of job (``Bench.job``), whose
+  ``setup(run)`` builds the cell's program on the port, makes its first
+  call and returns the job: ``forward``, images rendered back to back,
+  each the mean of ``passes`` replays of the render program, read on the
+  host; ``grad_step``, gradient steps of an L2 loss to a target image,
+  each loss read on the host;
 * ``metrics/<metric>.py``, whose ``read(rec)`` takes the metric from the
   run's record (``run_cell``), or returns None where it finds nothing.
 
-A run sets the cell up (scene, the program's first calls), replays
-images until the slow phase ends (``settle``), measures a closed loop for
-the window's seconds (each pass dispatched with a new key
-drawn from the seed, each image read on the host), reads the peak memory
-and, with a trace, the device's work, frees the program and checks one
-image of the window, drawn from the seed, against the plain reference
-(``check.py``).
+A job has ``capture_s`` (the seconds of its first call),
+``samples_per_step``, ``replays_per_step``, ``min_steps`` (the fewest
+steps after which the window may close), ``extra`` (readings of its
+set-up, copied into the record) and ``excluded_s`` (set-up seconds that
+are the benchmark's and not the program's, kept out of ``setup_s``);
+``warm()`` makes one step outside the window, ``step(i)`` the window's
+``i``-th, with its answer read on the host (False where it is not
+finite), ``body()`` one eager run of the program's body (for the launch
+recorder), ``close()`` frees the program, and ``judge()`` returns the
+numbers that its check compares with the workload's ``limits``.
+
+A run sets the cell up (the job's set-up and one step), steps until the
+slow phase ends (``settle``), measures a closed loop for the window's
+seconds (each step with a new key drawn from the seed, its answer read on
+the host), reads the peak memory and, with a trace, the device's work,
+frees the program and has the job judge the window's answers against the
+plain reference (``check.py``).
 """
 from __future__ import annotations
 
@@ -95,6 +113,21 @@ class Bench:
         return load_module(self.dir / "metrics" / f"{metric}.py",
                            f"bench_metric_{metric.replace('.', '_')}")
 
+    def job(self, kind: str):
+        """The module of job kind ``kind`` (``jobs/<kind>.py``)."""
+        return load_module(self.dir / "jobs" / f"{kind}.py",
+                           f"bench_job_{kind}")
+
+    def reference(self, config: str):
+        """The plain reference of configuration ``config``: its own
+        (``references/<config>.py``) where it has one, else
+        ``reference.py``."""
+        own = self.dir / "references" / f"{config}.py"
+        if own.is_file():
+            return load_module(own, f"bench_reference_{config}")
+        import reference
+        return reference
+
 
 def device_params(tree, device):
     """A params nest of host arrays as float32 tensors on ``device``."""
@@ -117,7 +150,8 @@ def samples_per_image(wl: dict) -> int:
 
 def key_words(seed: int, n: int) -> np.ndarray:
     """(n, 2) Threefry keys (two uint32 words in int64) drawn from
-    ``seed``, and the index of the image whose answer is checked."""
+    ``seed``, and the index of the image whose answer a ``forward`` cell
+    checks."""
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 32, size=(n, 2), dtype=np.uint64)
     return words.astype(np.int64), int(rng.integers(0, CHECKED))
@@ -128,7 +162,7 @@ def key_tensor(words, device):
     return torch.as_tensor(np.asarray(words, np.int64), device=device)
 
 
-def _sync(device):
+def sync(device):
     import torch
     if str(device).startswith("cuda"):
         torch.cuda.synchronize(device)
@@ -152,9 +186,9 @@ def scene_data(bench: Bench, cell: str) -> dict:
 
 
 def program(bench: Bench, cell: str, device, spp=None):
-    """The cell's program on the port, set up: (workload, program, device
-    params); ``spp`` replaces the workload's. Its first call is the
-    caller's."""
+    """The render program of a ``forward`` cell on the port, set up:
+    (workload, program, device params); ``spp`` replaces the workload's.
+    Its first call is the caller's."""
     import psdr_tpu_torch as port
     wl = bench.workload(cell)
     if spp is not None:
@@ -177,19 +211,19 @@ def image(prog, params, keys) -> "np.ndarray":
     return (acc / len(keys)).cpu().numpy()
 
 
-def settle(make_image, t0: float) -> list:
-    """Replay images until the slow phase ends: the median time of the last
-    five images falls by ``SETTLE_DROP`` or more below the first image's or
+def settle(make_step, t0: float) -> list:
+    """Make steps until the slow phase ends: the median time of the last
+    five steps falls by ``SETTLE_DROP`` or more below the first step's or
     below the median of the five before, or ``SETTLE_CAP_S`` after ``t0``.
     On the H100 the replays of every process of this benchmark ran slower
     at first (10% on ``cbox_direct.forward``, 2.8% on
     ``bunny_env.forward``) and then switched once, from under a second to
     over a minute into the first sustained replays (PERF.md). Returns the
-    images' seconds."""
+    steps' seconds."""
     times = []
     while time.perf_counter() - t0 < SETTLE_CAP_S:
         ts = time.perf_counter()
-        make_image()
+        make_step()
         times.append(time.perf_counter() - ts)
         if len(times) < 6:
             continue
@@ -199,6 +233,18 @@ def settle(make_image, t0: float) -> list:
         if np.median(times[-5:]) <= (1 - SETTLE_DROP) * before:
             break
     return times
+
+
+class Run:
+    """What a job's set-up is handed: the benchmark, the cell, its
+    workload and configuration, the run's seed and the device."""
+
+    def __init__(self, bench: Bench, cell: str, seed: int, device):
+        self.bench, self.cell, self.seed = bench, cell, seed
+        self.wl = bench.workload(cell)
+        self.config = bench.cell(cell)["config"]
+        self.device = device
+        self.on_card = str(device).startswith("cuda")
 
 
 def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
@@ -211,86 +257,74 @@ def run_cell(bench: Bench, cell: str, seed: int, seconds: float,
     import check
 
     t0 = time.perf_counter() if t0 is None else t0
-    on_card = str(device).startswith("cuda")
+    run = Run(bench, cell, seed, device)
     torch.set_num_threads(4)
-    wl, prog, params = program(bench, cell, device)
-    passes = wl["passes"]
-    words, checked = key_words(seed, (KEYS + 1) * passes)
-    keys = key_tensor(words, device).reshape(KEYS + 1, passes, 2)
-    t = time.perf_counter()
-    prog(params, keys[KEYS, 0])
-    _sync(device)
-    capture_s = time.perf_counter() - t
-    image(prog, params, keys[KEYS])
-    setup_s = time.perf_counter() - t0
-    log(f"set-up {setup_s:.3f} s (first call {capture_s:.3f} s)")
-    settle_s = settle(lambda: image(prog, params, keys[KEYS]), t0) \
-        if on_card else []
+    job = bench.job(run.wl["kind"]).setup(run)
+    job.warm()
+    setup_s = time.perf_counter() - t0 - job.excluded_s
+    log(f"set-up {setup_s:.3f} s (first call {job.capture_s:.3f} s)")
+    settle_s = settle(job.warm, t0) if run.on_card else []
 
-    # -- the window: a closed loop of images, one key a pass
+    # -- the window: a closed loop of steps, each with keys of its own
     prof = None
     if traced:
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         prof.__enter__()
-    step_s, failed, kept = [], 0, None
+    step_s, failed = [], 0
     start = time.perf_counter()
     start_epoch = time.time()
     deadline = start + seconds
     i = 0
     while True:
         ts = time.perf_counter()
-        value = image(prog, params, keys[i])
+        ok = job.step(i)
         te = time.perf_counter()
         step_s.append(te - ts)
-        failed += not bool(np.isfinite(value).all())
-        if i == checked:
-            kept = value
+        failed += not ok
         i += 1
-        if i >= KEYS:
-            raise RuntimeError("the window ran out of keys")
-        if te >= deadline and i > checked:
+        if te >= deadline and i >= job.min_steps:
             break
     window_s = te - start
     if prof is not None:
         prof.__exit__(None, None, None)
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    log(f"window {window_s:.3f} s, {i} images, {failed} failed")
+    peak = torch.cuda.max_memory_allocated(device) if run.on_card else 0
+    log(f"window {window_s:.3f} s, {i} steps, {failed} failed")
 
-    rec = {"cell": cell, "kind": wl["kind"], "seed": seed, "steps": i,
-           "replays": i * passes, "step_s": step_s, "window_s": window_s,
-           "settle_s": settle_s, "window_opens_s": start - t0,
-           "samples_per_step": samples_per_image(wl), "setup_s": setup_s,
-           "capture_s": capture_s, "peak_bytes": peak, "failed": failed,
-           "checked_step": checked, "window_start": start_epoch,
-           "trace": None, "launches": None}
+    rec = {"cell": cell, "kind": run.wl["kind"], "seed": seed, "steps": i,
+           "replays": i * job.replays_per_step, "step_s": step_s,
+           "window_s": window_s, "settle_s": settle_s,
+           "window_opens_s": start - t0,
+           "samples_per_step": job.samples_per_step, "setup_s": setup_s,
+           "capture_s": job.capture_s, "peak_bytes": peak, "failed": failed,
+           "window_start": start_epoch, "trace": None, "launches": None,
+           **job.extra}
     if prof is not None:
         import devtrace
         rec["trace"] = devtrace.summarize(prof, window_s)
         del prof
         from recorder import LaunchRecorder
-        with LaunchRecorder() as r, torch.no_grad():
-            prog.fn(params, keys[0, 0])
-            _sync(device)
+        with LaunchRecorder() as r:
+            job.body()
+            sync(device)
         rec["launches"] = {"k1": r.k1}
-    if on_card:
+    if run.on_card:
         rec["card"] = {"name": torch.cuda.get_device_name(0),
                        "smi": _nvidia_smi()}
 
     # -- the program's state is freed before the reference runs
-    del prog, params, keys
+    job.close()
     gc.collect()
-    if on_card:
+    if run.on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
-    rec["checks"] = check.numbers(*check.judge(bench, cell, seed, kept,
-                                               device))
+    rec["checks"] = job.judge()
     rec["reference_s"] = time.perf_counter() - t
-    rec["limits"] = wl["limits"]
-    rec["correct"] = check.within(rec["checks"], wl["limits"])
-    if on_card:
+    rec["limits"] = run.wl["limits"]
+    rec["correct"] = check.within(rec["checks"], run.wl["limits"])
+    if run.on_card:
         rec["reference_peak_bytes"] = torch.cuda.max_memory_allocated(device)
     log(f"reference {rec['reference_s']:.3f} s")
     return rec

@@ -21,7 +21,15 @@ The description (``configs/<config>.py`` ``scene(cfg)``) is a dict:
 * ``integrator``: what the configuration runs.
 
 The port gets these arrays through its public API; the reference
-(``reference.py``) reads the same arrays."""
+(``reference.py``, or the configuration's own under ``references/``)
+reads the same arrays.
+
+A gradient cell moves one mesh (``translated``): its target image is the
+reference's image of the scene with the mesh moved by the workload's
+offset, and its finite differences move the mesh by +-eps along each
+axis. The port's gradient with respect to that mesh's vertices, summed
+over the vertices, is the gradient of the same translation: each
+vertex moves with it."""
 from __future__ import annotations
 
 import numpy as np
@@ -58,3 +66,14 @@ def port_scene(port, data: dict, opts: dict, device):
     sc.add_sensor(cam)
     sc.opts = port.RenderOptions(**opts)
     return sc
+
+
+def translated(data: dict, mesh: int, offset) -> dict:
+    """``data`` with the vertices of mesh ``mesh`` moved by ``offset``;
+    every other array is shared with ``data``."""
+    meshes = list(data["meshes"])
+    m = dict(meshes[mesh])
+    m["vertices"] = (np.asarray(m["vertices"], np.float64)
+                     + np.asarray(offset, np.float64))
+    meshes[mesh] = m
+    return dict(data, meshes=meshes)

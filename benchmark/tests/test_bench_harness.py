@@ -21,7 +21,8 @@ import reference  # noqa: E402
 import shapes  # noqa: E402
 import stats  # noqa: E402
 
-LIMITS = {"bias_all", "bias_region", "noise"}
+LIMITS = {"forward": {"bias_all", "bias_region", "noise"},
+          "grad_step": {"grad_err"}}
 
 
 def test_loader_finds_every_named_file():
@@ -34,8 +35,9 @@ def test_loader_finds_every_named_file():
         assert callable(builder.scene) and callable(builder.build)
         data = harness.scene_data(bench, w["name"])
         assert data["meshes"] and data["camera"]
-        assert set(wl["limits"]) == LIMITS
-        assert wl["kind"] == "forward" and wl["passes"] >= 1
+        assert callable(bench.job(wl["kind"]).setup)
+        assert set(wl["limits"]) == LIMITS[wl["kind"]]
+        assert wl["kind"] != "forward" or wl["passes"] >= 1
         for traced in (False, True):
             for m in bench.metrics(w["name"], traced):
                 assert callable(bench.reader(m["name"]).read)
@@ -133,7 +135,10 @@ def test_module_check_compares_top_level_names_whole(names, found):
 
 
 def test_reference_imports_nothing_of_the_port():
-    for name in ("reference.py", "shapes.py", "check.py", "scenes.py"):
+    names = ["reference.py", "shapes.py", "check.py", "scenes.py"]
+    names += [f"references/{p.name}"
+              for p in sorted((BENCH / "references").glob("*.py"))]
+    for name in names:
         text = (BENCH / name).read_text()
         assert "psdr_tpu" not in text and "import jax" not in text
 
