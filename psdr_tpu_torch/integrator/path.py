@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..accel.bruteforce import HitRecord
 from ..bsdf import all_reflective_one_sided, eval_bsdf, pdf_bsdf, sample_bsdf
 from ..core import threefry
@@ -307,10 +308,18 @@ class PathTracer(Integrator):
                 its = its_b
             return its, beta, active, result
 
-        state = (its, beta, active, result)
-        for d in range(D):
-            state = depth_body(state, depth_keys[d], first=(d == 0),
-                               last=(d == D - 1))
+        state = depth_body((its, beta, active, result), depth_keys[0],
+                           first=True, last=(D == 1))
+        for d in range(1, D):
+            # the depths after the camera's: a span of their own, and the
+            # lanes that they launch into K1 (``k1.rays``) counted apart
+            with profiling.span("path.bounce"):
+                rays = profiling.counters().get("k1.rays", 0)
+                state = depth_body(state, depth_keys[d], first=False,
+                                   last=(d == D - 1))
+                profiling.count("k1.rays.bounce",
+                                profiling.counters().get("k1.rays", 0) - rays)
+            profiling.count("path.bounces")
         return state[3]
 
     # -- boundary terms ------------------------------------------------------

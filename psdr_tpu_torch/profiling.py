@@ -28,14 +28,19 @@ timers built on them. Counterpart of ``psdr_tpu/profiling.py``.
 
 The spans of the forward path, one name a layer: ``render`` (the root,
 ``Integrator.render_fn`` and the program cache's bodies), ``camera``,
-``rng``, ``intersect``, ``bsdf``, ``emitter``, ``film``; around them
+``rng``, ``intersect``, ``bsdf``, ``emitter``, ``film``; ``path.bounce``
+around each depth of ``PathTracer.Li`` after the camera's (its shading
+arithmetic, the layers it calls inside it); around them
 ``program.warm_up``, ``program.capture``, ``program.call``,
 ``scene.prepare_accel``, ``scene.build``, ``accel.load_library`` and
-``envmap.tables``. The counters: ``launches.<kernel>``, ``k1.rays`` (the
-lanes launched into K1), ``program.captures.first``,
-``program.captures.retrace`` (graphs captured again after ``retrace_on``
-changed) and ``program.replays``. ``Program.profile_layers`` times the
-layers' spans on the device inside a captured graph.
+``envmap.tables``. ``open_spans()`` names the spans open on the calling
+thread. The counters: ``launches.<kernel>``, ``k1.rays`` (the lanes
+launched into K1), ``k1.rays.bounce`` (those of them launched inside
+``path.bounce``), ``path.bounces`` (the depths run after the camera's),
+``program.captures.first``, ``program.captures.retrace`` (graphs
+captured again after ``retrace_on`` changed) and ``program.replays``.
+``Program.profile_layers`` times the layers' spans on the device inside
+a captured graph.
 """
 from __future__ import annotations
 
@@ -77,6 +82,12 @@ def _stack() -> list:
     except AttributeError:
         _LOCAL.stack = []
         return _LOCAL.stack
+
+
+def open_spans() -> tuple:
+    """The names of the spans open on the calling thread, outermost
+    first."""
+    return tuple(f.name for f in _stack())
 
 
 class _Frame:
