@@ -8,8 +8,9 @@ Every phase passes or the script exits nonzero:
    TF32 off for matmuls and convolutions;
 2. build the kernels (``psdr_tpu_torch/csrc/*.cu``: K1 ``intersect.cu``,
    K2 ``brute.cu``, K3 ``culled.cu``, the fixed-order sum ``segsum.cu``,
-   the random stream ``rng.cu`` and ``Program.profile_layers``' timestamp
-   ``stamp.cu``), one ``nvcc`` per source in parallel;
+   the random stream ``rng.cu``, ``Program.profile_layers``' timestamp
+   ``stamp.cu`` and the materials ``bsdf.cu``), one ``nvcc`` per source in
+   parallel;
 3. K1 against its plain PyTorch version on the card, closest hits bit for
    bit and any hits in ``valid``: a random triangle soup (2048 tris, 600
    rays, mixed ``active`` and ``tmax``), a soup whose tree has an even
@@ -32,7 +33,10 @@ Every phase passes or the script exits nonzero:
    three timed frames, then one profiled frame; K1 and K2 must launch;
    then the random stream's kernels (``csrc/rng.cu``) against the tensor
    code on the card, bit for bit, at the cells' shapes, each timed
-   (``rng_phase``);
+   (``rng_phase``); then the materials kernel (``csrc/bsdf.cu``) in each
+   mode against the BSDF dispatch's tensor code on the card, bit for bit,
+   at 2^19 and 2^21 lanes of the cbox list and of the conductor, each
+   timed (``bsdf_phase``);
 6. K2 against its plain version, bit for bit: the 700- and 24-triangle
    soups, then the bench scene's emitter-first sweep of 2^21
    bounce rays (its 2 emitter faces), timed;
@@ -486,6 +490,13 @@ RNG_BYTES = {"uniform": 4, "random_bits": 8, "split": 16, "fold_in": 16,
 # the draws' element counts on the cells' paths: a 2^21-lane chunk's
 # next_3d (bunny_env), a chunk's next_2d lanes, and cbox_direct's 2^19 lanes
 RNG_SIZES = (3 << 21, 1 << 21, 1 << 19)
+# the materials kernel (csrc/bsdf.cu): cbox_direct's and cbox_path's 2^19
+# lanes a call, bunny_env's 2^21; bytes a lane that it must move with every
+# lane active and constant maps (no uv read): the mask (1), bsdf_id (4) and
+# wi (12) read, then wo (12) read and the value (12) or pdf (4) written, or
+# the sample's two numbers (8) read and valid, pdf and wo (17) written
+BSDF_SIZES = (1 << 19, 1 << 21)
+BSDF_BYTES = {"eval": 41, "pdf": 33, "sample": 42}
 
 
 T_START = time.time()
@@ -1037,6 +1048,109 @@ def rng_phase(intersect, dev):
     return out
 
 
+def bsdf_lists(dev):
+    """{name: (kinds, params_list)}: the cbox cells' four diffuse BSDFs
+    (white, red, green and the light's black) and bunny_env's gold rough
+    conductor (alpha 0.25), constant maps on the card."""
+    def c(*v):
+        return torch.tensor(v, dtype=torch.float32, device=dev).reshape(
+            1, 1, -1)
+    cbox = [{"reflectance": c(*v)} for v in ((0.95, 0.95, 0.95),
+                                             (0.9, 0.2, 0.2), (0.2, 0.9, 0.2),
+                                             (0.0, 0.0, 0.0))]
+    gold = {"alpha_u": c(0.25), "alpha_v": c(0.25),
+            "eta": c(0.2004, 0.9240, 1.1022), "k": c(3.9129, 2.4528, 2.1421),
+            "specular_reflectance": c(1.0, 1.0, 1.0)}
+    return {"cbox list": (("diffuse",) * 4, tuple(cbox)),
+            "conductor": (("roughconductor",), (gold,))}
+
+
+def bsdf_lanes(n, count, dev, seed):
+    """n lanes on the card, all active: wi over the upper hemisphere
+    (shading frames of camera hits), wo over the sphere (NEE directions,
+    half below the horizon), uv and samples uniform, bsdf_id uniform over
+    ``count`` BSDFs."""
+    from psdr_tpu_torch.core.records import Intersection
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def unit(upper):
+        v = torch.randn((n, 3), device=dev, generator=g)
+        v = v / v.norm(dim=1, keepdim=True)
+        if upper:
+            v[:, 2] = v[:, 2].abs()
+        return v
+    its = Intersection(
+        valid=None, t=None, p=None, n=None, sh_frame=None,
+        uv=torch.rand((n, 2), device=dev, generator=g), wi=unit(True),
+        J=None, mesh_id=None, tri_id=None, emitter_id=None,
+        bsdf_id=torch.randint(0, count, (n,), device=dev, generator=g,
+                              dtype=torch.int32))
+    return (its, unit(False), torch.rand((n, 3), device=dev, generator=g),
+            torch.ones((n,), dtype=torch.bool, device=dev))
+
+
+def bsdf_shape(intersect, name, mode, n, fn, plain):
+    """One mode of the materials kernel on n lanes: ``fn()`` (the entry
+    point under ``no_grad``) launched twice, each one launch of
+    ``launches.bsdf`` and no call of the tensor code, both equal to
+    ``plain()`` (its tensor code on the card on the same lanes) bit for
+    bit; both timed (the kernel as 20 launches behind the spin kernel),
+    with the kernel's bytes bound (BSDF_BYTES of ``mode``). Returns its
+    dict."""
+    def launch():
+        before = (intersect.BSDF_LAUNCHES["bsdf"],
+                  intersect.BSDF_PLAIN["plain"])
+        with torch.no_grad():
+            res = fn()
+        if (intersect.BSDF_LAUNCHES["bsdf"] - before[0],
+                intersect.BSDF_PLAIN["plain"] - before[1]) != (1, 0):
+            raise AssertionError(f"phase 5: bsdf {name}: not one launch")
+        return res
+
+    def bits(r):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in (r if mode == "sample" else (r,))]
+    got, again, want = launch(), launch(), plain()
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(bits(got), bits(again), bits(want))):
+        raise AssertionError(f"phase 5: bsdf {name}: the kernel differs from "
+                             "the tensor code or from itself")
+    ms, _ = time_ms(launch, 20, spin=True)
+    # the tensor code's best of two warmed timings: a first call at a new
+    # size can grow the allocator's pool inside the timed launches
+    plain_ms = min(time_ms(plain, 3)[0] for _ in range(2))
+    b_ms, b_by = bound(n * BSDF_BYTES[mode], 0)
+    log(f"  bsdf {name}: kernel = tensor code bit for bit and = itself; "
+        f"{ms:.5f} ms (tensor code {plain_ms:.3f}), bound {b_ms:.5f} ms by "
+        f"{b_by} ({b_ms / ms:.3f})")
+    return {"elements": n, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms}
+
+
+def bsdf_phase(intersect, dev):
+    """Phase 5's materials kernel (``csrc/bsdf.cu``; no TPU kernel's port):
+    each mode of the BSDF dispatch (``bsdf_shape``) at BSDF_SIZES lanes of
+    the cbox list and of the conductor (``bsdf_lists``, ``bsdf_lanes``).
+    Returns {shape: dict}; the first is the main shape."""
+    from psdr_tpu_torch import bsdf
+    entries = {"eval": (bsdf.eval_bsdf, bsdf.eval_bsdf_plain),
+               "pdf": (bsdf.pdf_bsdf, bsdf.pdf_bsdf_plain),
+               "sample": (bsdf.sample_bsdf, bsdf.sample_bsdf_plain)}
+    out = {}
+    for n in BSDF_SIZES:
+        for list_name, (kinds, params) in bsdf_lists(dev).items():
+            its, wo, s3, act = bsdf_lanes(n, len(kinds), dev, seed=n + 5)
+            for mode, (fn, plain) in entries.items():
+                args = (kinds, params, its, s3 if mode == "sample" else wo,
+                        act)
+                name = f"{mode}, {n}, {list_name}"
+                out[name] = bsdf_shape(intersect, name, mode, n,
+                                       lambda: fn(*args),
+                                       lambda: plain(*args))
+    return out
+
+
 def grad_step(render, base, dev, key, image=False):
     """value_and_grad of mean(img^2) (the bench.py loss, target 0) with
     respect to every params leaf: (loss, [grad per leaf]), and the image
@@ -1326,9 +1440,10 @@ def carry_tables(integ, state, device):
 
 def counted(intersect) -> dict:
     """The launches counted since the last ``reset_launch_counts``: K1-K3
-    and segsum (``intersect.LAUNCHES``) and the random stream's kernels
-    (``launches.rng``)."""
-    return {**dict(intersect.LAUNCHES), **dict(intersect.RNG_LAUNCHES)}
+    and segsum (``intersect.LAUNCHES``), the random stream's kernels
+    (``launches.rng``) and the materials kernel (``launches.bsdf``)."""
+    return {**dict(intersect.LAUNCHES), **dict(intersect.RNG_LAUNCHES),
+            **dict(intersect.BSDF_LAUNCHES)}
 
 
 def require_launches(phase, launches):
@@ -4961,7 +5076,7 @@ def main() -> int:
     t0 = time.time()
     lib_path = intersect.build_library()
     intersect.load_library()
-    log(f"phase 2: K1, K2, K3, segsum, rng and stamp built in "
+    log(f"phase 2: K1, K2, K3, segsum, rng, stamp and bsdf built in "
         f"{time.time() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
@@ -4989,6 +5104,8 @@ def main() -> int:
                                              DirectIntegrator(1, 1), 5, 3)
     log("  the random stream's kernels against the tensor code on the card")
     rng = rng_phase(intersect, dev)
+    log("  the materials kernel against the tensor code on the card")
+    materials = bsdf_phase(intersect, dev)
 
     # -- 6. K2 against its plain version --------------------------------------
     log("phase 6: K2 kernel vs plain PyTorch version on the card")
@@ -5363,6 +5480,24 @@ def main() -> int:
         **{k: rng[rng_main][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         "shapes": rng})
+    # the materials kernel: a helper of the port, no TPU kernel's port; its
+    # launches are those of phase 28's replays, its times those of phase 5
+    if prog_launches["bsdf"] == 0:
+        raise AssertionError("the materials kernel did not launch in the "
+                             "forward programs' replays (phase 28)")
+    bsdf_main = next(iter(materials))
+    kernels.append({
+        "name": "bsdf (the BSDF dispatch: eval, pdf and sample in one pass)",
+        "route": "cuda", "source": "psdr_tpu_torch/csrc/bsdf.cu",
+        "replaces": "no TPU kernel (a helper of the port; the BSDF "
+                    "arithmetic of psdr_tpu/bsdf/, which XLA fuses)",
+        "tpu_kernel_port": False,
+        "launches": grad_launches["bsdf"],
+        "launches_forward_programs": prog_launches["bsdf"],
+        "max_abs_err": 0.0, "main_shape": bsdf_main,
+        **{k: materials[bsdf_main][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+        "shapes": materials})
     log(json.dumps({"programs": programs}))
     log(json.dumps({"gradient_programs": grad_programs}))
     log(json.dumps({"guided_reference": guided, "checkpointed": remat,

@@ -61,10 +61,17 @@ LAUNCHES = profiling.CounterGroup(
 # counts are the same for a render under a host key and under a key on
 # the card; this one is not, since host words derive keys on the host.
 RNG_LAUNCHES = profiling.CounterGroup("launches", ("rng",))
+# Launches of the materials kernel (``csrc/bsdf.cu``, in the same library:
+# ``bsdf/__init__.py``'s dispatch), one count a launch: ``launches.bsdf``;
+# and the dispatch's calls on the card that took its differentiable tensor
+# code instead (autograd records them): ``bsdf.plain``. Together they say
+# how often the kernel engages.
+BSDF_LAUNCHES = profiling.CounterGroup("launches", ("bsdf",))
+BSDF_PLAIN = profiling.CounterGroup("bsdf", ("plain",))
 
 
 def reset_launch_counts() -> None:
-    for group in (LAUNCHES, RNG_LAUNCHES):
+    for group in (LAUNCHES, RNG_LAUNCHES, BSDF_LAUNCHES, BSDF_PLAIN):
         for k in group:
             group[k] = 0
 
@@ -134,7 +141,8 @@ def ray_intersect_k3(bvh: BVH, ray_o: torch.Tensor, ray_d: torch.Tensor,
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "intersect.cu", _CSRC / "brute.cu", _CSRC / "culled.cu",
-            _CSRC / "segsum.cu", _CSRC / "rng.cu", _CSRC / "stamp.cu")
+            _CSRC / "segsum.cu", _CSRC / "rng.cu", _CSRC / "stamp.cu",
+            _CSRC / "bsdf.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "psdr_tpu_torch"
@@ -150,7 +158,8 @@ def _find_nvcc() -> str | None:
 
 def build_library(nvcc: str | None = None) -> Path:
     """Compile ``csrc/*.cu`` (K1, K2, K3, ``core/segsum.py``'s reduction,
-    the random stream's kernels and ``Program.profile_layers``' timestamp),
+    the random stream's kernels, ``Program.profile_layers``' timestamp and
+    the materials kernel),
     one ``nvcc`` per source, all
     started together, and link them into one library,
     ``build/psdr_tpu_torch/<hash of the sources and flags>/
@@ -216,10 +225,11 @@ def load_library(nvcc: str | None = None) -> ctypes.CDLL:
             lib.psdr_ld2d.argtypes = (
                 [ptr, ptr, i64, ptr, u32, u32, ptr, ptr])
             lib.psdr_stamp.argtypes = [ptr, i32, ptr]
+            lib.psdr_bsdf.argtypes = [i32] + [ptr] * 4
             for fn in (lib.psdr_k1_intersect, lib.psdr_k2_brute,
                        lib.psdr_k3_culled, lib.psdr_segsum,
                        lib.psdr_threefry, lib.psdr_randint, lib.psdr_ld2d,
-                       lib.psdr_stamp):
+                       lib.psdr_stamp, lib.psdr_bsdf):
                 fn.restype = i32
             _LIB = lib
     return _LIB

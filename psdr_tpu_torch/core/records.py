@@ -9,6 +9,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from .frame import Frame
 
@@ -118,6 +119,16 @@ def any_requires_grad(x) -> bool:
     requires grad."""
     found = []
     _map_tensors(lambda t: found.append(t.requires_grad), x)
+    return any(found)
+
+
+def any_tangent(x) -> bool:
+    """Whether a tensor of ``x`` (a tree as ``detach_tree`` takes)
+    carries a forward-mode tangent at the current dual level (``no_grad``
+    leaves those on)."""
+    found = []
+    _map_tensors(lambda t: found.append(
+        fwAD.unpack_dual(t).tangent is not None), x)
     return any(found)
 
 

@@ -37,6 +37,7 @@ arithmetic, the layers it calls inside it); around them
 thread. The counters: ``launches.<kernel>``, ``k1.rays`` (the lanes
 launched into K1), ``k1.rays.bounce`` (those of them launched inside
 ``path.bounce``), ``path.bounces`` (the depths run after the camera's),
+``bsdf.plain`` (BSDF calls on the card that took the tensor code),
 ``program.captures.first``, ``program.captures.retrace`` (graphs
 captured again after ``retrace_on`` changed) and ``program.replays``.
 ``Program.profile_layers`` times the layers' spans on the device inside
